@@ -1,0 +1,524 @@
+"""GPUStatsBackend — the two-pass scan on one device.
+
+Counterpart of the two-pass, single-process, no-checkpoint path of
+``tpuprof/backends/tpu.py`` (``TPUStatsBackend.collect``) and its helpers.
+Batches stream once through pass A (kernel K1: moments, min/max, null/zero/
+inf counts, the pairwise Pearson Gram; host: HLL registers, the row sample,
+Misra-Gries, dates, the exact-unique tracker), then, for a rescannable
+source, once more through pass B (kernel K2: exact histograms and MAD on the
+pass-A bounds; host: the exact top-k recount).  ``_assemble`` turns the
+merged results into the stats dict.
+
+Division of labour: the device folds every numeric statistic; the host
+decodes strings, hashes, keeps the frequent values, dates and first rows.
+Numeric values are profiled in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import pandas as pd
+
+from tpuprof_torch import native, schema
+from tpuprof_torch.config import (ProfilerConfig, resolve_prepare_workers,
+                                  resolve_unique_budget)
+from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
+                                        prefetch_prepared)
+from tpuprof_torch.ingest.sample import RowSampler
+from tpuprof_torch.kernels import corr as kcorr
+from tpuprof_torch.kernels import histogram as khistogram
+from tpuprof_torch.kernels import hll as khll
+from tpuprof_torch.kernels import moments as kmoments
+from tpuprof_torch.kernels import unique as kunique
+from tpuprof_torch.kernels.topk import MisraGries
+from tpuprof_torch.kernels.unique import UniqueTracker
+from tpuprof_torch.runtime.runner import Runner
+
+
+def estimate_shift(hb: HostBatch) -> np.ndarray:
+    """Per-column centering from a prefix of the first batch (K1's shift
+    input): any value near the data's scale conditions the float32 sums;
+    all-missing columns center at 0."""
+    prefix = hb.x[: min(hb.nrows, 4096)]
+    if prefix.shape[0] == 0:
+        return np.zeros(prefix.shape[1], dtype=np.float32)
+    finite = np.isfinite(prefix)
+    cnt = finite.sum(axis=0)
+    sums = np.where(finite, prefix, 0.0).sum(axis=0)
+    return (sums / np.maximum(cnt, 1)).astype(np.float32)
+
+
+class HostAgg:
+    """Host-side accumulators folded during pass A."""
+
+    def __init__(self, plan: ColumnPlan, config: ProfilerConfig):
+        self.config = config
+        self.n_rows = 0
+        self.col_nbytes: Dict[str, int] = {}
+        self.col_dict_nbytes: Dict[str, int] = {}
+        self.mg: Dict[str, MisraGries] = {
+            s.name: MisraGries(config.topk_capacity)
+            for s in plan.by_role("cat")}
+        # exact "duplicate seen" flags keep the reference's exact UNIQUE
+        # classification for columns whose Misra-Gries summary overflows
+        self.unique = UniqueTracker(
+            (s.name for s in plan.by_role("cat")), config.unique_track_rows,
+            resolve_unique_budget(config.unique_track_total_rows))
+        self.cat_null: Dict[str, int] = {s.name: 0
+                                         for s in plan.by_role("cat")}
+        self.date_min: Dict[str, int] = {}
+        self.date_max: Dict[str, int] = {}
+        self.date_null: Dict[str, int] = {s.name: 0
+                                          for s in plan.by_role("date")}
+        self.first_values: Dict[str, list] = {}
+
+    def update(self, hb: HostBatch) -> None:
+        first = self.n_rows == 0
+        self.n_rows += hb.nrows
+        for name, nb in (hb.col_nbytes or {}).items():
+            self.col_nbytes[name] = self.col_nbytes.get(name, 0) + nb
+        for name, nb in (hb.col_dict_nbytes or {}).items():
+            self.col_dict_nbytes[name] = max(
+                self.col_dict_nbytes.get(name, 0), nb)
+        for name, (codes, dvals) in hb.cat_codes.items():
+            codes = codes[: hb.nrows]
+            valid = codes >= 0
+            self.cat_null[name] += int((~valid).sum())
+            if valid.any() and len(dvals):
+                cnt = np.bincount(codes[valid], minlength=len(dvals))
+                nz = np.nonzero(cnt)[0]
+                dh = (hb.cat_hashes or {}).get(name)
+                self.mg[name].update_batch(
+                    dvals[nz], cnt[nz],
+                    hashes=dh[nz] if dh is not None else None)
+                if self.unique.active(name):
+                    if dh is None:
+                        # no hashes: coverage broken, the exact claim goes
+                        self.unique.deactivate(name)
+                    else:
+                        kind = (hb.cat_hash_kind or {}).get(name, "")
+                        self.unique.update(name, dh[codes[valid]],
+                                           hash_kind=kind)
+            if first:
+                self.first_values[name] = [
+                    dvals[c] if c >= 0 else None for c in codes[:5]]
+        for name, (ints, valid) in hb.date_ints.items():
+            ints, valid = ints[: hb.nrows], valid[: hb.nrows]
+            self.date_null[name] += int((~valid).sum())
+            if valid.any():
+                lo, hi = int(ints[valid].min()), int(ints[valid].max())
+                self.date_min[name] = min(self.date_min.get(name, lo), lo)
+                self.date_max[name] = max(self.date_max.get(name, hi), hi)
+
+    def memorysize(self, name: str) -> float:
+        """Arrow buffer bytes for one column (NaN if never observed)."""
+        if name not in self.col_nbytes:
+            return float("nan")
+        return float(self.col_nbytes[name]
+                     + self.col_dict_nbytes.get(name, 0))
+
+
+class Recounter:
+    """Pass-B exact recount of the Misra-Gries candidates (the
+    reference's exact ``groupBy().count()`` for the reported top-k)."""
+
+    def __init__(self, hostagg: HostAgg):
+        self.indexes: Dict[str, pd.Index] = {}
+        self.counts: Dict[str, np.ndarray] = {}
+        # dictionary -> candidate indexers, memoized on the values object
+        self._dv_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for name, mg in hostagg.mg.items():
+            cands = pd.Index(list(mg.candidates()))
+            self.indexes[name] = cands
+            self.counts[name] = np.zeros(len(cands), dtype=np.int64)
+
+    def update(self, hb: HostBatch) -> None:
+        for name, (codes, dvals) in hb.cat_codes.items():
+            codes = codes[: hb.nrows]
+            valid = codes >= 0
+            if not valid.any() or not len(dvals):
+                continue
+            cnt = np.bincount(codes[valid], minlength=len(dvals))
+            ent = self._dv_cache.get(name)
+            if ent is None or ent[0] is not dvals:
+                ent = (dvals, self.indexes[name].get_indexer(dvals))
+                self._dv_cache[name] = ent
+            cand_idx = ent[1]
+            hit = cand_idx >= 0
+            np.add.at(self.counts[name], cand_idx[hit], cnt[hit])
+
+    def value_counts(self, name: str) -> pd.Series:
+        return pd.Series(self.counts[name], index=self.indexes[name]
+                         ).sort_values(ascending=False)
+
+
+class GPUStatsBackend:
+    """Profile an in-memory table with the two-pass scan on one device."""
+
+    name = "gpu"
+
+    def __init__(self, device=None):
+        self._device = device
+
+    def collect(self, source: Any, config: ProfilerConfig) -> Dict[str, Any]:
+        ingest = ArrowIngest(source, config.batch_rows,
+                             columns=config.columns)
+        plan = ingest.plan
+        if not plan.specs:
+            return _empty_stats(config)
+        runner = Runner(config, plan.n_num, plan.n_hash, self._device)
+        pad = runner.rows
+        workers = resolve_prepare_workers(config.prepare_workers)
+        scan_s = max(int(config.scan_batches), 1)
+        depth = max(2, min(scan_s, 8))
+
+        hostagg = HostAgg(plan, config)
+        sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
+                             seed=config.seed)
+        # HLL registers fold on the host when the native library builds;
+        # otherwise the packed plane ships to the device scatter-max
+        host_hll = khll.HostRegisters(plan.n_hash, config.hll_precision) \
+            if plan.n_hash > 0 and native.available() else None
+        with_hll = host_hll is None
+
+        def flush_group(pending, fold_staged, fold_one):
+            """The staged-vs-tail flush policy of both passes: a FULL group
+            ships as one stacked copy folded by one scan; a partial group
+            (the tail) folds batch by batch.  Both run the same per-batch
+            kernel calls in the same order."""
+            if len(pending) == scan_s and scan_s > 1:
+                fold_staged(pending)
+            else:
+                for p in pending:
+                    fold_one(p)
+            pending.clear()
+
+        # ---- pass A ------------------------------------------------------
+        state = None
+        batches = prefetch_prepared(ingest, pad, config.hll_precision,
+                                    depth=depth, workers=workers)
+        pending: List[HostBatch] = []
+
+        def staged_a(group):
+            nonlocal state
+            state = runner.scan_a(state, runner.stage_batches(
+                group, with_hll=with_hll))
+
+        def one_a(hb):
+            nonlocal state
+            state = runner.step_a(state, runner.put_batch(
+                hb, with_hll=with_hll))
+
+        for hb in batches:
+            if state is None:
+                state = runner.init_pass_a(estimate_shift(hb))
+            # host folds run while the device works on earlier groups
+            sampler.update(hb.x, hb.nrows)
+            if host_hll is not None:
+                host_hll.update(hb.hll, hb.nrows)
+            hostagg.update(hb)
+            pending.append(hb)
+            if len(pending) >= scan_s:
+                flush_group(pending, staged_a, one_a)
+        flush_group(pending, staged_a, one_a)
+        if state is None:
+            state = runner.init_pass_a()
+
+        run_pass_b = config.exact_passes and ingest.rescannable \
+            and plan.n_num > 0 and hostagg.n_rows > 0
+        # pass-B bounds come off the device (no host round trip first)
+        bounds_d = runner.bounds_b_device(state) if run_pass_b else None
+        res_a = runner.finalize_a(state)
+        momf = kmoments.finalize(res_a["mom"])
+        rho_all = kcorr.finalize(res_a["corr"])
+        probes = list(config.quantile_probes)
+        quants = sampler.quantiles(probes)
+        sample_vals, sample_kept = sampler.columns()
+        hll_est = khll.finalize(host_hll.regs if host_hll is not None
+                                else res_a["hll"])
+
+        # ---- pass B: exact histograms + MAD + top-k recount ----------------
+        hists: Optional[List] = None
+        mad: Optional[np.ndarray] = None
+        recounter: Optional[Recounter] = None
+        if run_pass_b:
+            recounter = Recounter(hostagg)
+            state_b = runner.init_pass_b()
+            lo_d, hi_d, mean_d = bounds_d
+
+            def staged_b(group):
+                nonlocal state_b
+                state_b = runner.scan_b(
+                    state_b, runner.stage_batches(group, with_hll=False),
+                    lo_d, hi_d, mean_d)
+
+            def one_b(hb):
+                nonlocal state_b
+                state_b = runner.step_b(
+                    state_b, runner.put_batch(hb, with_hll=False),
+                    lo_d, hi_d, mean_d)
+
+            pending_b: List[HostBatch] = []
+            for hb in prefetch_prepared(ingest, pad, config.hll_precision,
+                                        depth=depth, hashes=False,
+                                        workers=workers):
+                recounter.update(hb)
+                pending_b.append(hb)
+                if len(pending_b) >= scan_s:
+                    flush_group(pending_b, staged_b, one_b)
+            flush_group(pending_b, staged_b, one_b)
+            hists, mad = khistogram.finalize(
+                runner.finalize_b(state_b), momf["fmin"], momf["fmax"],
+                momf["n"], config.bins)
+        elif config.exact_passes and ingest.rescannable \
+                and hostagg.n_rows > 0:
+            # no numeric columns: only the top-k recount needs a rescan
+            recounter = Recounter(hostagg)
+            for hb in prefetch_prepared(ingest, pad, config.hll_precision,
+                                        depth=depth, hashes=False,
+                                        workers=workers):
+                recounter.update(hb)
+
+        return _assemble(plan, config, ingest.sample(config.sample_rows),
+                         hostagg, momf, rho_all, quants, sample_vals,
+                         sample_kept, hll_est, hists, mad, recounter, probes)
+
+
+# ---------------------------------------------------------------------------
+# Assembly: merged device/host results -> the stats dict contract
+# ---------------------------------------------------------------------------
+
+def _sample_mode(values: np.ndarray, kept: np.ndarray) -> float:
+    """Mode estimated from the uniform sample (exact when the sample holds
+    the whole column)."""
+    v = values[kept]
+    if not v.size:
+        return np.nan
+    uniq, cnt = np.unique(v, return_counts=True)
+    return float(uniq[np.argmax(cnt)])
+
+
+def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
+              sample_vals, sample_kept, hll_est, hists, mad, recounter,
+              probes) -> Dict[str, Any]:
+    n = hostagg.n_rows
+    variables: Dict[str, Dict[str, Any]] = {}
+    freq: Dict[str, pd.Series] = {}
+
+    # ---- first sweep: per-column counts/distincts + provisional kinds ----
+    unique_status = hostagg.unique.resolve()
+    kinds: Dict[str, str] = {}
+    commons: Dict[str, Dict[str, Any]] = {}
+    for spec in plan.specs:
+        distinct_approx = False
+        if spec.role == "num":
+            lane = spec.num_lane
+            n_missing = int(momf["n_missing"][lane])
+            count = n - n_missing
+            if count > 0 and momf["min"][lane] == momf["max"][lane]:
+                distinct = 1
+            elif spec.base_kind == schema.BOOL:
+                distinct = 2 if count else 0
+            else:
+                distinct = int(round(hll_est[spec.hash_lane]))
+                distinct = max(min(distinct, count), 1 if count else 0)
+                distinct_approx = count > 0
+        elif spec.role == "date":
+            n_missing = hostagg.date_null[spec.name]
+            count = n - n_missing
+            distinct = int(round(hll_est[spec.hash_lane]))
+            distinct = max(min(distinct, count), 1 if count else 0)
+            distinct_approx = count > 0
+        else:
+            n_missing = hostagg.cat_null[spec.name]
+            count = n - n_missing
+            exact_distinct = hostagg.mg[spec.name].distinct_count()
+            if exact_distinct is not None:
+                distinct = exact_distinct
+            else:
+                # Misra-Gries overflowed; the duplicate tracker keeps the
+                # exact `distinct == count -> UNIQUE` rule, and only the
+                # OVERFLOW tier is an estimate (and says so)
+                est = max(min(int(round(hll_est[spec.hash_lane])), count),
+                          1 if count else 0)
+                status = unique_status.get(spec.name)
+                if status == kunique.UNIQUE:
+                    distinct = count
+                elif status == kunique.DUP:
+                    distinct = min(est, count - 1)
+                    distinct_approx = True
+                else:
+                    distinct = est
+                    distinct_approx = True
+        commons[spec.name] = {
+            "count": count,
+            "n_missing": n_missing,
+            "p_missing": n_missing / n if n else 0.0,
+            "distinct_count": distinct,
+            "p_unique": distinct / count if count else 0.0,
+            # UNIQUE/is_unique are exact claims; an estimate that happens
+            # to clamp to `count` must not make them
+            "is_unique": count > 0 and distinct == count
+            and not distinct_approx,
+            "distinct_approx": distinct_approx,
+            "memorysize": hostagg.memorysize(spec.name),
+        }
+        kind = schema.classify(spec.base_kind, distinct, count)
+        if kind == schema.UNIQUE and distinct_approx:
+            kind = schema.CAT
+        kinds[spec.name] = kind
+
+    # ---- correlation rejection over refined-NUM columns ------------------
+    num_specs = [s for s in plan.specs
+                 if s.role == "num" and kinds[s.name] == schema.NUM]
+    num_names = [s.name for s in num_specs]
+    lanes = [s.num_lane for s in num_specs]
+    corr_df = pd.DataFrame(rho_all[np.ix_(lanes, lanes)],
+                           index=num_names, columns=num_names) \
+        if len(lanes) >= 2 else pd.DataFrame()
+    rejected = schema.reject_by_correlation(corr_df, num_names, config) \
+        if len(lanes) >= 2 else {}
+    for name in rejected:
+        kinds[name] = schema.CORR
+
+    # ---- per-column stats -------------------------------------------------
+    for spec in plan.specs:
+        name, kind, common = spec.name, kinds[spec.name], commons[spec.name]
+        stats = dict(common)
+        if kind == schema.NUM:
+            stats.update(_numeric_stats(spec.num_lane, momf, quants,
+                                        sample_vals, sample_kept, hists,
+                                        mad, probes, config))
+        elif kind == schema.BOOL:
+            lane = spec.num_lane
+            n_true = int(round(momf["sum"][lane])) if common["count"] else 0
+            vc = pd.Series({True: n_true,
+                            False: common["count"] - n_true}
+                           ).sort_values(ascending=False)
+            freq[name] = vc
+            stats["mean"] = float(momf["mean"][lane])
+            stats["mode"] = bool(vc.index[0]) if common["count"] else np.nan
+            stats["mode_approx"] = False    # from exact true/false counts
+            stats["top"] = stats["mode"]
+            stats["freq"] = int(vc.iloc[0]) if common["count"] else 0
+        elif kind == schema.CAT:
+            vc = (recounter.value_counts(name)
+                  if recounter is not None
+                  else pd.Series({v: c for v, c in
+                                  hostagg.mg[name].top(
+                                      config.topk_capacity)}))
+            vc = vc.sort_values(ascending=False)
+            stats["mode"] = vc.index[0] if len(vc) else np.nan
+            stats["top"] = stats["mode"]
+            stats["freq"] = int(vc.iloc[0]) if len(vc) else 0
+            freq[name] = vc.head(config.top_freq)
+        elif kind == schema.DATE:
+            lo = hostagg.date_min.get(name)
+            hi = hostagg.date_max.get(name)
+            stats["min"] = pd.Timestamp(lo) if lo is not None else pd.NaT
+            stats["max"] = pd.Timestamp(hi) if hi is not None else pd.NaT
+            stats["range"] = (stats["max"] - stats["min"]) \
+                if lo is not None else pd.NaT
+        elif kind == schema.CONST:
+            stats["mode"] = _const_mode(spec, momf, hostagg)
+        elif kind == schema.UNIQUE:
+            stats["first_rows"] = [
+                v for v in hostagg.first_values.get(name, []) if v is not None
+            ][:5]
+        elif kind == schema.CORR:
+            other, rho = rejected[name]
+            stats.update({"correlation_var": other, "correlation": rho})
+        stats["type"] = kind
+        variables[name] = stats
+
+    table = schema.make_table_stats(
+        n, variables,
+        memorysize=float(sum(hostagg.memorysize(c)
+                             for c in hostagg.col_nbytes))
+        if hostagg.col_nbytes else np.nan)
+    return {
+        "table": table,
+        "variables": variables,
+        "freq": freq,
+        "correlations": {"pearson": corr_df},
+        "messages": schema.derive_messages(variables, config),
+        "sample": sample_df,
+    }
+
+
+def _numeric_stats(lane, momf, quants, sample_vals, sample_kept, hists, mad,
+                   probes, config) -> Dict[str, Any]:
+    out = {
+        "mean": float(momf["mean"][lane]),
+        "std": float(momf["std"][lane]),
+        "variance": float(momf["variance"][lane]),
+        "cv": float(momf["cv"][lane]),
+        "skewness": float(momf["skewness"][lane]),
+        "kurtosis": float(momf["kurtosis"][lane]),
+        "sum": float(momf["sum"][lane]),
+        "min": float(momf["min"][lane]),
+        "max": float(momf["max"][lane]),
+        "n_zeros": int(momf["n_zeros"][lane]),
+        "n_infinite": int(momf["n_inf"][lane]),
+    }
+    out["range"] = out["max"] - out["min"]
+    n_valid = int(momf["n"][lane]) + int(momf["n_inf"][lane])
+    out["p_zeros"] = out["n_zeros"] / n_valid if n_valid else 0.0
+    out["p_infinite"] = out["n_infinite"] / n_valid if n_valid else 0.0
+    for idx, p in enumerate(probes):
+        out[schema.QUANTILE_FIELDS[p]] = float(quants[idx, lane])
+    out["iqr"] = out["p75"] - out["p25"]
+    if mad is not None:
+        out["mad"] = float(mad[lane])
+    else:  # single-pass mode: MAD from the uniform sample
+        v = sample_vals[lane][sample_kept[lane]]
+        out["mad"] = float(np.abs(v - v.mean()).mean()) if v.size else np.nan
+    if hists is not None:
+        out["histogram"] = hists[lane]
+    else:  # single-pass mode: sample-scaled histogram
+        v = sample_vals[lane][sample_kept[lane]]
+        if v.size and np.isfinite(momf["fmin"][lane]) \
+                and momf["fmax"][lane] > momf["fmin"][lane]:
+            counts, edges = np.histogram(
+                v, bins=config.bins,
+                range=(momf["fmin"][lane], momf["fmax"][lane]))
+            scale = momf["n"][lane] / max(v.size, 1)
+            out["histogram"] = ((counts * scale).astype(np.int64), edges)
+        else:
+            out["histogram"] = None
+    out["mini_histogram"] = out["histogram"]
+    out["mode"] = _sample_mode(sample_vals[lane], sample_kept[lane])
+    # exact iff the sample holds every value of the column and the column
+    # has no infinities (the sample keeps finite values only)
+    out["mode_approx"] = \
+        int(sample_kept[lane].sum()) < int(momf["n"][lane]) \
+        or int(momf["n_inf"][lane]) > 0
+    return out
+
+
+def _const_mode(spec, momf, hostagg):
+    if spec.role == "num":
+        v = momf["min"][spec.num_lane]
+        if not np.isfinite(v):        # empty column: min is the +inf identity
+            return np.nan
+        if spec.base_kind == schema.BOOL:
+            return bool(v)
+        return float(v)
+    if spec.role == "date":
+        lo = hostagg.date_min.get(spec.name)
+        return pd.Timestamp(lo) if lo is not None else pd.NaT
+    top = hostagg.mg[spec.name].top(1)
+    return top[0][0] if top else np.nan
+
+
+def _empty_stats(config) -> Dict[str, Any]:
+    return {
+        "table": schema.make_table_stats(0, {}),
+        "variables": {},
+        "freq": {},
+        "correlations": {"pearson": pd.DataFrame()},
+        "messages": [],
+        "sample": pd.DataFrame(),
+    }

@@ -1,0 +1,279 @@
+"""Profiler configuration of the port (counterpart of ``tpuprof/config.py``).
+
+Every field of the reference's ``ProfilerConfig`` exists here under the same
+name and default, so a reference configuration carries over.  The fields
+this slice of the port runs are validated as the reference validates them;
+every other field is accepted only at its default and raises
+``NotImplementedError`` naming the later slice otherwise — never silently
+ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+PASS_B_KERNELS = ("cumulative", "legacy")
+
+# the exact-unique tracker's global row budget when none is given (the
+# reference's historical default)
+UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
+
+_CHECKPOINT = "checkpoint/streaming/artifacts"
+_FLEET = "multi-GPU and fleet"
+_SERVE = "serve"
+_TELEMETRY = "telemetry"
+
+# field -> the later slice that ports it
+_LATER = {
+    "nested": "nested columns (Parquet sources)",
+    "parity": "exact distinct counting and Spearman",
+    "backend": "a CPU oracle backend",
+    "unique_partitions": "spilled exact-unique tracking",
+    "unique_spill_workers": "spilled exact-unique tracking",
+    "unique_spill_dir": "spilled exact-unique tracking",
+    "spill_dir_auto": "spilled exact-unique tracking",
+    "exact_distinct": "exact distinct counting",
+    "mesh_devices": _FLEET,
+    "stream_flush_rows": _CHECKPOINT,
+    "compile_cache_dir": _SERVE,
+    "artifact_path": _CHECKPOINT,
+    "checkpoint_path": _CHECKPOINT,
+    "checkpoint_every_batches": _CHECKPOINT,
+    "checkpoint_keep": _CHECKPOINT,
+    "ingest_retries": "ingest fault tolerance",
+    "retry_backoff_s": "ingest fault tolerance",
+    "max_quarantined": "ingest fault tolerance",
+    "quarantine_log": "ingest fault tolerance",
+    "drain_timeout_s": "ingest fault tolerance",
+    "barrier_timeout_s": _FLEET,
+    "elastic": _FLEET,
+    "fleet_dir": _FLEET,
+    "fleet_host_id": _FLEET,
+    "liveness_timeout_s": _FLEET,
+    "serve_workers": _SERVE,
+    "serve_queue_depth": _SERVE,
+    "serve_tenant_quota": _SERVE,
+    "serve_http_port": _SERVE,
+    "serve_auth_file": _SERVE,
+    "serve_backlog": _SERVE,
+    "serve_drain_timeout_s": _SERVE,
+    "breaker_threshold": _SERVE,
+    "breaker_cooldown_s": _SERVE,
+    "serve_max_connections": _SERVE,
+    "serve_conn_timeout_s": _SERVE,
+    "serve_max_header_bytes": _SERVE,
+    "serve_max_body_bytes": _SERVE,
+    "job_timeout_s": _SERVE,
+    "watch_every_s": _SERVE,
+    "warehouse_dir": _SERVE,
+    "warehouse_format": _SERVE,
+    "aot_cache_dir": _SERVE,
+    "aot_cache": _SERVE,
+    "aot_prewarm": _SERVE,
+    "read_cache": _SERVE,
+    "read_cache_entries": _SERVE,
+    "read_cache_bytes": _SERVE,
+    "artifact_keep": _CHECKPOINT,
+    "prep_workers": "parallel intra-batch ingest",
+    "metrics_enabled": _TELEMETRY,
+    "metrics_path": _TELEMETRY,
+    "metrics_interval": _TELEMETRY,
+    "metrics_max_bytes": _TELEMETRY,
+    "metrics_block_sample": _TELEMETRY,
+    "use_pallas": "none: the port always runs its kernels on CUDA",
+    "use_fused": "none: the port always runs its kernels on CUDA",
+    "seed_edges": "single-pass profiles",
+    "spearman": "Spearman (kernels K5/K6)",
+    "spearman_grid": "Spearman (kernels K5/K6)",
+}
+
+
+@dataclasses.dataclass
+class ProfilerConfig:
+    # ---- parity knobs (reference constructor kwargs) ----------------------
+    bins: int = 10                  # histogram bin count
+    corr_reject: float = 0.9        # |Pearson| above this vs an earlier
+                                    # column rejects the later one (CORR)
+    sample_rows: int = 5            # head rows shown in the report
+    top_freq: int = 10              # value-count rows shown per CAT column
+    correlation_overrides: Optional[Sequence[str]] = None  # never reject
+    columns: Optional[Sequence[str]] = None  # profile only these, in order
+
+    # ---- warning thresholds -----------------------------------------------
+    high_cardinality_threshold: int = 50
+    missing_threshold: float = 0.19
+    zeros_threshold: float = 0.5
+    skewness_threshold: float = 20.0
+
+    # ---- scan knobs -------------------------------------------------------
+    batch_rows: int = 1 << 16       # rows per batch shipped to the device
+    scan_batches: int = 8           # S: full groups of S batches ship as one
+                                    # host-to-device copy and fold in one
+                                    # call; partial groups fold per batch
+    quantile_sketch_size: int = 4096  # K: uniform row-sample size
+    hll_precision: int = 11         # p: 2^p registers per column
+    topk_capacity: int = 4096       # Misra-Gries capacity per CAT column
+    unique_track_rows: int = 1 << 22        # exact duplicate detection:
+    unique_track_total_rows: Optional[object] = None  # per column / total
+    exact_passes: bool = True       # second scan: exact histograms, exact
+                                    # MAD and exact top-k recounts
+    prepare_workers: Optional[int] = None   # batches prepared concurrently
+    seed: int = 0                   # seed of the row sample
+    pass_b_kernel: Optional[str] = None     # "cumulative" | "legacy": the
+                                            # reference's two pass-B
+                                            # formulations (same counts)
+    profile_passes: Optional[str] = None    # only "two_pass" in this slice
+    quantile_probes: Sequence[float] = (0.05, 0.25, 0.5, 0.75, 0.95)
+
+    # ---- reference fields a later slice ports (see _LATER) ----------------
+    nested: str = "stringify"
+    parity: bool = False
+    backend: str = "auto"
+    unique_partitions: Optional[int] = None
+    unique_spill_workers: Optional[int] = None
+    unique_spill_dir: Optional[str] = None
+    spill_dir_auto: bool = False
+    exact_distinct: bool = False
+    mesh_devices: Optional[int] = None
+    stream_flush_rows: Optional[int] = None
+    compile_cache_dir: Optional[str] = None
+    artifact_path: Optional[str] = None
+    checkpoint_path: Optional[str] = None
+    checkpoint_every_batches: int = 64
+    checkpoint_keep: Optional[int] = None
+    ingest_retries: Optional[int] = None
+    retry_backoff_s: Optional[float] = None
+    max_quarantined: Optional[int] = None
+    quarantine_log: Optional[str] = None
+    drain_timeout_s: Optional[float] = None
+    barrier_timeout_s: Optional[float] = None
+    elastic: Optional[bool] = None
+    fleet_dir: Optional[str] = None
+    fleet_host_id: Optional[str] = None
+    liveness_timeout_s: Optional[float] = None
+    serve_workers: Optional[int] = None
+    serve_queue_depth: Optional[int] = None
+    serve_tenant_quota: Optional[int] = None
+    serve_http_port: Optional[int] = None
+    serve_auth_file: Optional[str] = None
+    serve_backlog: Optional[int] = None
+    serve_drain_timeout_s: Optional[float] = None
+    breaker_threshold: Optional[int] = None
+    breaker_cooldown_s: Optional[float] = None
+    serve_max_connections: Optional[int] = None
+    serve_conn_timeout_s: Optional[float] = None
+    serve_max_header_bytes: Optional[int] = None
+    serve_max_body_bytes: Optional[int] = None
+    job_timeout_s: Optional[float] = None
+    watch_every_s: Optional[float] = None
+    warehouse_dir: Optional[str] = None
+    warehouse_format: Optional[str] = None
+    aot_cache_dir: Optional[str] = None
+    aot_cache: Optional[str] = None
+    aot_prewarm: Optional[int] = None
+    read_cache: Optional[str] = None
+    read_cache_entries: Optional[int] = None
+    read_cache_bytes: Optional[int] = None
+    artifact_keep: Optional[int] = None
+    prep_workers: Optional[int] = None
+    metrics_enabled: Optional[bool] = None
+    metrics_path: Optional[str] = None
+    metrics_interval: float = 0.0
+    metrics_max_bytes: Optional[int] = None
+    metrics_block_sample: int = 0
+    use_pallas: Optional[bool] = None
+    use_fused: Optional[bool] = None
+    seed_edges: Optional[str] = None
+    spearman: bool = False
+    spearman_grid: int = 256
+
+    def __post_init__(self) -> None:
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name, slice_name in _LATER.items():
+            value = getattr(self, name)
+            if value != defaults[name]:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not in the PyTorch port yet "
+                    f"(later slice: {slice_name}); leave it at "
+                    f"{defaults[name]!r}")
+        if self.profile_passes not in (None, "two_pass"):
+            if self.profile_passes == "fused":
+                raise NotImplementedError(
+                    "profile_passes='fused' is not in the PyTorch port yet "
+                    "(later slice: single-pass profiles, kernel K4)")
+            raise ValueError(f"profile_passes={self.profile_passes!r} — "
+                             "use 'two_pass' (or None)")
+        if self.pass_b_kernel not in (None,) + PASS_B_KERNELS:
+            raise ValueError(f"pass_b_kernel={self.pass_b_kernel!r} — use "
+                             f"one of {PASS_B_KERNELS} (or None)")
+        if self.bins < 1:
+            raise ValueError("bins must be >= 1")
+        if self.batch_rows < 1:
+            raise ValueError("batch_rows must be >= 1")
+        if self.scan_batches < 1:
+            raise ValueError("scan_batches must be >= 1")
+        if self.prepare_workers is not None and self.prepare_workers < 1:
+            raise ValueError("prepare_workers must be >= 1 (or None)")
+        if not 0.0 < self.corr_reject <= 1.0:
+            raise ValueError("corr_reject must be in (0, 1]")
+        if self.columns is not None:
+            cols = tuple(self.columns)
+            if not cols:
+                raise ValueError(
+                    "columns must name at least one column (or be None "
+                    "to profile every column)")
+            if not all(isinstance(c, str) and c for c in cols):
+                raise ValueError("columns must be non-empty strings")
+            dupes = sorted({c for c in cols if cols.count(c) > 1})
+            if dupes:
+                raise ValueError(f"columns lists duplicates: {dupes}")
+            self.columns = cols
+        if isinstance(self.unique_track_total_rows, str) \
+                and self.unique_track_total_rows.strip().lower() != "auto":
+            int(self.unique_track_total_rows)      # raises ValueError
+        from tpuprof_torch.kernels.hll import MAX_PRECISION
+        if not 4 <= self.hll_precision <= MAX_PRECISION:
+            raise ValueError(
+                f"hll_precision must be in [4, {MAX_PRECISION}]")
+
+    @property
+    def pass_b(self) -> str:
+        """The pass-B formulation name (None means the default)."""
+        return self.pass_b_kernel or "cumulative"
+
+    @classmethod
+    def from_kwargs(cls, **kwargs) -> "ProfilerConfig":
+        """Build a config from ``ProfileReport(**kwargs)``, ignoring
+        names that are no field, as the reference does."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in kwargs.items() if k in fields})
+
+
+def resolve_unique_budget(value=None) -> int:
+    """Global exact-unique tracking budget in rows: an int wins; "auto"
+    takes a quarter of available RAM at 8 bytes a row (floored at the
+    default, capped at 2**28 rows); None is the default."""
+    if value is None:
+        return UNIQUE_BUDGET_DEFAULT_ROWS
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v != "auto":
+            return int(v)
+        try:
+            avail = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+        except (AttributeError, ValueError, OSError):
+            avail = 2 << 30
+        return max(UNIQUE_BUDGET_DEFAULT_ROWS,
+                   min(int(avail * 0.25) // 8, 1 << 28))
+    return int(value)
+
+
+def resolve_prepare_workers(value: Optional[int] = None) -> int:
+    """Batches prepared concurrently: the config value, else half the cores
+    capped at 4."""
+    if value is not None:
+        return max(int(value), 1)
+    return max(1, min(4, (os.cpu_count() or 1) // 2))
+

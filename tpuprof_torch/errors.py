@@ -1,0 +1,6 @@
+"""Errors the port raises (counterpart of the subset of ``tpuprof/errors.py``
+that this package uses)."""
+
+
+class InputError(ValueError):
+    """The source or the configuration cannot be profiled as given."""

@@ -1,0 +1,155 @@
+"""Pass B: fixed-bin histograms and the exact-MAD numerator of one batch.
+
+Counterpart of ``tpuprof/kernels/pallas_hist.py``.  :func:`histogram_batch`
+takes ``xt`` (cols, rows) float32, ``row_valid`` (rows,) bool and the
+per-column pass-A bounds ``lo``/``hi``/``mean``, and returns
+((cols, nbins) int32 per-bin counts, (cols,) float32 sum |x - mean|):
+
+* on a CUDA tensor it launches kernel K2 (``csrc/hist_b.cu``), which
+  replaces the TPU kernel ``histogram_tiles``;
+* on a CPU tensor it runs :func:`histogram_plain`, the plain PyTorch
+  version, which follows the reference's cumulative body.
+
+A finite value lands in ``clip(floor((x - lo) * scale), 0, nbins - 1)``
+with ``scale = nbins / max(hi - lo, 1e-30)`` in float32 — the reference's
+recipe, computed here, outside either version.  Both ``pass_b_kernel``
+formulations of the reference give these same counts by construction
+(``floor(t) >= b  <=>  t >= b``), so one kernel serves both.  ``launches``
+counts K2 launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from tpuprof_torch import kernels as _k
+
+KERNELS = ("cumulative", "legacy")
+MAX_BINS = 8192                 # shared-memory histogram bound of K2
+
+launches = 0            # K2 launches in this process (see module docstring)
+
+_TARGET_BLOCKS = 4 * 132
+_THREADS = 256
+
+
+def bin_scale(lo: torch.Tensor, hi: torch.Tensor, nbins: int) -> torch.Tensor:
+    """float32 ``nbins / max(hi - lo, 1e-30)`` — the reference's scale,
+    rounded the same way (one IEEE subtraction, clamp, one division)."""
+    width = torch.clamp_min(hi - lo, 1e-30)
+    # a true division: torch evaluates ``nbins / width`` as
+    # ``reciprocal(width) * nbins``, which can round one ulp away
+    return torch.div(torch.full_like(width, float(nbins)), width)
+
+
+def histogram_plain(xt: torch.Tensor, row_valid: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
+                    nbins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`histogram_batch`: cumulative
+    >=-edge counts on ``t = (x - lo) * scale``, differenced per bin."""
+    from tpuprof_torch.kernels.histogram import counts_from_cumulative
+    C = xt.shape[0]
+    scale = bin_scale(lo, hi, nbins)
+    finite = row_valid[None, :] & torch.isfinite(xt)
+    # NaN fails every >= compare, so one select masks invalid values
+    t = torch.where(finite, (xt - lo[:, None]) * scale[:, None],
+                    float("nan"))
+    cum = torch.empty((C, nbins), dtype=torch.int32, device=xt.device)
+    cum[:, 0] = finite.sum(1, dtype=torch.int32)
+    for b in range(1, nbins):
+        cum[:, b] = (t >= float(b)).sum(1, dtype=torch.int32)
+    dev = torch.where(finite, (xt - mean[:, None]).abs(), 0.0).sum(1)
+    return counts_from_cumulative(cum), dev
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.tpt_hist_b.argtypes = [p, p, p, p, p, i32, i64, i32, i32, i64,
+                               p, p, p, p]
+    lib.tpt_hist_b.restype = ctypes.c_int
+    lib.tpt_hist_b_max_bins.restype = ctypes.c_int
+    lib.tpt_error_string.argtypes = [ctypes.c_int]
+    lib.tpt_error_string.restype = ctypes.c_char_p
+    if lib.tpt_hist_b_max_bins() != MAX_BINS:
+        raise RuntimeError("hist_b.cu MAX_BINS disagrees with "
+                           "tpuprof_torch/kernels/hist.py")
+
+
+def splits(C: int, R: int) -> Tuple[int, int]:
+    """(splits, rows_per_split): the fixed row partition of one batch; it
+    depends only on the shape, so the MAD partials fold in the same order
+    on every run."""
+    s = max(1, min(-(-_TARGET_BLOCKS // max(C, 1)),
+                   -(-R // (_THREADS * 16))))
+    rows = max(-(-R // s), 1)
+    return max(-(-R // rows), 1), rows
+
+
+def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
+                   lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
+                   nbins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 on the current stream; same outputs as
+    :func:`histogram_plain`."""
+    global launches
+    if not xt.is_cuda:
+        raise ValueError("histogram_cuda needs CUDA tensors")
+    lib = _k.library("hist_b", _bind)
+    C, R = xt.shape
+    dev = xt.device
+    scale = bin_scale(lo, hi, nbins).contiguous()
+    counts = torch.zeros((C, nbins), dtype=torch.int32, device=dev)
+    absdev = torch.empty((C,), dtype=torch.float32, device=dev)
+    if C == 0:
+        return counts, absdev
+    n_s, rows = splits(C, R)
+    pdev = torch.empty((C * n_s,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.tpt_hist_b(
+            xt.data_ptr(), row_valid.data_ptr(), lo.data_ptr(),
+            scale.data_ptr(), mean.data_ptr(), C, R, nbins, n_s, rows,
+            counts.data_ptr(), pdev.data_ptr(), absdev.data_ptr(), stream)
+    launches += 1
+    _k.check(status, "hist_b (K2)", lib)
+    return counts, absdev
+
+
+def _check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown pass-B kernel {kernel!r} — use "
+                         f"{list(KERNELS)}")
+    if not 1 <= nbins <= MAX_BINS:
+        raise ValueError(f"bins must be in [1, {MAX_BINS}], got {nbins}")
+    if xt.dtype != torch.float32 or xt.dim() != 2 or not xt.is_contiguous():
+        raise ValueError("xt must be a contiguous (cols, rows) float32 "
+                         f"tensor, got {xt.dtype} {tuple(xt.shape)}")
+    C, R = xt.shape
+    if row_valid.dtype != torch.bool or tuple(row_valid.shape) != (R,) \
+            or not row_valid.is_contiguous():
+        raise ValueError(f"row_valid must be a contiguous ({R},) bool "
+                         "tensor")
+    for name, v in (("lo", lo), ("hi", hi), ("mean", mean)):
+        if v.dtype != torch.float32 or tuple(v.shape) != (C,) \
+                or not v.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({C},) float32 "
+                             "tensor")
+    if any(v.device != xt.device for v in (row_valid, lo, hi, mean)):
+        raise ValueError("histogram inputs must share a device")
+
+
+def histogram_batch(xt: torch.Tensor, row_valid: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
+                    nbins: int, kernel: str = "cumulative"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch's per-bin counts and sum |x - mean|: K2 for a CUDA
+    tensor, the plain version for a CPU tensor.  ``kernel`` names the
+    reference formulation; both give the same counts."""
+    _check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel)
+    if xt.is_cuda:
+        return histogram_cuda(xt, row_valid, lo, hi, mean, nbins)
+    if xt.device.type != "cpu":
+        raise ValueError(f"no pass-B path for device {xt.device}")
+    return histogram_plain(xt, row_valid, lo, hi, mean, nbins)

@@ -1,0 +1,267 @@
+"""Single-device execution of the two profile passes.
+
+Counterpart of ``tpuprof/runtime/mesh.py`` for one device.  The runner owns
+the device, ships host batches to it, and folds them into the pass-A state
+``{"mom", "corr", "hll"}`` (kernel K1) and the pass-B state
+``{"counts", "abs_dev"}`` (kernel K2).  States are dicts of tensors with the
+reference's keys, so the merge laws and finalizers carry over.
+
+Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
+copies S batches as ONE host-to-device transfer from pinned memory, and the
+``scan_*`` forms fold the staged slices in order with the same per-batch
+calls, so a staged run gives the same bits as a per-batch run.
+
+:func:`state_from_numpy` / :func:`state_to_numpy` carry states in and out of
+the port, including the reference's per-device stacked states, which are
+folded with its merge law (``mesh.py`` ``local_merge_a``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Union
+
+import numpy as np
+import torch
+
+from tpuprof_torch.kernels import corr, fused, hist, histogram, hll, moments
+
+State = Dict[str, Any]
+
+
+def resolve_device(device: Union[str, torch.device, None] = None
+                   ) -> torch.device:
+    """The device the port runs on: ``None`` means the first CUDA device,
+    and raises when there is none.  The CPU only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "tpuprof_torch runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run the plain PyTorch "
+                "versions of its kernels on the CPU")
+        return torch.device("cuda:0")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class DeviceBatch(NamedTuple):
+    xt: torch.Tensor          # (n_num, rows) float32, contiguous
+    row_valid: torch.Tensor   # (rows,) bool
+    hllt: torch.Tensor        # (n_hash, rows) int16 bits of the uint16 plane
+
+
+class StackedBatch(NamedTuple):
+    xts: torch.Tensor         # (S, n_num, rows)
+    row_valids: torch.Tensor  # (S, rows)
+    hllts: torch.Tensor       # (S, n_hash, rows)
+    n_batches: int
+
+
+class Runner:
+    """Owns the device and the per-pass folds of one profile."""
+
+    def __init__(self, config, n_num: int, n_hash: int, device=None):
+        self.device = resolve_device(device)
+        self.rows = int(config.batch_rows)
+        self.n_num = n_num
+        self.n_hash = n_hash
+        self.precision = config.hll_precision
+        self.bins = config.bins
+        self.pass_b_kernel = config.pass_b
+        if n_num > fused.MAX_FUSED_COLS:
+            raise NotImplementedError(
+                f"{n_num} numeric columns: tables wider than "
+                f"{fused.MAX_FUSED_COLS} numeric columns (kernel K3) are a "
+                "later slice of the PyTorch port")
+        if self.bins > hist.MAX_BINS:
+            raise NotImplementedError(
+                f"bins={self.bins}: more than {hist.MAX_BINS} bins is a "
+                "later slice of the PyTorch port")
+        self._pin = self.device.type == "cuda"
+
+    # -- host -> device ------------------------------------------------------
+
+    def _host_views(self, hb, with_hll: bool):
+        if with_hll and self.n_hash and hb.hll_precision != self.precision:
+            raise ValueError(
+                f"batch packed with hll_precision={hb.hll_precision} but "
+                f"the registers use precision={self.precision}")
+        x = hb.x
+        xt = x.T if x.flags.f_contiguous else np.ascontiguousarray(x.T)
+        h = hb.hll if with_hll else hb.hll[:, :0]
+        ht = h.T if h.flags.f_contiguous else np.ascontiguousarray(h.T)
+        return xt, hb.row_valid, ht.view(np.int16)
+
+    def _ship(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cpu":
+            return t
+        if self._pin:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def put_batch(self, hb, with_hll: bool = True) -> DeviceBatch:
+        """Ship one HostBatch (``with_hll=False`` skips the packed plane:
+        pass B and host-side register folds never read it)."""
+        xt, rv, ht = self._host_views(hb, with_hll)
+        return DeviceBatch(self._ship(xt), self._ship(rv), self._ship(ht))
+
+    def stage_batches(self, hbs: List, with_hll: bool = True
+                      ) -> StackedBatch:
+        """Ship several HostBatches as one stacked copy per plane."""
+        views = [self._host_views(hb, with_hll) for hb in hbs]
+        return StackedBatch(
+            self._ship(np.stack([v[0] for v in views])),
+            self._ship(np.stack([v[1] for v in views])),
+            self._ship(np.stack([v[2] for v in views])),
+            len(hbs))
+
+    def put_replicated(self, arr) -> torch.Tensor:
+        """A small per-column float32 constant (shift, bounds) on the
+        device."""
+        return torch.as_tensor(np.asarray(arr, dtype=np.float32)).to(
+            self.device)
+
+    # -- state ---------------------------------------------------------------
+
+    def init_pass_a(self, shift=None) -> State:
+        """Pass-A state.  ``shift`` (n_num,) is the shared centering the
+        K1 fold needs; without one the shift stays 0 and unset."""
+        mom = moments.init(self.n_num, self.device)
+        co = corr.init(self.n_num, self.device)
+        if shift is not None:
+            s = self.put_replicated(shift)
+            mom["shift"] = s
+            co["shift"] = s.clone()
+            co["set"].fill_(1)
+        return {"mom": mom, "corr": co,
+                "hll": hll.init(self.n_hash, self.precision, self.device)}
+
+    def init_pass_b(self) -> State:
+        return histogram.init(self.n_num, self.bins, self.device)
+
+    # -- folds -----------------------------------------------------------------
+
+    def _fold_a(self, state: State, xt, row_valid, hllt) -> State:
+        mom, co = fused.update(state["mom"], state["corr"], xt, row_valid)
+        return {"mom": mom, "corr": co,
+                "hll": hll.update(state["hll"], hllt.T)}
+
+    def _fold_b(self, state: State, xt, row_valid, lo, hi, mean) -> State:
+        counts, abs_dev = hist.histogram_batch(
+            xt, row_valid, lo, hi, mean, state["counts"].shape[1],
+            kernel=self.pass_b_kernel)
+        return {"counts": state["counts"] + counts,
+                "abs_dev": state["abs_dev"] + abs_dev}
+
+    def step_a(self, state: State, db: DeviceBatch) -> State:
+        return self._fold_a(state, db.xt, db.row_valid, db.hllt)
+
+    def scan_a(self, state: State, sb: StackedBatch) -> State:
+        for i in range(sb.n_batches):
+            state = self._fold_a(state, sb.xts[i], sb.row_valids[i],
+                                 sb.hllts[i])
+        return state
+
+    def step_b(self, state: State, db: DeviceBatch, lo, hi, mean) -> State:
+        return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean)
+
+    def scan_b(self, state: State, sb: StackedBatch, lo, hi, mean) -> State:
+        for i in range(sb.n_batches):
+            state = self._fold_b(state, sb.xts[i], sb.row_valids[i],
+                                 lo, hi, mean)
+        return state
+
+    # -- finalize ----------------------------------------------------------------
+
+    def bounds_b_device(self, state: State):
+        """(lo, hi, mean) float32 pass-B inputs computed on the device from
+        the pass-A state, the reference's device recipe: finite min/max
+        and shift + s1/n, non-finite entries set to 0."""
+        mom = state["mom"]
+        n = mom["n"].to(torch.float32)
+        lo = torch.where(torch.isfinite(mom["fmin"]), mom["fmin"], 0.0)
+        hi = torch.where(torch.isfinite(mom["fmax"]), mom["fmax"], 0.0)
+        mean = torch.where(n > 0, mom["shift"] + mom["s1"]
+                           / torch.clamp_min(n, 1.0), 0.0)
+        mean = torch.where(torch.isfinite(mean), mean, 0.0)
+        return lo.contiguous(), hi.contiguous(), mean.contiguous()
+
+    def finalize_a(self, state: State) -> Dict[str, Any]:
+        return state_to_numpy(state)
+
+    def finalize_b(self, state: State) -> Dict[str, Any]:
+        return state_to_numpy(state)
+
+
+def state_to_numpy(state):
+    """A state (nested dicts of tensors) as nested dicts of numpy arrays."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    return state
+
+
+def _tensor(a, device) -> torch.Tensor:
+    # a copy: device_get hands back read-only arrays
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def _common_shift(shift: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The weighted mean of per-device shifts (axis 0) — the reference's
+    collectively agreed centering."""
+    return (shift * weight).sum(0) / torch.clamp_min(weight.sum(0), 1.0)
+
+
+def state_from_numpy(tree, device="cpu") -> State:
+    """A pass-A ``{"mom", "corr", "hll"}`` or pass-B ``{"counts",
+    "abs_dev"}`` state from numpy leaves (as ``jax.device_get`` gives the
+    reference's states) to tensors on ``device``.  Leaves with the
+    reference runner's leading per-device axis are folded into one state
+    by its merge law: rebase onto the weighted common shift, sum the
+    additive leaves, min/max the bounds, max the HLL registers."""
+    device = torch.device(device)
+    if "counts" in tree:
+        counts = _tensor(tree["counts"], device).to(torch.int32)
+        abs_dev = _tensor(tree["abs_dev"], device).to(torch.float32)
+        if counts.dim() == 3:
+            counts, abs_dev = counts.sum(0, dtype=torch.int32), abs_dev.sum(0)
+        return {"counts": counts, "abs_dev": abs_dev}
+    mom = {k: _tensor(v, device) for k, v in tree["mom"].items()}
+    co = {k: _tensor(v, device) for k, v in tree["corr"].items()}
+    regs = _tensor(tree["hll"], device).to(torch.int32)
+    if mom["n"].dim() == 2:
+        w = (mom["n"] > 0).to(torch.float32)
+        target = _common_shift(mom["shift"], w)
+        mom = moments.rebase(mom, target)
+        merged = {"shift": target}
+        for k in ("n", "s1", "s2", "s3", "s4", "n_zeros", "n_inf",
+                  "n_missing"):
+            merged[k] = mom[k].sum(0, dtype=mom[k].dtype)
+        merged["minv"] = mom["minv"].amin(0)
+        merged["maxv"] = mom["maxv"].amax(0)
+        merged["fmin"] = mom["fmin"].amin(0)
+        merged["fmax"] = mom["fmax"].amax(0)
+        mom = merged
+        wc = (co["set"] > 0).to(torch.float32)[:, None].expand_as(
+            co["shift"])
+        target = _common_shift(co["shift"], wc)
+        co = _rebase_stacked_corr(co, target)
+        co = {"shift": target, "set": co["set"].amax(0),
+              "N": co["N"].sum(0, dtype=torch.int32),
+              "S1": co["S1"].sum(0), "S2": co["S2"].sum(0),
+              "P": co["P"].sum(0)}
+        regs = regs.amax(0)
+    return {"mom": mom, "corr": co, "hll": regs}
+
+
+def _rebase_stacked_corr(co, target):
+    """corr.rebase applied to every device slice of a stacked state."""
+    parts = [corr.rebase({k: v[d] for k, v in co.items()}, target)
+             for d in range(co["N"].shape[0])]
+    return {k: torch.stack([p[k] for p in parts]) for k in co}
