@@ -13,15 +13,22 @@ Phases, each fatal on failure:
 2. build every kernel from ``tpuprof_torch/kernels/csrc`` with nvcc (one
    process per source, all started together) and print the build time;
 3. each kernel against its plain PyTorch version on the same inputs on the
-   card (exact counts/min/max, moments at rtol 5e-4, rho at atol 5e-4),
-   determinism of K1, then the time of each kernel at the bench shape
-   (200 float32 columns x 65,536 rows) beside its bound, its plain
-   version's time and one library call's time;
-4. the main path: ``tpuprof_torch.describe(df)`` at its default device on a
-   200-column x 2,097,152-row float32 table and on a 1,000,000-row mixed
-   frame, with the launch counters set to 0 just before and read just
-   after, held against ``describe(..., device="cpu")`` on a 262,144-row
-   cut of the wide table and on the mixed frame;
+   card (exact counts/min/max/pair counts, bit-identical ranks, moments at
+   rtol 5e-4, rho at atol 5e-4): K1 and K2 at the bench shape's widths, K3
+   at 513, 1024 and 2048 columns with and without ``skip_stats``, K5 at
+   37, 200 and 512 columns for grids of 16, 100 and 256 points, K6 beside
+   each; reruns give identical bits; then the time of each kernel at the
+   main path's shapes (K1, K2, K5: 200 float32 columns x 65,536 rows; K3,
+   K6: 2,048 columns x 65,536 rows, K3 also at 1,024) beside its bound,
+   its plain version's time and one library call's time;
+4. the main path, ``tpuprof_torch.describe(df)`` at its default device,
+   each run with the launch counters set to 0 just before and read just
+   after: a 200-column x 2,097,152-row float32 table, a 1,000,000-row
+   mixed frame, the 200-column table at 1,048,576 rows with
+   ``spearman=True`` (K1, K2, K5) and a 2,048-column x 131,072-row table
+   with ``spearman=True`` (K3 for pass A and the rank Gram, K2, K6); each
+   held against ``describe(..., device="cpu")`` on a cut of its rows
+   (262,144; the whole mixed frame; 131,072; 65,536), Spearman included;
 5. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -138,6 +145,21 @@ def time_ms(fn, torch, device, warmup=3, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def gram_ops(C: int, R: int) -> int:
+    """The Gram work a pass-A or Spearman kernel needs: P = d d^T and
+    N = m m^T are symmetric (one triangle, diagonal included, at 2 flops
+    a row each); S1 = d m^T and S2 = d^2 m^T are not (2 C^2 R each)."""
+    return 2 * C * (C + 1) * R + 4 * C * C * R
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -149,9 +171,11 @@ def max_abs_diff(torch, a, b) -> float:
     return float((a - b).abs()[both].max()) if both.any() else 0.0
 
 
-def check_k1(torch, device, kernel_fn, shapes, seed0=0):
-    """K1 against tiles_plain at ``shapes``.  Returns (the largest absolute
-    error of K1's float outputs s1..s4, P, S1, S2; the largest error of the
+def check_pass_a(torch, device, label, kernel_fn, plain_fn, shapes,
+                 seed0=0, skip_stats=False):
+    """A pass-A kernel (K1, or K3 with or without ``skip_stats``) against
+    its plain version at ``shapes``.  Returns (the largest absolute error
+    of its float outputs s1..s4, P, S1, S2; the largest error of the
     finalized moments scaled by max(|ref|, 1) and of rho) over all
     shapes."""
     from tpuprof_torch.kernels import corr, fused, moments
@@ -162,45 +186,51 @@ def check_k1(torch, device, kernel_fn, shapes, seed0=0):
         rvt = torch.from_numpy(rv).to(device)
         shift = torch.from_numpy(finite_shift(x)).to(device)
         got = kernel_fn(xt, rvt, shift)
-        ref = fused.tiles_plain(xt, rvt, shift)
+        ref = plain_fn(xt, rvt, shift)
         if device.type == "cuda":
             torch.cuda.synchronize()
         sums, counts, P, S1, S2, N = got
         rs, rc, rP, rS1, rS2, rN = ref
-        require(torch.equal(counts, rc), f"K1 counts differ at {C}x{R}")
-        require(torch.equal(N, rN), f"K1 pair counts N differ at {C}x{R}")
-        require(torch.equal(sums[:, 4:], rs[:, 4:]),
-                f"K1 min/max differ at {C}x{R}")
+        del xt, got, ref
+        at = f"{label} at {C}x{R}"
+        require(torch.equal(counts, rc), f"{at}: counts differ")
+        require(torch.equal(N, rN), f"{at}: pair counts N differ")
+        require(torch.equal(sums[:, 4:], rs[:, 4:]), f"{at}: min/max differ")
+        if skip_stats:
+            require(torch.equal(sums, rs), f"{at}: sums are not the "
+                    "identities")
         worst_abs = max([worst_abs, max_abs_diff(torch, sums[:, :4],
                                                  rs[:, :4])]
                         + [max_abs_diff(torch, u, v) for u, v in
                            ((P, rP), (S1, rS1), (S2, rS2))])
-        m0 = moments.init(C, device)
-        m0["shift"] = shift
         c0 = corr.init(C, device)
         c0["shift"] = shift
         c0["set"].fill_(1)
-        fg = moments.finalize(fused._fold_mom(m0, sums, counts))
-        fr = moments.finalize(fused._fold_mom(m0, rs, rc))
-        for key in ("mean", "variance", "skewness", "kurtosis", "sum"):
-            ok = np.allclose(fg[key], fr[key], rtol=RTOL_MOM, atol=ATOL_MOM,
-                             equal_nan=True)
-            require(ok, f"K1 {key} outside rtol {RTOL_MOM} at {C}x{R}")
-            both = np.isfinite(fg[key]) & np.isfinite(fr[key])
-            if both.any():
-                worst = max(worst, float(np.max(np.abs(
-                    fg[key][both] - fr[key][both]) / np.maximum(
-                    np.abs(fr[key][both]), 1.0))))
+        if not skip_stats:
+            m0 = moments.init(C, device)
+            m0["shift"] = shift
+            fg = moments.finalize(fused._fold_mom(m0, sums, counts))
+            fr = moments.finalize(fused._fold_mom(m0, rs, rc))
+            for key in ("mean", "variance", "skewness", "kurtosis", "sum"):
+                ok = np.allclose(fg[key], fr[key], rtol=RTOL_MOM,
+                                 atol=ATOL_MOM, equal_nan=True)
+                require(ok, f"{at}: {key} outside rtol {RTOL_MOM}")
+                both = np.isfinite(fg[key]) & np.isfinite(fr[key])
+                if both.any():
+                    worst = max(worst, float(np.max(np.abs(
+                        fg[key][both] - fr[key][both]) / np.maximum(
+                        np.abs(fr[key][both]), 1.0))))
         rho_g = corr.finalize(fused._fold_corr(c0, P, S1, S2, N))
         rho_r = corr.finalize(fused._fold_corr(c0, rP, rS1, rS2, rN))
         require(np.allclose(rho_g, rho_r, rtol=0, atol=ATOL_RHO,
                             equal_nan=True),
-                f"K1 rho outside atol {ATOL_RHO} at {C}x{R}")
+                f"{at}: rho outside atol {ATOL_RHO}")
         both = np.isfinite(rho_g) & np.isfinite(rho_r)
         if both.any():
             worst = max(worst, float(np.max(np.abs(rho_g - rho_r)[both])))
-        print(f"K1 {C}x{R}: counts/N/min/max exact, moments and rho "
-              f"within tolerance", flush=True)
+        print(f"{at}: counts/N/min/max exact, "
+              + ("sums at their identities" if skip_stats else "moments")
+              + " and rho within tolerance", flush=True)
     return worst_abs, worst
 
 
@@ -245,7 +275,8 @@ def phase_kernels(torch, device, rehearsal: bool):
         k1, k2 = fused.tiles_cuda, hist.histogram_cuda
         R = 65536
         shapes, C = [(37, R), (200, R), (512, R)], 200
-    err1, scaled1 = check_k1(torch, device, k1, shapes)
+    err1, scaled1 = check_pass_a(torch, device, "K1", k1, fused.tiles_plain,
+                                 shapes)
     err2, scaled2 = check_k2(torch, device, k2, C, R, (10, 128))
 
     # determinism: K1 twice on one input gives the same bits
@@ -283,30 +314,23 @@ def phase_kernels(torch, device, rehearsal: bool):
     t2 = time_ms(lambda: k2(xt, rvt, lo, hi, mean, nbins), torch, device)
     p2 = time_ms(lambda: hist.histogram_plain(xt, rvt, lo, hi, mean, nbins),
                  torch, device, reps=5)
-    by1 = C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4
-    # the Gram work the function needs: P = d d^T and N = m m^T are
-    # symmetric (one triangle, diagonal included, at 2 flops a row each);
-    # S1 = d m^T and S2 = d^2 m^T are not (2 C^2 R flops each)
-    ops1 = 2 * C * (C + 1) * R + 4 * C * C * R
-    by2 = C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4
-    ops2 = 8 * C * R
-    b1 = 1e3 * max(by1 / HBM_BYTES_PER_S, ops1 / F32_FLOPS)
-    b2 = 1e3 * max(by2 / HBM_BYTES_PER_S, ops2 / F32_FLOPS)
+    b1, by1 = bound(C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4,
+                    gram_ops(C, R))
+    b2, by2 = bound(C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
+                    8 * C * R)
     rows = [
         {"name": "fused_a", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/fused_a.cu",
-         "replaces": "tpuprof/kernels/fused.py:245",
+         "replaces": "tpuprof/kernels/fused.py:245", "shape": f"{C}x{R}",
          "max_abs_err": err1, "max_scaled_err": scaled1,
-         "ms": t1, "plain_ms": p1, "bound_ms": b1,
-         "bound_by": "operations" if ops1 / F32_FLOPS > by1 / HBM_BYTES_PER_S
-         else "bytes", "library_ms": lib1},
+         "ms": t1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
+         "library_ms": lib1},
         {"name": "hist_b", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/hist_b.cu",
          "replaces": "tpuprof/kernels/pallas_hist.py:202",
-         "max_abs_err": err2, "max_scaled_err": scaled2,
-         "ms": t2, "plain_ms": p2, "bound_ms": b2,
-         "bound_by": "operations" if ops2 / F32_FLOPS > by2 / HBM_BYTES_PER_S
-         else "bytes", "library_ms": None},
+         "shape": f"{C}x{R} bins={nbins}", "max_abs_err": err2,
+         "max_scaled_err": scaled2, "ms": t2, "plain_ms": p2,
+         "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]
     for r in rows:
         print(f"{r['name']} at {C}x{R}: {r['ms']:.4f} ms (bound "
@@ -318,20 +342,213 @@ def phase_kernels(torch, device, rehearsal: bool):
     return rows
 
 
+def rank_inputs(C: int, R: int, G: int, seed: int):
+    """(xt (C, R) f32, row_valid (R,) bool, grid (C, G) f32): K1's
+    adversarial batch (NaN, +-inf, zeros, denormals, a constant and an
+    all-NaN column, invalid rows), a CDF grid built by the port's row
+    sampler as the main path builds it, an eighth of the values set equal
+    to grid points (ties), and a column of finite values whose grid is all
+    +inf."""
+    from tpuprof_torch.ingest.sample import RowSampler
+    x, rv = adversarial_batch(C, R, seed)
+    n = min(R, 16384)
+    sampler = RowSampler(4096, C, seed=seed)
+    sampler.update(x[:, :n].T, n)
+    grid = sampler.cdf_grid(G)
+    rng = np.random.default_rng(seed + 1)
+    pos = rng.integers(0, R, (C, max(R // 8, 1)))
+    pick = rng.integers(0, G, pos.shape)
+    x[np.arange(C)[:, None], pos] = np.take_along_axis(grid, pick, axis=1)
+    grid[min(3, C - 1)] = np.inf
+    return x, rv, grid
+
+
+def check_rank_kernels(torch, device, k5, k6, cases, seed0=40):
+    """K6 bit for bit against rank_transform_plain, and K5 (at most 512
+    columns) against spear_tiles_plain, on ``rank_inputs`` at each (C, R,
+    G) of ``cases``.  Returns (the largest absolute error of K5's P, S1,
+    S2; the largest rho error)."""
+    from tpuprof_torch.kernels import corr, fused
+    worst_abs = worst = 0.0
+    for k, (C, R, G) in enumerate(cases):
+        x, rv, grid = rank_inputs(C, R, G, seed0 + k)
+        t = [torch.from_numpy(a).to(device) for a in (x, rv, grid)]
+        at = f"at {C}x{R} G={G}"
+        ranks, ref = k6(*t), fused.rank_transform_plain(*t)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        require(torch.equal(ranks.view(torch.int32), ref.view(torch.int32)),
+                f"K6 {at}: ranks not bit-identical")
+        del ranks, ref
+        if C > fused.MAX_FUSED_COLS:
+            print(f"K6 {at}: ranks bit-identical", flush=True)
+            continue
+        got, ref = k5(*t), fused.spear_tiles_plain(*t)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        require(torch.equal(got[3], ref[3]), f"K5 {at}: pair counts differ")
+        worst_abs = max([worst_abs] + [max_abs_diff(torch, u, v)
+                                       for u, v in zip(got[:3], ref[:3])])
+        c0 = corr.init(C, device)
+        c0["shift"].fill_(0.5)
+        c0["set"].fill_(1)
+        rho_g = corr.finalize(fused._fold_corr(c0, *got))
+        rho_r = corr.finalize(fused._fold_corr(c0, *ref))
+        require(np.allclose(rho_g, rho_r, rtol=0, atol=ATOL_RHO,
+                            equal_nan=True),
+                f"K5 {at}: rho outside atol {ATOL_RHO}")
+        both = np.isfinite(rho_g) & np.isfinite(rho_r)
+        if both.any():
+            worst = max(worst, float(np.max(np.abs(rho_g - rho_r)[both])))
+        print(f"K6 {at}: ranks bit-identical; K5: N exact, rho within "
+              "tolerance", flush=True)
+    return worst_abs, worst
+
+
+def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
+    """Phase 3 for K3, K5 and K6: checks against the plain versions,
+    reruns, times.  Returns their kernel-line rows."""
+    from tpuprof_torch.ingest.sample import RowSampler
+    from tpuprof_torch.kernels import fused
+    if rehearsal:
+        k3, k5, k6 = (fused.tiles_wide_plain, fused.spear_tiles_plain,
+                      fused.rank_transform_plain)
+        R, C5, CW, C3s = 300, 13, 520, (520,)
+        cases = [(C, R, G) for C in (5, 13) for G in (16, 100)]
+    else:
+        k3, k5, k6 = fused.tiles_wide_cuda, fused.spear_tiles_cuda, \
+            fused.rank_cuda
+        R, C5, CW, C3s = 65536, 200, 2048, (513, 1024, 2048)
+        cases = [(C, R, G) for C in (37, 200, 512) for G in (16, 100, 256)]
+    cases.append((CW, R, 256))
+    shapes3 = [(C, R) for C in C3s]
+    err3, scaled3 = check_pass_a(torch, device, "K3", k3,
+                                 fused.tiles_wide_plain, shapes3, seed0=60)
+    err3s, scaled3s = check_pass_a(
+        torch, device, "K3 skip_stats",
+        lambda *a: k3(*a, skip_stats=True),
+        lambda *a: fused.tiles_wide_plain(*a, skip_stats=True), shapes3,
+        seed0=70, skip_stats=True)
+    err5, scaled5 = check_rank_kernels(torch, device, k5, k6, cases)
+
+    # determinism: each kernel twice on one input gives the same bits
+    for label, fn, C in (("K3", k3, CW // 2),
+                         ("K3 skip_stats",
+                          lambda *a: k3(*a, skip_stats=True), CW // 2)):
+        x, rv = adversarial_batch(C, R, 98)
+        t = [torch.from_numpy(a).to(device)
+             for a in (x, rv, finite_shift(x))]
+        a, b = fn(*t), fn(*t)
+        require(all(torch.equal(u, v) for u, v in zip(a, b)),
+                f"{label} rerun changed bits")
+    for label, fn, C in (("K5", k5, C5), ("K6", k6, CW)):
+        t = [torch.from_numpy(a).to(device)
+             for a in rank_inputs(C, R, 256, 97)]
+        a, b = fn(*t), fn(*t)
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+            if label == "K6" else all(torch.equal(u, v)
+                                      for u, v in zip(a, b))
+        require(same, f"{label} rerun changed bits")
+    del a, b, t
+    print("K3, K5 and K6 reruns: identical bits", flush=True)
+
+    # times at the main path's shapes (clean data: the common case)
+    rng = np.random.default_rng(5)
+    G = fused.MAX_SPEAR_GRID
+
+    def clean(C):
+        x = rng.normal(50.0, 10.0, (C, R)).astype(np.float32)
+        sampler = RowSampler(4096, C, seed=5)
+        sampler.update(x[:, :16384].T, min(R, 16384))
+        return [torch.from_numpy(a).to(device)
+                for a in (x, np.ones(R, dtype=bool), finite_shift(x),
+                          sampler.cdf_grid(G))]
+
+    xt, rvt, shift, grid = clean(C5)
+    t5 = time_ms(lambda: k5(xt, rvt, grid), torch, device)
+    p5 = time_ms(lambda: fused.spear_tiles_plain(xt, rvt, grid), torch,
+                 device, reps=5)
+    b5, by5 = bound(C5 * R * 4 + R + C5 * G * 4 + 16 * C5 * C5,
+                    gram_ops(C5, R))
+    xt, rvt, shift, grid = clean(CW)
+    t3 = time_ms(lambda: k3(xt, rvt, shift), torch, device)
+    t3s = time_ms(lambda: k3(xt, rvt, shift, skip_stats=True), torch,
+                  device)
+    p3 = time_ms(lambda: fused.tiles_wide_plain(xt, rvt, shift), torch,
+                 device, reps=5)
+    fin = torch.isfinite(xt) & rvt[None, :]
+    m = fin.float()
+    d = torch.where(fin, xt - shift[:, None], 0.0)
+    dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
+    lib3 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device, reps=5)
+    del fin, m, d, dm, d2m
+    b3, by3 = bound(CW * R * 4 + R + CW * 4 + CW * 64 + 16 * CW * CW,
+                    gram_ops(CW, R))
+    half = CW // 2
+    xh, sh = xt[:half], shift[:half].contiguous()
+    t3h = time_ms(lambda: k3(xh, rvt, sh), torch, device)
+    b3h, _ = bound(half * R * 4 + R + half * 68 + 16 * half * half,
+                   gram_ops(half, R))
+    t6 = time_ms(lambda: k6(xt, rvt, grid), torch, device)
+    p6 = time_ms(lambda: fused.rank_transform_plain(xt, rvt, grid), torch,
+                 device, warmup=1, reps=2)
+    b6, by6 = bound(2 * CW * R * 4 + R + CW * G * 4, 0)
+    del xt, xh
+    rows = [
+        {"name": "fused_wide", "route": "cuda",
+         "source": "tpuprof_torch/kernels/csrc/fused_wide.cu",
+         "replaces": "tpuprof/kernels/fused.py:351",
+         "shape": f"{CW}x{R}", "max_abs_err": max(err3, err3s),
+         "max_scaled_err": max(scaled3, scaled3s), "ms": t3,
+         "ms_skip_stats": t3s, f"ms_{half}_cols": t3h,
+         f"bound_ms_{half}_cols": b3h, "plain_ms": p3, "bound_ms": b3,
+         "bound_by": by3, "library_ms": lib3},
+        {"name": "spear", "route": "cuda",
+         "source": "tpuprof_torch/kernels/csrc/spear.cu",
+         "replaces": "tpuprof/kernels/fused.py:688",
+         "shape": f"{C5}x{R} G={G}", "max_abs_err": err5,
+         "max_scaled_err": scaled5, "ms": t5, "plain_ms": p5,
+         "bound_ms": b5, "bound_by": by5, "library_ms": None},
+        {"name": "rank", "route": "cuda",
+         "source": "tpuprof_torch/kernels/csrc/rank.cu",
+         "replaces": "tpuprof/kernels/fused.py:754",
+         "shape": f"{CW}x{R} G={G}", "max_abs_err": 0.0,
+         "max_scaled_err": 0.0, "ms": t6, "plain_ms": p6, "bound_ms": b6,
+         "bound_by": by6, "library_ms": None},
+    ]
+    for r in rows:
+        print(f"{r['name']} at {r['shape']}: {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; plain "
+              f"{r['plain_ms']:.4f} ms; library {r['library_ms']})",
+              flush=True)
+    print(f"fused_wide skip_stats at {CW}x{R}: {t3s:.4f} ms; at {half}x{R}:"
+          f" {t3h:.4f} ms (bound {b3h:.4f} ms)", flush=True)
+    print("fused_wide library_ms covers the Gram only: torch.matmul of "
+          "already materialized d, m, d^2; spear and rank: no single "
+          "PyTorch call ranks against a grid (library_ms null)",
+          flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def wide_frame(rows: int, cols: int, seed: int):
+def wide_frame(rows: int, cols: int, seed: int, block=None,
+               strength: float = 3.0):
+    """Float32 columns of rising scale and offset, 2% NaN, the first
+    ``block`` columns (a quarter by default) sharing ``strength`` times
+    one common normal."""
     import pandas as pd
     rng = np.random.default_rng(seed)
     base = rng.normal(0.0, 1.0, (rows, 1)).astype(np.float32)
     data = rng.normal(0.0, 1.0, (rows, cols)).astype(np.float32)
     data *= np.linspace(1.0, 20.0, cols, dtype=np.float32)[None, :]
     data += np.linspace(-100.0, 100.0, cols, dtype=np.float32)[None, :]
-    data[:, : cols // 4] += 3.0 * base       # a correlated block
+    block = cols // 4 if block is None else block
+    data[:, :block] += np.float32(strength) * base     # a correlated block
     data[rng.random((rows, cols)) < 0.02] = np.nan
-    return pd.DataFrame(data, columns=[f"c{i:03d}" for i in range(cols)])
+    return pd.DataFrame(data, columns=[f"c{i:04d}" for i in range(cols)])
 
 
 def mixed_frame(n: int, seed: int):
@@ -380,18 +597,45 @@ def compare_stats(a, b, what: str) -> None:
         if x["histogram"] is not None:
             require(np.array_equal(y["histogram"][0], x["histogram"][0]),
                     f"{what}: {name} histogram counts differ")
-    ra = np.asarray(a["correlations"]["pearson"], dtype=float)
-    rb = np.asarray(b["correlations"]["pearson"], dtype=float)
-    require(ra.shape == rb.shape and np.allclose(ra, rb, rtol=0,
-                                                 atol=ATOL_RHO,
-                                                 equal_nan=True),
-            f"{what}: pearson outside atol {ATOL_RHO}")
+    require(set(a["correlations"]) == set(b["correlations"]),
+            f"{what}: correlation matrices differ")
+    for method, cb in b["correlations"].items():
+        ca = a["correlations"][method]
+        ra, rb = np.asarray(ca, dtype=float), np.asarray(cb, dtype=float)
+        require(ra.shape == rb.shape and np.allclose(
+            ra, rb, rtol=0, atol=ATOL_RHO, equal_nan=True),
+            f"{what}: {method} outside atol {ATOL_RHO}")
+        require(ca.attrs.get("approx") == cb.attrs.get("approx"),
+                f"{what}: {method} approx flags differ")
+
+
+# kernel -> (its wrapper's module in tpuprof_torch.kernels, launch count)
+COUNTERS = {"fused_a": ("fused", "launches"), "hist_b": ("hist", "launches"),
+            "fused_wide": ("fused", "launches_wide"),
+            "spear": ("fused", "launches_spear"),
+            "rank": ("fused", "launches_rank")}
+
+
+def _kernel_module(name: str):
+    import importlib
+    return importlib.import_module(f"tpuprof_torch.kernels.{name}")
+
+
+def read_counts():
+    """{kernel: launches} of every kernel's wrapper."""
+    return {k: getattr(_kernel_module(m), attr)
+            for k, (m, attr) in COUNTERS.items()}
+
+
+def zero_counts() -> None:
+    for m, attr in COUNTERS.values():
+        setattr(_kernel_module(m), attr, 0)
 
 
 def phase_main_path(torch, rehearsal: bool, card: str):
+    """Returns {kernel: launches in the run that is its main path}."""
     import tpuprof_torch
     from tpuprof_torch import native, schema
-    from tpuprof_torch.kernels import fused, hist
 
     # the host-bound rows/s below depend on which hash path ran: on the
     # card it must be the C++ library, not the numpy fallback
@@ -402,49 +646,81 @@ def phase_main_path(torch, rehearsal: bool, card: str):
 
     if rehearsal:
         n_wide, n_cut, n_mixed, batch = 4096, 2048, 3000, 512
+        n_sp, n_sp_cut, cols_w, n_w, n_w_cut = 4096, 1024, 520, 1024, 512
         dev_kw = {"device": "cpu"}
     else:
         n_wide, n_cut, n_mixed, batch = 2_097_152, 262_144, 1_000_000, 65536
+        n_sp, n_sp_cut = 1_048_576, 131_072
+        cols_w, n_w, n_w_cut = 2048, 131_072, 65_536
         dev_kw = {}                     # the default device: cuda:0
     cols = 200
 
-    def run(df, label, **kw):
-        fused.launches = hist.launches = 0
+    def run(df, label, need=(), **kw):
+        """describe ``df`` with every launch count set to 0 just before
+        and read just after; ``need`` = ((kernel, launches per batch),
+        ...) that the run must reach."""
+        zero_counts()
         if not rehearsal:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = tpuprof_torch.describe(df, batch_rows=batch, **kw)
         secs = time.perf_counter() - t0
-        la, lb = fused.launches, hist.launches
+        counts = read_counts()
         n_batches = -(-len(df) // batch)
         require(schema.validate_stats(stats) == [],
                 f"{label}: validate_stats failed")
         if "device" not in kw:
-            require(la >= n_batches and lb >= n_batches,
-                    f"{label}: K1/K2 launched {la}/{lb} times for "
-                    f"{n_batches} batches")
-        print(f"{label}: {len(df)} rows in {secs:.3f} s = "
-              f"{len(df) / secs:.0f} rows/s on {card}; hash path "
-              f"{hash_path}; K1 launches {la}, K2 launches {lb}", flush=True)
-        return stats, la, lb
+            for name, per_batch in need:
+                require(counts[name] >= per_batch * n_batches,
+                        f"{label}: {name} launched {counts[name]} times "
+                        f"for {n_batches} batches")
+        shown = ", ".join(f"{k} {v}" for k, v in counts.items())
+        print(f"{label}: {len(df)} rows x {df.shape[1]} cols in "
+              f"{secs:.3f} s = {len(df) / secs:.0f} rows/s on {card}; "
+              f"hash path {hash_path}; launches: {shown}", flush=True)
+        return stats, counts
 
+    def against_cpu(df, label, **kw):
+        on_card, _ = run(df, label, **kw, **dev_kw)
+        on_cpu, _ = run(df, f"{label} (cpu)", **kw, device="cpu")
+        compare_stats(on_card, on_cpu, label)
+        print(f"{label}: card result matches the CPU result", flush=True)
+
+    a_b = (("fused_a", 1), ("hist_b", 1))
     wide = wide_frame(n_wide, cols, seed=1)
-    _, wide_k1, wide_k2 = run(wide, f"describe wide {cols} cols",
-                              scan_batches=8, **dev_kw)
+    _, main_ab = run(wide, f"describe {cols} cols", need=a_b,
+                     scan_batches=8, **dev_kw)
     cut = wide.iloc[:n_cut].reset_index(drop=True)
     del wide
-    card_cut, _, _ = run(cut, "describe wide cut", scan_batches=8, **dev_kw)
-    cpu_cut, _, _ = run(cut, "describe wide cut (cpu)", scan_batches=8,
-                        device="cpu")
-    compare_stats(card_cut, cpu_cut, "wide cut")
-    print("wide cut: card result matches the CPU result", flush=True)
+    against_cpu(cut, "describe cut", scan_batches=8)
+    del cut
 
     mixed = mixed_frame(n_mixed, seed=42)
-    card_mixed, _, _ = run(mixed, "describe mixed", **dev_kw)
-    cpu_mixed, _, _ = run(mixed, "describe mixed (cpu)", device="cpu")
-    compare_stats(card_mixed, cpu_mixed, "mixed")
-    print("mixed: card result matches the CPU result", flush=True)
-    return {"fused_a": wide_k1, "hist_b": wide_k2}
+    against_cpu(mixed, "describe mixed")
+    del mixed
+
+    # Spearman at 200 columns: K5 folds the batches pass B ships
+    sp = wide_frame(n_sp, cols, seed=3)
+    _, main_sp = run(sp, f"describe {cols} cols spearman",
+                     need=a_b + (("spear", 1),), spearman=True,
+                     scan_batches=8, **dev_kw)
+    cut = sp.iloc[:n_sp_cut].reset_index(drop=True)
+    del sp
+    against_cpu(cut, "describe spearman cut", spearman=True, scan_batches=8)
+    del cut
+
+    # the widest table the kernels take: K3 for pass A and for the rank
+    # Gram, K6 for the ranks, K2 for pass B
+    wt = wide_frame(n_w, cols_w, seed=4, block=16, strength=30.0)
+    _, main_w = run(wt, f"describe {cols_w} cols spearman",
+                    need=(("fused_wide", 2), ("hist_b", 1), ("rank", 1)),
+                    spearman=True, **dev_kw)
+    cut = wt.iloc[:n_w_cut].reset_index(drop=True)
+    del wt
+    against_cpu(cut, "describe wide spearman cut", spearman=True)
+    return {"fused_a": main_ab["fused_a"], "hist_b": main_ab["hist_b"],
+            "spear": main_sp["spear"], "fused_wide": main_w["fused_wide"],
+            "rank": main_w["rank"]}
 
 
 def main(argv=None) -> int:
@@ -485,17 +761,18 @@ def main(argv=None) -> int:
     del tpuprof_torch
 
     rows = phase_kernels(torch, device, args.cpu_rehearsal)
+    rows += phase_kernels_wide_and_rank(torch, device, args.cpu_rehearsal)
     # null when the main path did not run: no count was read
-    launches = {"fused_a": None, "hist_b": None}
+    launches = dict.fromkeys(COUNTERS)
     if not args.kernels_only:
         launches = phase_main_path(torch, args.cpu_rehearsal, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["matched"] = True         # phase 3 exits before here otherwise
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "max_scaled_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "matched")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    first = ("name", "route", "source", "replaces", "launches")
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in first},
+         **{k: v for k, v in r.items() if k not in first}} for r in rows]}))
     print(card)
     kind = torch.cuda.get_device_name(0) if not args.cpu_rehearsal \
         else "cpu"

@@ -238,7 +238,7 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("profile_passes", "fused"), ("spearman", True),
+    ("profile_passes", "fused"), ("seed_edges", "artifact"),
     ("checkpoint_path", "/nonexistent/ck"), ("elastic", True),
     ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
     ("nested", "opaque"), ("parity", True)])
@@ -267,6 +267,15 @@ def test_port_imports_no_jax_and_no_reference():
                            "t": pd.date_range("2020-01-01", periods=100)})
         stats = tpuprof_torch.describe(df, device="cpu", batch_rows=32)
         assert stats["table"]["n"] == 100
+        df["y"] = np.sqrt(np.arange(100.0))
+        stats = tpuprof_torch.describe(df, device="cpu", batch_rows=32,
+                                       spearman=True)
+        assert "spearman" in stats["correlations"]
+        wide = pd.DataFrame(np.random.default_rng(0).normal(size=(40, 520)),
+                            columns=[f"w{i}" for i in range(520)])
+        stats = tpuprof_torch.describe(wide, device="cpu", batch_rows=64,
+                                       spearman=True)
+        assert stats["correlations"]["spearman"].shape == (520, 520)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpuprof" or m.startswith("tpuprof."))

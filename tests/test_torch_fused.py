@@ -134,7 +134,7 @@ def test_update_rejects_bad_inputs(bad):
     elif bad == "noncontig":
         xt = torch.zeros((rows, cols)).T
     else:
-        cols = fused.MAX_FUSED_COLS + 1
+        cols = fused.MAX_FUSED_COLS_WIDE + 1
         xt = torch.zeros((cols, rows))
         mom, co = _port_init(cols, np.zeros(cols, dtype=np.float32))
         err = NotImplementedError
@@ -145,7 +145,7 @@ def test_update_rejects_bad_inputs(bad):
 @pytest.mark.parametrize("C,R", [(200, 65536), (37, 65536), (512, 65536),
                                  (3, 1000)])
 def test_splits_depend_only_on_shape(C, R):
-    tile, tr = 64, 32           # fused_a.cu's TILE and TR
+    tile, tr = 64, 32           # gram.cuh's TILE and TR
     stat_s, stat_rows, gram_s, gram_rows = fused.splits(C, R, tile, tr)
     assert stat_s * stat_rows >= R > (stat_s - 1) * stat_rows
     assert gram_s * gram_rows >= R > (gram_s - 1) * gram_rows

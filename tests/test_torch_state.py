@@ -308,3 +308,112 @@ def test_runner_staged_and_per_batch_folds_give_same_bits():
                            lo, hi, mean)
     assert torch.equal(sa["counts"], sb["counts"])
     assert torch.equal(sa["abs_dev"], sb["abs_dev"])
+
+
+# ---------------------------------------------------------------------------
+# the Spearman state carried across
+# ---------------------------------------------------------------------------
+
+def _host_batch(module, x, rv, n_hash=2):
+    return module.HostBatch(
+        nrows=int(rv.sum()), x=np.asfortranarray(x), row_valid=rv,
+        hll=np.asfortranarray(np.random.default_rng(1).integers(
+            1, 2 ** 16, (x.shape[0], n_hash)).astype(np.uint16)),
+        cat_codes={}, date_ints={})
+
+
+def test_stacked_mesh_spearman_state_folds_by_the_merge_law():
+    """A Spearman state from the reference's mesh runner (per device, each
+    device centred on its own data) folds into one port state whose rho
+    equals the reference's own collective merge."""
+    cols = 5
+    mesh = MeshRunner(RefConfig(backend="tpu", batch_rows=512), cols, 2)
+    x, rv = _batch(512, cols, 31)
+    sampler = RefSampler(4096, cols)
+    sampler.update(x[rv], int(rv.sum()))
+    srt, kept = sampler.sorted_padded()
+    state = mesh.step_spearman(mesh.init_spearman(),
+                               _host_batch(ref_arrow, x, rv), srt, kept)
+    stacked = jax.device_get(state)
+    assert stacked["N"].ndim == 3 and stacked["N"].shape[0] > 1
+    folded = state_from_numpy(stacked, "cpu")
+    merged = mesh.finalize_spearman(state)
+    np.testing.assert_array_equal(folded["N"].numpy(),
+                                  np.asarray(merged["N"]))
+    _assert_rho(corr.finalize(folded), ref_corr.finalize(merged))
+
+
+def test_spearman_fold_half_in_reference_half_in_port():
+    """Two devices of the reference fold one grid-rank batch each (K5's
+    reference, interpret mode); the port takes the stacked state and folds
+    the rest through its runner: rho equals the reference's fold of all
+    four batches."""
+    cols = 6
+    batches = [_batch(400, cols, 50 + i) for i in range(4)]
+    sampler = RowSampler(4096, cols)
+    for x, rv in batches:
+        sampler.update(x[rv], int(rv.sum()))
+    grid = sampler.cdf_grid(64)
+
+    def ref_co():
+        co = ref_corr.init(cols)
+        co["shift"] = jnp.full((cols,), 0.5, dtype=jnp.float32)
+        co["set"] = jnp.ones((), dtype=jnp.int32)
+        return co
+
+    def ref_fold(co, x, rv):
+        return ref_fused.spearman_update(co, jnp.asarray(x.T),
+                                         jnp.asarray(rv), jnp.asarray(grid),
+                                         interpret=True)
+
+    full = ref_co()
+    for x, rv in batches:
+        full = ref_fold(full, x, rv)
+    per_device = [jax.device_get(ref_fold(ref_co(), x, rv))
+                  for x, rv in batches[:2]]
+    stacked = {k: np.stack([d[k] for d in per_device])
+               for k in per_device[0]}
+    runner = Runner(ProfilerConfig(batch_rows=400), cols, 2, "cpu")
+    st = state_from_numpy(stacked, "cpu")
+    grid_d = runner.put_replicated(grid)
+    for x, rv in batches[2:]:
+        st = runner.step_spearman_grid(
+            st, runner.put_batch(_host_batch(port_arrow, x, rv)), grid_d)
+    np.testing.assert_array_equal(st["N"].numpy(), np.asarray(full["N"]))
+    _assert_rho(corr.finalize(runner.finalize_spearman(st)),
+                ref_corr.finalize(jax.device_get(full)))
+    again = state_from_numpy(state_to_numpy(st), "cpu")
+    for k in st:
+        assert torch.equal(again[k], st[k]), k
+
+
+def test_runner_spearman_routes_by_width_and_stages_like_per_batch():
+    """The runner's Spearman folds: one read (K5's plain version) up to
+    512 columns, ranks then their Gram past it; a staged scan gives the
+    same bits as per-batch steps; the state is a corr state about 0.5."""
+    for cols in (4, fused.MAX_FUSED_COLS + 3):
+        runner = Runner(ProfilerConfig(batch_rows=128), cols, 1, "cpu")
+        hbs = [_host_batch(port_arrow, *_batch(128, cols, 60 + i), n_hash=1)
+               for i in range(3)]
+        sampler = RowSampler(4096, cols)
+        for hb in hbs:
+            sampler.update(hb.x[hb.row_valid], hb.nrows)
+        grid = runner.put_replicated(sampler.cdf_grid(32))
+        init = runner.init_spearman()
+        assert torch.equal(init["shift"], torch.full((cols,), 0.5))
+        assert int(init["set"]) == 1
+        a = runner.scan_spearman_grid(init, runner.stage_batches(
+            hbs, with_hll=False), grid)
+        b = runner.init_spearman()
+        for hb in hbs:
+            b = runner.step_spearman_grid(b, runner.put_batch(
+                hb, with_hll=False), grid)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (cols, k)
+        xt = torch.cat([runner.put_batch(hb).xt for hb in hbs], dim=1)
+        rv = torch.cat([runner.put_batch(hb).row_valid for hb in hbs])
+        one = fused.spearman_update_plain(runner.init_spearman(), xt, rv,
+                                          grid)
+        np.testing.assert_array_equal(a["N"].numpy(), one["N"].numpy())
+        _assert_rho(corr.finalize(runner.finalize_spearman(a)),
+                    corr.finalize(one))

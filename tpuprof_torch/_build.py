@@ -28,10 +28,15 @@ def build_dir() -> str:
 
 def library_path(src: str, cmd: Sequence[str]) -> str:
     """Where the library built from ``src`` with compiler command ``cmd``
-    (without its input and output arguments) lives."""
+    (without its input and output arguments) lives.  The digest covers the
+    headers beside ``src`` too, since a source may include them."""
     h = hashlib.sha256()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    src_dir = os.path.dirname(os.path.abspath(src))
+    headers = sorted(f for f in os.listdir(src_dir)
+                     if f.endswith((".cuh", ".h")))
+    for path in [src] + [os.path.join(src_dir, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update("\0".join(cmd).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(build_dir(), f"lib{stem}-{h.hexdigest()[:12]}.so")

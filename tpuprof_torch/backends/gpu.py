@@ -2,12 +2,14 @@
 
 Counterpart of the two-pass, single-process, no-checkpoint path of
 ``tpuprof/backends/tpu.py`` (``TPUStatsBackend.collect``) and its helpers.
-Batches stream once through pass A (kernel K1: moments, min/max, null/zero/
-inf counts, the pairwise Pearson Gram; host: HLL registers, the row sample,
-Misra-Gries, dates, the exact-unique tracker), then, for a rescannable
-source, once more through pass B (kernel K2: exact histograms and MAD on the
-pass-A bounds; host: the exact top-k recount).  ``_assemble`` turns the
-merged results into the stats dict.
+Batches stream once through pass A (kernel K1, or K3 past 512 numeric
+columns: moments, min/max, null/zero/inf counts, the pairwise Pearson Gram;
+host: HLL registers, the row sample, Misra-Gries, dates, the exact-unique
+tracker), then, for a rescannable source, once more through pass B (kernel
+K2: exact histograms and MAD on the pass-A bounds; with ``spearman=True``
+the grid-rank Spearman Gram from the same shipped batches, kernel K5, or K6
+then K3 past 512 columns; host: the exact top-k recount).  ``_assemble``
+turns the merged results into the stats dict.
 
 Division of labour: the device folds every numeric statistic; the host
 decodes strings, hashes, keeps the frequent values, dates and first rows.
@@ -18,11 +20,14 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import logging
+
 import numpy as np
 import pandas as pd
 
 from tpuprof_torch import native, schema
-from tpuprof_torch.config import (ProfilerConfig, resolve_prepare_workers,
+from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
+                                  resolve_prepare_workers,
                                   resolve_unique_budget)
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
                                         prefetch_prepared)
@@ -36,6 +41,8 @@ from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
 from tpuprof_torch.runtime.runner import Runner
 
+logger = logging.getLogger("tpuprof_torch")
+
 
 def estimate_shift(hb: HostBatch) -> np.ndarray:
     """Per-column centering from a prefix of the first batch (K1's shift
@@ -48,6 +55,22 @@ def estimate_shift(hb: HostBatch) -> np.ndarray:
     cnt = finite.sum(axis=0)
     sums = np.where(finite, prefix, 0.0).sum(axis=0)
     return (sums / np.maximum(cnt, 1)).astype(np.float32)
+
+
+def spearman_grid(sampler: RowSampler, n_grid: int) -> np.ndarray:
+    """The (n_num, G) CDF grid of the Spearman rank pass, G clamped to
+    ``MAX_SPEAR_GRID`` with a warning.  Raises ``ValueError`` unless every
+    row is nondecreasing and free of NaN: the kernels rank by binary search,
+    which equals the reference's dense compare only on such a grid."""
+    g = min(n_grid, MAX_SPEAR_GRID)
+    if g < n_grid:
+        logger.warning("spearman_grid=%d clamped to %d: the rank kernels "
+                       "hold each column's grid in shared memory",
+                       n_grid, g)
+    grid = sampler.cdf_grid(g)
+    if np.isnan(grid).any() or (grid[:, 1:] < grid[:, :-1]).any():
+        raise ValueError("the Spearman CDF grid is not sorted or holds NaN")
+    return grid
 
 
 class HostAgg:
@@ -243,22 +266,35 @@ class GPUStatsBackend:
         hists: Optional[List] = None
         mad: Optional[np.ndarray] = None
         recounter: Optional[Recounter] = None
+        rho_spear: Optional[np.ndarray] = None
+        spear_approx = False
         if run_pass_b:
             recounter = Recounter(hostagg)
             state_b = runner.init_pass_b()
             lo_d, hi_d, mean_d = bounds_d
+            spear_state = None
+            if config.spearman:
+                spear_state = runner.init_spearman()
+                grid_d = runner.put_replicated(
+                    spearman_grid(sampler, config.spearman_grid))
 
+            # the Spearman state folds from the batches pass B ships: one
+            # transfer feeds K2 and the rank kernels
             def staged_b(group):
-                nonlocal state_b
-                state_b = runner.scan_b(
-                    state_b, runner.stage_batches(group, with_hll=False),
-                    lo_d, hi_d, mean_d)
+                nonlocal state_b, spear_state
+                sb = runner.stage_batches(group, with_hll=False)
+                state_b = runner.scan_b(state_b, sb, lo_d, hi_d, mean_d)
+                if spear_state is not None:
+                    spear_state = runner.scan_spearman_grid(spear_state, sb,
+                                                            grid_d)
 
             def one_b(hb):
-                nonlocal state_b
-                state_b = runner.step_b(
-                    state_b, runner.put_batch(hb, with_hll=False),
-                    lo_d, hi_d, mean_d)
+                nonlocal state_b, spear_state
+                db = runner.put_batch(hb, with_hll=False)
+                state_b = runner.step_b(state_b, db, lo_d, hi_d, mean_d)
+                if spear_state is not None:
+                    spear_state = runner.step_spearman_grid(spear_state, db,
+                                                            grid_d)
 
             pending_b: List[HostBatch] = []
             for hb in prefetch_prepared(ingest, pad, config.hll_precision,
@@ -272,6 +308,9 @@ class GPUStatsBackend:
             hists, mad = khistogram.finalize(
                 runner.finalize_b(state_b), momf["fmin"], momf["fmax"],
                 momf["n"], config.bins)
+            if spear_state is not None:
+                rho_spear = kcorr.finalize(
+                    runner.finalize_spearman(spear_state))
         elif config.exact_passes and ingest.rescannable \
                 and hostagg.n_rows > 0:
             # no numeric columns: only the top-k recount needs a rescan
@@ -280,10 +319,17 @@ class GPUStatsBackend:
                                         depth=depth, hashes=False,
                                         workers=workers):
                 recounter.update(hb)
+        if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
+                and plan.n_num > 1:
+            # no rank pass (exact_passes=False): estimate from the K-row
+            # uniform sample, ~1/sqrt(K) rank error, and say so
+            spear_approx = True
+            rho_spear = sampler.spearman()
 
         return _assemble(plan, config, ingest.sample(config.sample_rows),
                          hostagg, momf, rho_all, quants, sample_vals,
-                         sample_kept, hll_est, hists, mad, recounter, probes)
+                         sample_kept, hll_est, hists, mad, recounter, probes,
+                         rho_spear, spear_approx)
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +348,7 @@ def _sample_mode(values: np.ndarray, kept: np.ndarray) -> float:
 
 def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
               sample_vals, sample_kept, hll_est, hists, mad, recounter,
-              probes) -> Dict[str, Any]:
+              probes, rho_spear=None, spear_approx=False) -> Dict[str, Any]:
     n = hostagg.n_rows
     variables: Dict[str, Dict[str, Any]] = {}
     freq: Dict[str, pd.Series] = {}
@@ -438,11 +484,19 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
         memorysize=float(sum(hostagg.memorysize(c)
                              for c in hostagg.col_nbytes))
         if hostagg.col_nbytes else np.nan)
+    correlations = {"pearson": corr_df}
+    if rho_spear is not None and len(lanes) >= 2:
+        # over the same refined-NUM lanes as Pearson; rejection stays
+        # Pearson-only.  A sample-estimated matrix says so in its attrs
+        spear_df = pd.DataFrame(rho_spear[np.ix_(lanes, lanes)],
+                                index=num_names, columns=num_names)
+        spear_df.attrs["approx"] = bool(spear_approx)
+        correlations["spearman"] = spear_df
     return {
         "table": table,
         "variables": variables,
         "freq": freq,
-        "correlations": {"pearson": corr_df},
+        "correlations": correlations,
         "messages": schema.derive_messages(variables, config),
         "sample": sample_df,
     }

@@ -85,9 +85,12 @@ _LATER = {
     "use_pallas": "none: the port always runs its kernels on CUDA",
     "use_fused": "none: the port always runs its kernels on CUDA",
     "seed_edges": "single-pass profiles",
-    "spearman": "Spearman (kernels K5/K6)",
-    "spearman_grid": "Spearman (kernels K5/K6)",
 }
+
+# the largest Spearman CDF grid (G) the kernels K5/K6 take: each column's
+# grid sits in shared memory.  The backend clamps ``spearman_grid`` to it,
+# with a warning, on every device (the CPU runs the kernels' plain versions)
+MAX_SPEAR_GRID = 256
 
 
 @dataclasses.dataclass
@@ -186,8 +189,11 @@ class ProfilerConfig:
     use_pallas: Optional[bool] = None
     use_fused: Optional[bool] = None
     seed_edges: Optional[str] = None
+
+    # ---- Spearman rank correlation (pass B, kernels K5/K6/K3) -------------
     spearman: bool = False
-    spearman_grid: int = 256
+    spearman_grid: int = 256        # G: CDF-grid points of the rank pass,
+                                    # clamped to MAX_SPEAR_GRID
 
     def __post_init__(self) -> None:
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
@@ -218,6 +224,8 @@ class ProfilerConfig:
             raise ValueError("prepare_workers must be >= 1 (or None)")
         if not 0.0 < self.corr_reject <= 1.0:
             raise ValueError("corr_reject must be in (0, 1]")
+        if not 2 <= self.spearman_grid <= 4096:
+            raise ValueError("spearman_grid must be in [2, 4096]")
         if self.columns is not None:
             cols = tuple(self.columns)
             if not cols:

@@ -1,7 +1,8 @@
 """Host-side mergeable uniform row sample (bottom-k priority sampling).
 
-Copy of ``tpuprof/ingest/sample.py`` (without its Spearman helpers, a later
-slice).  Keeping the global top-K of i.i.d. uniform row priorities over any
+Copy of ``tpuprof/ingest/sample.py`` (without ``sorted_padded``, which only
+its exact Spearman tier reads).  Keeping the global top-K of i.i.d.
+uniform row priorities over any
 partition of the stream is a uniform sample without replacement, so the
 merge is exact in distribution and sample quantiles have rank error
 O(1/sqrt(K)).  The RNG stream (seed, process, batch) matches the reference,
@@ -90,3 +91,32 @@ class RowSampler:
             if v.size:
                 out[:, c] = np.quantile(v, list(probes))
         return out
+
+    def cdf_grid(self, n_grid: int) -> np.ndarray:
+        """(n_num, n_grid) float32 per-column sample quantiles at probes
+        (j+0.5)/n_grid: the rank grid of the Spearman kernels K5/K6
+        (counterpart of the reference's ``RowSampler.cdf_grid``).  Columns
+        with no finite sample are all +inf (their ranks collapse to 0 and
+        the correlation finalizes to NaN via the zero-variance guard)."""
+        vals, kept = self.columns()
+        probes = (np.arange(n_grid) + 0.5) / n_grid
+        out = np.full((self.n_num, n_grid), np.inf, dtype=np.float32)
+        for c in range(self.n_num):
+            v = vals[c, kept[c]]
+            if v.size:
+                out[c] = np.quantile(v, probes).astype(np.float32)
+        return out
+
+    def spearman(self) -> np.ndarray:
+        """(n_num, n_num) pairwise-complete Spearman rank correlation of
+        the sampled rows (counterpart of the reference's
+        ``RowSampler.spearman``): the estimate when no second scan runs,
+        standard error ~1/sqrt(K); exact when the sample holds every row.
+        Average ranks on ties, as pandas."""
+        import pandas as pd
+        if self.values.shape[0] < 2:
+            return np.full((self.n_num, self.n_num), np.nan)
+        df = pd.DataFrame(self.values)
+        with np.errstate(invalid="ignore"):
+            rho = df.corr(method="spearman").to_numpy()
+        return rho

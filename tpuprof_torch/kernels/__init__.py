@@ -19,8 +19,8 @@ from typing import Callable, Dict
 from tpuprof_torch import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = {"fused_a": os.path.join(_CSRC, "fused_a.cu"),
-           "hist_b": os.path.join(_CSRC, "hist_b.cu")}
+SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
+           for name in ("fused_a", "hist_b", "fused_wide", "spear", "rank")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

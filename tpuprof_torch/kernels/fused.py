@@ -1,45 +1,85 @@
-"""Pass A: moments and the pairwise-Pearson Gram from one read of a batch.
+"""Pass A and the Spearman rank pass: moments and pairwise Gram sums.
 
-Counterpart of ``tpuprof/kernels/fused.py`` (narrow tier, at most
-``MAX_FUSED_COLS`` columns).  :func:`update` folds one batch, shipped as
-``xt`` (cols, rows) float32 plus ``row_valid`` (rows,) bool, into the
-``moments`` and ``corr`` states, whose shifts must be pre-set:
+Counterpart of ``tpuprof/kernels/fused.py``.  Each entry point takes a batch
+as the runner ships it, ``xt`` (cols, rows) float32 plus ``row_valid``
+(rows,) bool, launches a kernel for a CUDA tensor and runs the kernel's
+plain PyTorch version for a CPU tensor (the tests hold the plain versions
+against the reference; on the card only ``chip_smoke.py`` runs them):
 
-* on a CUDA tensor it launches kernel K1 (``csrc/fused_a.cu``), which
-  replaces the TPU kernel ``_fused_tiles``;
-* on a CPU tensor it runs :func:`update_plain`, the plain PyTorch version
-  of the same function (the tests hold it against the reference).
+* :func:`update` folds a batch into the ``moments`` and ``corr`` states
+  (shifts pre-set): kernel K1 (``csrc/fused_a.cu``, replaces the TPU kernel
+  ``_fused_tiles``) up to ``MAX_FUSED_COLS`` columns, kernel K3
+  (``csrc/fused_wide.cu``, replaces ``_fused_tiles_wide``) up to
+  ``MAX_FUSED_COLS_WIDE``;
+* :func:`spearman_update` folds a batch's grid ranks into a corr state
+  whose shift is 0.5, in one read: kernel K5 (``csrc/spear.cu``, replaces
+  ``_spear_tiles``), up to ``MAX_FUSED_COLS`` columns;
+* wider tables rank in two stages: :func:`rank_transform`, kernel K6
+  (``csrc/rank.cu``, replaces ``_rank_tiles``), writes the ranks, and
+  :func:`spearman_update_wide` runs K3 with ``skip_stats`` over them.
 
-Both return the same state dicts, so merge and finalize never care which
-ran.  ``launches`` counts K1 launches.
+All return the reference's state dicts, so merge and finalize never care
+which ran.  ``launches``, ``launches_wide``, ``launches_spear`` and
+``launches_rank`` count the launches of K1, K3, K5 and K6.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpuprof_torch import kernels as _k
+from tpuprof_torch.config import MAX_SPEAR_GRID
 
 MAX_FUSED_COLS = 512
+MAX_FUSED_COLS_WIDE = 2048
 
 launches = 0            # K1 launches in this process (see module docstring)
+launches_wide = 0       # K3
+launches_spear = 0      # K5
+launches_rank = 0       # K6
 
 _F32 = torch.float32
 _I32 = torch.int32
 _TARGET_BLOCKS = 4 * 132        # a few waves over an H100's 132 SMs
 _MAX_SPLIT_ROWS = 1 << 20       # keeps each split's f32 pair count exact
 _STATS_THREADS = 256
+# K3's row splits each hold (4, C, C) partial Gram sums (64 MiB at
+# C=2048), so their count is capped: the scratch stays a small multiple of
+# the outputs
+_WIDE_MAX_GRAM_SPLITS = 4
+_PLAIN_RANK_CHUNK = 1 << 21     # values ranked per step of the plain rank
 
 Tiles = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor, torch.Tensor]
+Grams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+_WIDER = ("the reference's XLA formulation for more than "
+          f"{MAX_FUSED_COLS_WIDE} numeric columns is a later slice of the "
+          "PyTorch port")
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+def _gram_plain(d: torch.Tensor, m: torch.Tensor) -> Grams:
+    """P = d d^T, S1 = d m^T, S2 = d^2 m^T, N = m m^T (int32)."""
+    return (d @ d.T, d @ m.T, (d * d) @ m.T,
+            torch.round(m @ m.T).to(_I32))
+
+
+def _identity_stats(C: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums, counts) identities: 0, except +inf for the minima (lanes 4,
+    6) and -inf for the maxima (lanes 5, 7)."""
+    inf = float("inf")
+    sums = torch.tensor([0.0, 0.0, 0.0, 0.0, inf, -inf, inf, -inf],
+                        dtype=_F32, device=dev).repeat(C, 1)
+    return sums, torch.zeros((C, 8), dtype=_I32, device=dev)
+
 
 def tiles_plain(xt: torch.Tensor, row_valid: torch.Tensor,
                 shift: torch.Tensor) -> Tiles:
@@ -75,72 +115,233 @@ def tiles_plain(xt: torch.Tensor, row_valid: torch.Tensor,
         (notnull & (xt == 0.0)).sum(1, dtype=_I32),
         (notnull & isinf).sum(1, dtype=_I32),
         (rv & isnan).sum(1, dtype=_I32), z, z, z, z], dim=1)
-    P = d @ d.T
-    S1 = d @ m.T
-    S2 = d2 @ m.T
-    N = torch.round(m @ m.T).to(_I32)
-    return sums, counts, P, S1, S2, N
+    return (sums, counts) + _gram_plain(d, m)
+
+
+def tiles_wide_plain(xt: torch.Tensor, row_valid: torch.Tensor,
+                     shift: torch.Tensor, skip_stats: bool = False) -> Tiles:
+    """What K3 returns, in plain PyTorch: :func:`tiles_plain`'s outputs;
+    with ``skip_stats`` the Gram alone, sums/counts at their identities
+    (the reference's ``_fused_tiles_wide(..., skip_stats=True)``)."""
+    if not skip_stats:
+        return tiles_plain(xt, row_valid, shift)
+    finite = row_valid[None, :] & torch.isfinite(xt)
+    d = torch.where(finite, xt - shift[:, None], 0.0)
+    return (_identity_stats(xt.shape[0], xt.device)
+            + _gram_plain(d, finite.to(_F32)))
+
+
+def _rank_scale(n_grid: int) -> float:
+    """float32(0.5 / G), computed in double and rounded once: the
+    reference's weak-typed constant."""
+    return float(np.float32(0.5 / n_grid))
+
+
+def grid_ranks_plain(xt: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """(#grid < x + #grid <= x) * float32(0.5 / G) for every value: the
+    reference's dense compare (``_grid_ranks``), a column chunk at a
+    time."""
+    C, R = xt.shape
+    G = grid.shape[1]
+    scale = torch.tensor(_rank_scale(G), dtype=_F32, device=xt.device)
+    out = torch.empty_like(xt)
+    step = max(1, _PLAIN_RANK_CHUNK // max(R, 1))
+    for c0 in range(0, C, step):
+        x = xt[c0:c0 + step]
+        g = grid[c0:c0 + step]
+        lt = torch.zeros_like(x)
+        le = torch.zeros_like(x)
+        for j in range(G):
+            point = g[:, j:j + 1]
+            lt += point < x
+            le += point <= x
+        out[c0:c0 + step] = (lt + le) * scale
+    return out
+
+
+def rank_transform_plain(xt: torch.Tensor, row_valid: torch.Tensor,
+                         grid: torch.Tensor) -> torch.Tensor:
+    """What K6 returns, in plain PyTorch: grid ranks where the row is
+    valid and the value finite, NaN elsewhere."""
+    finite = row_valid[None, :] & torch.isfinite(xt)
+    return torch.where(finite, grid_ranks_plain(xt, grid), float("nan"))
+
+
+def spear_tiles_plain(xt: torch.Tensor, row_valid: torch.Tensor,
+                      grid: torch.Tensor) -> Grams:
+    """What K5 returns, in plain PyTorch: (P, S1, S2, N) of d = rank - 0.5
+    over the finite values (the reference's ``_spear_tiles``)."""
+    finite = row_valid[None, :] & torch.isfinite(xt)
+    d = torch.where(finite, grid_ranks_plain(xt, grid) - 0.5, 0.0)
+    return _gram_plain(d, finite.to(_F32))
 
 
 def update_plain(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
                  xt: torch.Tensor, row_valid: torch.Tensor):
-    """The plain PyTorch version of :func:`update`."""
+    """The plain PyTorch version of :func:`update` (K1's and K3's plain
+    versions are one function)."""
     sums, counts, P, S1, S2, N = tiles_plain(xt, row_valid, mom["shift"])
     return _fold_mom(mom, sums, counts), _fold_corr(co, P, S1, S2, N)
 
 
+def spearman_update_plain(co: Dict[str, torch.Tensor], xt: torch.Tensor,
+                          row_valid: torch.Tensor, grid: torch.Tensor):
+    """The plain PyTorch version of :func:`spearman_update`."""
+    return _fold_corr(co, *spear_tiles_plain(xt, row_valid, grid))
+
+
+def spearman_update_wide_plain(co: Dict[str, torch.Tensor],
+                               ranks_t: torch.Tensor,
+                               row_valid: torch.Tensor):
+    """The plain PyTorch version of :func:`spearman_update_wide`."""
+    tiles = tiles_wide_plain(ranks_t, row_valid, _half(ranks_t),
+                             skip_stats=True)
+    return _fold_corr(co, *tiles[2:])
+
+
 # ---------------------------------------------------------------------------
-# kernel K1
+# kernels K1, K3, K5, K6
 # ---------------------------------------------------------------------------
 
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tpt_fused_a.argtypes = [p, p, p, i32, i64, i32, i64, i32, i64,
-                                p, p, p, p, p, p, p, p, p, p]
-    lib.tpt_fused_a.restype = ctypes.c_int
-    lib.tpt_fused_a_tile.restype = ctypes.c_int
-    lib.tpt_fused_a_rows.restype = ctypes.c_int
+def _bind_common(lib: ctypes.CDLL) -> None:
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p
 
 
-def splits(C: int, R: int, tile: int, tr: int) -> Tuple[int, int, int, int]:
+def _bind_gram(lib: ctypes.CDLL) -> None:
+    _bind_common(lib)
+    for fn in (lib.tpt_gram_tile, lib.tpt_gram_rows):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _bind_gram(lib)
+    lib.tpt_fused_a.argtypes = [p, p, p, i32, i64, i32, i64, i32, i64,
+                                p, p, p, p, p, p, p, p, p, p]
+    lib.tpt_fused_a.restype = ctypes.c_int
+
+
+def _bind_wide(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _bind_gram(lib)
+    lib.tpt_fused_wide.argtypes = [p, p, p, i32, i64, i32, i32, i64, i32,
+                                   i64, p, p, p, p, p, p, p, p, p, p]
+    lib.tpt_fused_wide.restype = ctypes.c_int
+
+
+def _bind_max_grid(lib: ctypes.CDLL) -> None:
+    lib.tpt_max_grid.argtypes = []
+    lib.tpt_max_grid.restype = ctypes.c_int
+    if lib.tpt_max_grid() != MAX_SPEAR_GRID:
+        raise RuntimeError("grid_rank.cuh MAX_GRID disagrees with "
+                           "tpuprof_torch.config.MAX_SPEAR_GRID")
+
+
+def _bind_spear(lib: ctypes.CDLL) -> None:
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+    _bind_gram(lib)
+    _bind_max_grid(lib)
+    lib.tpt_spear.argtypes = [p, p, p, i32, i64, i32, f32, i32, i64,
+                              p, p, p, p, p, p]
+    lib.tpt_spear.restype = ctypes.c_int
+
+
+def _bind_rank(lib: ctypes.CDLL) -> None:
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+    _bind_common(lib)
+    _bind_max_grid(lib)
+    lib.tpt_rank.argtypes = [p, p, p, i32, i64, i32, f32, p, p]
+    lib.tpt_rank.restype = ctypes.c_int
+
+
+def splits(C: int, R: int, tile: int, tr: int,
+           max_gram_splits: Optional[int] = None
+           ) -> Tuple[int, int, int, int]:
     """(stat_splits, stat_rows, gram_splits, gram_rows): the fixed row
     partition of one batch, for a Gram kernel with ``tile``-column output
-    tiles that reads ``tr`` rows per chunk (``tpt_fused_a_tile`` /
-    ``tpt_fused_a_rows`` of the built library).  It depends only on the
-    shape, so the partial sums, and their fold order, are the same on
-    every run."""
+    tiles that reads ``tr`` rows per chunk (``tpt_gram_tile`` /
+    ``tpt_gram_rows`` of the built library).  ``max_gram_splits`` caps the
+    Gram splits, never below what keeps each split under 2^20 rows.  It
+    depends only on the shape, so the partial sums, and their fold order,
+    are the same on every run."""
     stat_s = max(1, min(-(-_TARGET_BLOCKS // max(C, 1)),
                         -(-R // (_STATS_THREADS * 16))))
     stat_rows = max(-(-R // stat_s), 1)
     stat_s = max(-(-R // stat_rows), 1)
     tiles = (-(-C // tile)) ** 2
-    gram_s = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-R // tr)),
-                 -(-R // _MAX_SPLIT_ROWS))
+    gram_s = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-R // tr)))
+    if max_gram_splits is not None:
+        gram_s = min(gram_s, max_gram_splits)
+    gram_s = max(gram_s, -(-R // _MAX_SPLIT_ROWS))
     gram_rows = -(-max(-(-R // gram_s), 1) // tr) * tr
     gram_s = max(-(-R // gram_rows), 1)
     return stat_s, stat_rows, gram_s, gram_rows
 
 
-def _check_inputs(xt, row_valid, shift) -> None:
+def _check_batch(xt, row_valid) -> None:
     if xt.dtype != _F32 or xt.dim() != 2 or not xt.is_contiguous():
         raise ValueError("xt must be a contiguous (cols, rows) float32 "
                          f"tensor, got {xt.dtype} {tuple(xt.shape)}")
-    C, R = xt.shape
+    R = xt.shape[1]
     if row_valid.dtype != torch.bool or tuple(row_valid.shape) != (R,) \
             or not row_valid.is_contiguous():
         raise ValueError(f"row_valid must be a contiguous ({R},) bool "
                          "tensor")
+    if row_valid.device != xt.device:
+        raise ValueError("xt and row_valid must share a device")
+    if xt.shape[0] > MAX_FUSED_COLS_WIDE:
+        raise NotImplementedError(f"{xt.shape[0]} numeric columns: {_WIDER}")
+
+
+def _check_inputs(xt, row_valid, shift) -> None:
+    _check_batch(xt, row_valid)
+    C = xt.shape[0]
     if shift.dtype != _F32 or tuple(shift.shape) != (C,) \
             or not shift.is_contiguous():
         raise ValueError(f"shift must be a contiguous ({C},) float32 tensor")
-    if row_valid.device != xt.device or shift.device != xt.device:
+    if shift.device != xt.device:
         raise ValueError("xt, row_valid and shift must share a device")
+
+
+def _check_grid(xt, row_valid, grid) -> None:
+    _check_batch(xt, row_valid)
+    C = xt.shape[0]
+    if grid.dtype != _F32 or grid.dim() != 2 or grid.shape[0] != C \
+            or not grid.is_contiguous():
+        raise ValueError(f"grid must be a contiguous ({C}, G) float32 "
+                         "tensor")
+    if not 1 <= grid.shape[1] <= MAX_SPEAR_GRID:
+        raise ValueError(f"grid has {grid.shape[1]} points; the rank "
+                         f"kernels take 1..{MAX_SPEAR_GRID}")
+    if grid.device != xt.device:
+        raise ValueError("xt, row_valid and grid must share a device")
+
+
+def _narrow_only(C: int, what: str) -> None:
     if C > MAX_FUSED_COLS:
-        raise NotImplementedError(
-            f"{C} numeric columns: the column-tiled pass A for more than "
-            f"{MAX_FUSED_COLS} columns is a later slice of the port")
+        raise ValueError(
+            f"{what} takes at most {MAX_FUSED_COLS} columns, got {C}; "
+            "wider tables take the column-tiled path")
+
+
+def _need_cuda(xt, what: str) -> None:
+    if not xt.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _grams(C: int, dev) -> Grams:
+    return (torch.empty((C, C), dtype=_F32, device=dev),
+            torch.empty((C, C), dtype=_F32, device=dev),
+            torch.empty((C, C), dtype=_F32, device=dev),
+            torch.empty((C, C), dtype=_I32, device=dev))
 
 
 def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
@@ -149,52 +350,187 @@ def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     :func:`tiles_plain`."""
     global launches
     _check_inputs(xt, row_valid, shift)
-    if not xt.is_cuda:
-        raise ValueError("tiles_cuda needs CUDA tensors")
+    _narrow_only(xt.shape[0], "kernel K1")
+    _need_cuda(xt, "tiles_cuda")
     lib = _k.library("fused_a", _bind)
     C, R = xt.shape
     dev = xt.device
     stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_fused_a_tile(), lib.tpt_fused_a_rows())
+        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows())
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
-    P = torch.empty((C, C), dtype=_F32, device=dev)
-    S1 = torch.empty((C, C), dtype=_F32, device=dev)
-    S2 = torch.empty((C, C), dtype=_F32, device=dev)
-    N = torch.empty((C, C), dtype=_I32, device=dev)
+    P, S1, S2, N = _grams(C, dev)
     if C == 0:
         return sums, counts, P, S1, S2, N
     psums = torch.empty((C * stat_s * 8,), dtype=_F32, device=dev)
     pcounts = torch.empty((C * stat_s * 4,), dtype=_I32, device=dev)
     partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.tpt_fused_a(
             xt.data_ptr(), row_valid.data_ptr(), shift.data_ptr(), C, R,
             stat_s, stat_rows, gram_s, gram_rows, psums.data_ptr(),
             pcounts.data_ptr(), partial.data_ptr(), sums.data_ptr(),
             counts.data_ptr(), P.data_ptr(), S1.data_ptr(), S2.data_ptr(),
-            N.data_ptr(), stream)
+            N.data_ptr(), _stream(dev))
     launches += 1
     _k.check(status, "fused_a (K1)", lib)
     return sums, counts, P, S1, S2, N
 
 
+def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
+                    shift: torch.Tensor, skip_stats: bool = False) -> Tiles:
+    """Launch K3 on the current stream; same outputs as
+    :func:`tiles_wide_plain`."""
+    global launches_wide
+    _check_inputs(xt, row_valid, shift)
+    _need_cuda(xt, "tiles_wide_cuda")
+    lib = _k.library("fused_wide", _bind_wide)
+    C, R = xt.shape
+    dev = xt.device
+    stat_s, stat_rows, gram_s, gram_rows = splits(
+        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows(),
+        max_gram_splits=_WIDE_MAX_GRAM_SPLITS)
+    sums = torch.empty((C, 8), dtype=_F32, device=dev)
+    counts = torch.empty((C, 8), dtype=_I32, device=dev)
+    P, S1, S2, N = _grams(C, dev)
+    if C == 0:
+        return sums, counts, P, S1, S2, N
+    n_stat = 0 if skip_stats else C * stat_s
+    psums = torch.empty((n_stat * 8,), dtype=_F32, device=dev)
+    pcounts = torch.empty((n_stat * 4,), dtype=_I32, device=dev)
+    partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.tpt_fused_wide(
+            xt.data_ptr(), row_valid.data_ptr(), shift.data_ptr(), C, R,
+            int(skip_stats), stat_s, stat_rows, gram_s, gram_rows,
+            psums.data_ptr(), pcounts.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), P.data_ptr(), S1.data_ptr(),
+            S2.data_ptr(), N.data_ptr(), _stream(dev))
+    launches_wide += 1
+    _k.check(status, "fused_wide (K3)", lib)
+    return sums, counts, P, S1, S2, N
+
+
+def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
+                     grid: torch.Tensor) -> Grams:
+    """Launch K5 on the current stream; same outputs as
+    :func:`spear_tiles_plain`.  ``grid`` rows must be nondecreasing (the
+    backend checks the grid it builds)."""
+    global launches_spear
+    _check_grid(xt, row_valid, grid)
+    _narrow_only(xt.shape[0], "kernel K5")
+    _need_cuda(xt, "spear_tiles_cuda")
+    lib = _k.library("spear", _bind_spear)
+    C, R = xt.shape
+    G = grid.shape[1]
+    dev = xt.device
+    _, _, gram_s, gram_rows = splits(C, R, lib.tpt_gram_tile(),
+                                     lib.tpt_gram_rows())
+    P, S1, S2, N = _grams(C, dev)
+    if C == 0:
+        return P, S1, S2, N
+    partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.tpt_spear(
+            xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
+            _rank_scale(G), gram_s, gram_rows, partial.data_ptr(),
+            P.data_ptr(), S1.data_ptr(), S2.data_ptr(), N.data_ptr(),
+            _stream(dev))
+    launches_spear += 1
+    _k.check(status, "spear (K5)", lib)
+    return P, S1, S2, N
+
+
+def rank_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
+              grid: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on the current stream; same output as
+    :func:`rank_transform_plain`.  ``grid`` rows must be nondecreasing."""
+    global launches_rank
+    _check_grid(xt, row_valid, grid)
+    _need_cuda(xt, "rank_cuda")
+    lib = _k.library("rank", _bind_rank)
+    C, R = xt.shape
+    G = grid.shape[1]
+    out = torch.empty_like(xt)
+    if C == 0:
+        return out
+    with torch.cuda.device(xt.device):
+        status = lib.tpt_rank(
+            xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
+            _rank_scale(G), out.data_ptr(), _stream(xt.device))
+    launches_rank += 1
+    _k.check(status, "rank (K6)", lib)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# entry point and state folds
+# entry points and state folds
 # ---------------------------------------------------------------------------
+
+def _cpu_only(xt, what: str) -> None:
+    if xt.device.type != "cpu":
+        raise ValueError(f"no {what} path for device {xt.device}")
+
+
+def _half(xt: torch.Tensor) -> torch.Tensor:
+    return torch.full((xt.shape[0],), 0.5, dtype=_F32, device=xt.device)
+
 
 def update(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
            xt: torch.Tensor, row_valid: torch.Tensor):
     """Fold one batch into the moments and corr states (shifts pre-set):
-    K1 for a CUDA tensor, the plain version for a CPU tensor."""
-    if xt.is_cuda:
-        tiles = tiles_cuda(xt, row_valid, mom["shift"])
-        return _fold_mom(mom, tiles[0], tiles[1]), _fold_corr(co, *tiles[2:])
-    if xt.device.type != "cpu":
-        raise ValueError(f"no pass-A path for device {xt.device}")
+    K1 (K3 past ``MAX_FUSED_COLS`` columns) for a CUDA tensor, the plain
+    version for a CPU tensor."""
     _check_inputs(xt, row_valid, mom["shift"])
+    if xt.is_cuda:
+        if xt.shape[0] <= MAX_FUSED_COLS:
+            tiles = tiles_cuda(xt, row_valid, mom["shift"])
+        else:
+            tiles = tiles_wide_cuda(xt, row_valid, mom["shift"])
+        return _fold_mom(mom, tiles[0], tiles[1]), _fold_corr(co, *tiles[2:])
+    _cpu_only(xt, "pass-A")
     return update_plain(mom, co, xt, row_valid)
+
+
+def spearman_update(co: Dict[str, torch.Tensor], xt: torch.Tensor,
+                    row_valid: torch.Tensor, grid: torch.Tensor):
+    """Fold one batch of grid ranks into a corr state whose shift is 0.5
+    (ranks lie in [0, 1]), in one read: K5 for a CUDA tensor, the plain
+    version for a CPU tensor.  At most ``MAX_FUSED_COLS`` columns; wider
+    tables take :func:`rank_transform` + :func:`spearman_update_wide`."""
+    _check_grid(xt, row_valid, grid)
+    _narrow_only(xt.shape[0], "spearman_update")
+    if xt.is_cuda:
+        return _fold_corr(co, *spear_tiles_cuda(xt, row_valid, grid))
+    _cpu_only(xt, "Spearman")
+    return spearman_update_plain(co, xt, row_valid, grid)
+
+
+def rank_transform(xt: torch.Tensor, row_valid: torch.Tensor,
+                   grid: torch.Tensor) -> torch.Tensor:
+    """Stage 1 of the wide Spearman tier: (cols, rows) grid ranks in
+    [0, 1], NaN where the value is not finite or the row not valid: K6 for
+    a CUDA tensor, the plain version for a CPU tensor."""
+    _check_grid(xt, row_valid, grid)
+    if xt.is_cuda:
+        return rank_cuda(xt, row_valid, grid)
+    _cpu_only(xt, "rank")
+    return rank_transform_plain(xt, row_valid, grid)
+
+
+def spearman_update_wide(co: Dict[str, torch.Tensor], ranks_t: torch.Tensor,
+                         row_valid: torch.Tensor):
+    """Stage 2 of the wide Spearman tier: the Gram of ``ranks_t`` (NaN
+    masked as a missing value) about 0.5 folded into ``co``: K3 with
+    ``skip_stats`` for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    half = _half(ranks_t)
+    _check_inputs(ranks_t, row_valid, half)
+    if ranks_t.is_cuda:
+        tiles = tiles_wide_cuda(ranks_t, row_valid, half, skip_stats=True)
+        return _fold_corr(co, *tiles[2:])
+    _cpu_only(ranks_t, "Spearman")
+    return spearman_update_wide_plain(co, ranks_t, row_valid)
 
 
 def _fold_corr(co, P, S1, S2, N):

@@ -2,9 +2,11 @@
 
 Counterpart of ``tpuprof/runtime/mesh.py`` for one device.  The runner owns
 the device, ships host batches to it, and folds them into the pass-A state
-``{"mom", "corr", "hll"}`` (kernel K1) and the pass-B state
-``{"counts", "abs_dev"}`` (kernel K2).  States are dicts of tensors with the
-reference's keys, so the merge laws and finalizers carry over.
+``{"mom", "corr", "hll"}`` (kernel K1, or K3 past 512 numeric columns), the
+pass-B state ``{"counts", "abs_dev"}`` (kernel K2) and, with Spearman on, the
+rank-correlation state (a corr state about 0.5: kernel K5, or K6 then K3 past
+512 columns).  States are dicts of tensors with the reference's keys, so the
+merge laws and finalizers carry over.
 
 Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
 copies S batches as ONE host-to-device transfer from pinned memory, and the
@@ -13,7 +15,8 @@ calls, so a staged run gives the same bits as a per-batch run.
 
 :func:`state_from_numpy` / :func:`state_to_numpy` carry states in and out of
 the port, including the reference's per-device stacked states, which are
-folded with its merge law (``mesh.py`` ``local_merge_a``).
+folded with its merge law (``mesh.py`` ``local_merge_a`` and, for the
+Spearman state, ``merge_corr_local``).
 """
 
 from __future__ import annotations
@@ -72,11 +75,12 @@ class Runner:
         self.precision = config.hll_precision
         self.bins = config.bins
         self.pass_b_kernel = config.pass_b
-        if n_num > fused.MAX_FUSED_COLS:
+        if n_num > fused.MAX_FUSED_COLS_WIDE:
             raise NotImplementedError(
                 f"{n_num} numeric columns: tables wider than "
-                f"{fused.MAX_FUSED_COLS} numeric columns (kernel K3) are a "
-                "later slice of the PyTorch port")
+                f"{fused.MAX_FUSED_COLS_WIDE} numeric columns (the "
+                "reference's XLA formulation) are a later slice of the "
+                "PyTorch port")
         if self.bins > hist.MAX_BINS:
             raise NotImplementedError(
                 f"bins={self.bins}: more than {hist.MAX_BINS} bins is a "
@@ -144,7 +148,15 @@ class Runner:
     def init_pass_b(self) -> State:
         return histogram.init(self.n_num, self.bins, self.device)
 
-    # -- folds -----------------------------------------------------------------
+    def init_spearman(self) -> State:
+        """The Spearman state: a corr state whose shift is the constant
+        0.5, the perfectly conditioned centre of grid ranks in [0, 1]."""
+        co = corr.init(self.n_num, self.device)
+        co["shift"].fill_(0.5)
+        co["set"].fill_(1)
+        return co
+
+    # -- folds ---------------------------------------------------------------
 
     def _fold_a(self, state: State, xt, row_valid, hllt) -> State:
         mom, co = fused.update(state["mom"], state["corr"], xt, row_valid)
@@ -176,7 +188,29 @@ class Runner:
                                  lo, hi, mean)
         return state
 
-    # -- finalize ----------------------------------------------------------------
+    def _fold_spearman(self, state: State, xt, row_valid, grid) -> State:
+        if self.n_num <= fused.MAX_FUSED_COLS:
+            return fused.spearman_update(state, xt, row_valid, grid)
+        ranks = fused.rank_transform(xt, row_valid, grid)
+        return fused.spearman_update_wide(state, ranks, row_valid)
+
+    def step_spearman_grid(self, state: State, db: DeviceBatch,
+                           grid: torch.Tensor) -> State:
+        """Fold one batch into the Spearman state against ``grid``, the
+        (n_num, G) CDF grid on the device: one read (K5) up to 512
+        columns, else ranks (K6) then their Gram (K3)."""
+        return self._fold_spearman(state, db.xt, db.row_valid, grid)
+
+    def scan_spearman_grid(self, state: State, sb: StackedBatch,
+                           grid: torch.Tensor) -> State:
+        """Fold the staged batches in order, re-reading the slices pass B
+        already shipped."""
+        for i in range(sb.n_batches):
+            state = self._fold_spearman(state, sb.xts[i], sb.row_valids[i],
+                                        grid)
+        return state
+
+    # -- finalize ------------------------------------------------------------
 
     def bounds_b_device(self, state: State):
         """(lo, hi, mean) float32 pass-B inputs computed on the device from
@@ -195,6 +229,9 @@ class Runner:
         return state_to_numpy(state)
 
     def finalize_b(self, state: State) -> Dict[str, Any]:
+        return state_to_numpy(state)
+
+    def finalize_spearman(self, state: State) -> Dict[str, Any]:
         return state_to_numpy(state)
 
 
@@ -219,13 +256,17 @@ def _common_shift(shift: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def state_from_numpy(tree, device="cpu") -> State:
-    """A pass-A ``{"mom", "corr", "hll"}`` or pass-B ``{"counts",
-    "abs_dev"}`` state from numpy leaves (as ``jax.device_get`` gives the
+    """A pass-A ``{"mom", "corr", "hll"}``, pass-B ``{"counts",
+    "abs_dev"}`` or Spearman (a corr state: ``{"shift", "set", "N", "S1",
+    "S2", "P"}``) state from numpy leaves (as ``jax.device_get`` gives the
     reference's states) to tensors on ``device``.  Leaves with the
     reference runner's leading per-device axis are folded into one state
     by its merge law: rebase onto the weighted common shift, sum the
     additive leaves, min/max the bounds, max the HLL registers."""
     device = torch.device(device)
+    if "P" in tree:
+        co = {k: _tensor(v, device) for k, v in tree.items()}
+        return _merge_stacked_corr(co) if co["N"].dim() == 3 else co
     if "counts" in tree:
         counts = _tensor(tree["counts"], device).to(torch.int32)
         abs_dev = _tensor(tree["abs_dev"], device).to(torch.float32)
@@ -248,20 +289,22 @@ def state_from_numpy(tree, device="cpu") -> State:
         merged["fmin"] = mom["fmin"].amin(0)
         merged["fmax"] = mom["fmax"].amax(0)
         mom = merged
-        wc = (co["set"] > 0).to(torch.float32)[:, None].expand_as(
-            co["shift"])
-        target = _common_shift(co["shift"], wc)
-        co = _rebase_stacked_corr(co, target)
-        co = {"shift": target, "set": co["set"].amax(0),
-              "N": co["N"].sum(0, dtype=torch.int32),
-              "S1": co["S1"].sum(0), "S2": co["S2"].sum(0),
-              "P": co["P"].sum(0)}
+        co = _merge_stacked_corr(co)
         regs = regs.amax(0)
     return {"mom": mom, "corr": co, "hll": regs}
 
 
-def _rebase_stacked_corr(co, target):
-    """corr.rebase applied to every device slice of a stacked state."""
+def _merge_stacked_corr(co):
+    """One corr state from a stacked per-device one: every slice rebased
+    onto the weighted mean of the set shifts, then summed (the
+    reference's ``merge_corr_local``)."""
+    wc = (co["set"] > 0).to(torch.float32)[:, None].expand_as(co["shift"])
+    target = _common_shift(co["shift"], wc)
     parts = [corr.rebase({k: v[d] for k, v in co.items()}, target)
              for d in range(co["N"].shape[0])]
-    return {k: torch.stack([p[k] for p in parts]) for k in co}
+    return {"shift": target, "set": co["set"].amax(0),
+            "N": torch.stack([p["N"] for p in parts]).sum(
+                0, dtype=torch.int32),
+            "S1": torch.stack([p["S1"] for p in parts]).sum(0),
+            "S2": torch.stack([p["S2"] for p in parts]).sum(0),
+            "P": torch.stack([p["P"] for p in parts]).sum(0)}

@@ -279,24 +279,34 @@ def reject_by_correlation(corr, ordered_cols, config) -> Dict[str, tuple]:
     """The reference's rejection rule (SURVEY §2.1), backend-agnostic:
     scanning numeric columns in order, reject a column whose |ρ| vs an
     *earlier kept* column exceeds ``corr_reject``; returns
-    {rejected_col: (earlier_col, rho)}.  ``corr`` is a pandas DataFrame."""
+    {rejected_col: (earlier_col, rho)}.  ``corr`` is a pandas DataFrame.
+    The scan reads a numpy copy of ``corr``: a pandas lookup per pair would
+    cost minutes at the 2,048 columns the port profiles."""
     overrides = set(config.correlation_overrides or ())
-    kept = []
+    kept: List[str] = []
+    kept_at: List[int] = []          # corr column positions of ``kept``
     rejected: Dict[str, tuple] = {}
+    if len(corr):
+        mat = corr.to_numpy(dtype=np.float64)
+        row_of = {c: i for i, c in enumerate(corr.index)}
+        col_of = {c: j for j, c in enumerate(corr.columns)}
     for col in ordered_cols:
         if col in overrides:
             kept.append(col)
+            kept_at.append(col_of[col] if len(corr) else -1)
             continue
         hit = None
-        for earlier in kept:
-            rho = corr.loc[col, earlier] if len(corr) else np.nan
-            if np.isfinite(rho) and abs(rho) > config.corr_reject:
-                hit = (earlier, float(rho))
-                break
+        if kept and len(corr):
+            rho = mat[row_of[col], kept_at]
+            first = np.flatnonzero(np.isfinite(rho)
+                                   & (np.abs(rho) > config.corr_reject))
+            if first.size:
+                hit = (kept[first[0]], float(rho[first[0]]))
         if hit:
             rejected[col] = hit
         else:
             kept.append(col)
+            kept_at.append(col_of[col] if len(corr) else -1)
     return rejected
 
 
