@@ -20,15 +20,24 @@ Phases, each fatal on failure:
    each; reruns give identical bits; then the time of each kernel at the
    main path's shapes (K1, K2, K5: 200 float32 columns x 65,536 rows; K3,
    K6: 2,048 columns x 65,536 rows, K3 also at 1,024) beside its bound,
-   its plain version's time and one library call's time;
+   its plain version's time and one library call's time; K4 at 37, 200
+   and 512 columns for 1, 10, 100 and 8192 bins on provisional bounds
+   narrower than the data, bit for bit against K1 then K2 and within
+   tolerance of its plain version, timed at 200 x 65,536 with 10 bins;
 4. the main path, ``tpuprof_torch.describe(df)`` at its default device,
    each run with the launch counters set to 0 just before and read just
-   after: a 200-column x 2,097,152-row float32 table, a 1,000,000-row
-   mixed frame, the 200-column table at 1,048,576 rows with
-   ``spearman=True`` (K1, K2, K5) and a 2,048-column x 131,072-row table
-   with ``spearman=True`` (K3 for pass A and the rank Gram, K2, K6); each
-   held against ``describe(..., device="cpu")`` on a cut of its rows
-   (262,144; the whole mixed frame; 131,072; 65,536), Spearman included;
+   after: a 200-column x 2,097,152-row float32 table in two passes (K1,
+   K2), then single-pass (``profile_passes="fused"``) cold (K4, K2 for
+   the missed lanes) and warm from an artifact of the two-pass profile
+   (K4 only, every lane a hit), both exactly equal to two-pass; a
+   1,000,000-row mixed frame, two-pass and fused; the 200-column table at
+   1,048,576 rows with ``spearman=True`` (K1, K2, K5); a 1,024-column x
+   131,072-row table two-pass and fused warm (K3 and K2 paired, exactly
+   equal); and a 2,048-column x 131,072-row table with ``spearman=True``
+   (K3 for pass A and the rank Gram, K2, K6).  Each is held against
+   ``describe(..., device="cpu")`` on a cut of its rows (262,144, two-pass
+   and fused; the whole mixed frame; 65,536; 8,192 in one batch of its
+   size), Spearman included;
 5. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -101,15 +111,22 @@ def finite_shift(x: np.ndarray) -> np.ndarray:
             / np.maximum(fin.sum(1), 1)).astype(np.float32)
 
 
-def hist_bounds(x: np.ndarray, rv: np.ndarray, nbins: int, rng):
+def hist_bounds(x: np.ndarray, rv: np.ndarray, nbins: int, rng,
+                narrow: float = 0.0):
     """Pass-A style (lo, hi, mean) plus values placed exactly on bin
-    edges, so the boundary rounding is exercised."""
+    edges, so the boundary rounding is exercised.  ``narrow`` > 0 takes
+    that fraction of the range off each end and moves the mean, as a
+    single-pass profile's provisional bounds can be off: values then fall
+    outside [lo, hi] too."""
     v = np.where(rv[None, :] & np.isfinite(x), x, np.nan)
     with warnings.catch_warnings():       # the all-NaN column warns
         warnings.simplefilter("ignore", RuntimeWarning)
         lo = np.nan_to_num(np.nanmin(v, axis=1), nan=0.0)
         hi = np.nan_to_num(np.nanmax(v, axis=1), nan=0.0)
         mean = np.nan_to_num(np.nanmean(v, axis=1), nan=0.0)
+    width = hi - lo
+    lo, hi = lo + narrow * width, hi - narrow * width
+    mean = mean + narrow * width
     lo, hi = lo.astype(np.float32), hi.astype(np.float32)
     edges = lo[:, None] + (hi - lo)[:, None] * (
         np.arange(nbins + 1, dtype=np.float32)[None, :] / np.float32(nbins))
@@ -530,6 +547,117 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
     return rows
 
 
+def phase_kernel_ab(torch, device, rehearsal: bool):
+    """Phase 3 for K4: against its plain version and bit for bit against
+    K1 then K2 on the same inputs (provisional bounds narrower than the
+    data, so values fall outside [lo, hi]), reruns, the time.  Returns its
+    kernel-line row."""
+    from tpuprof_torch.kernels import corr, fused, hist, moments
+    if rehearsal:
+        k4, k1, k2 = fused.tiles_ab_plain, fused.tiles_plain, \
+            hist.histogram_plain
+        R, cols, C = 700, (5, 13), 13
+    else:
+        k4, k1, k2 = fused.tiles_ab_cuda, fused.tiles_cuda, \
+            hist.histogram_cuda
+        R, cols, C = 65536, (37, 200, 512), 200
+    rng = np.random.default_rng(11)
+    worst_abs = worst = 0.0
+    for k, Ck in enumerate(cols):
+        x0, rv = adversarial_batch(Ck, R, 80 + k)
+        for nbins in (1, 10, 100, 8192):
+            x, lo, hi, mean = hist_bounds(x0, rv, nbins, rng, narrow=0.1)
+            t = [torch.from_numpy(a).to(device)
+                 for a in (x, rv, finite_shift(x), lo, hi, mean)]
+            at = f"K4 at {Ck}x{R} bins={nbins}"
+            got = k4(*t, nbins)
+            two = k1(*t[:3]) + k2(t[0], t[1], *t[3:], nbins)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in zip(got, two)),
+                    f"{at}: not bit-identical to K1 then K2")
+            ref = fused.tiles_ab_plain(*t, nbins)
+            sums, counts, P, S1, S2, N, hc, dv = got
+            rs, rc, rP, rS1, rS2, rN, rhc, rdv = ref
+            require(torch.equal(counts, rc) and torch.equal(N, rN)
+                    and torch.equal(sums[:, 4:], rs[:, 4:]),
+                    f"{at}: counts, pair counts or min/max differ")
+            require(torch.equal(hc, rhc), f"{at}: histogram counts differ")
+            worst_abs = max([worst_abs] + [
+                max_abs_diff(torch, u, v) for u, v in
+                ((sums[:, :4], rs[:, :4]), (P, rP), (S1, rS1), (S2, rS2),
+                 (dv, rdv))])
+            m0 = moments.init(Ck, device)
+            m0["shift"] = t[2]
+            fg = moments.finalize(fused._fold_mom(m0, sums, counts))
+            fr = moments.finalize(fused._fold_mom(m0, rs, rc))
+            nf = np.maximum(fr["n"], 1)
+            pairs = [(fg[key], fr[key]) for key in
+                     ("mean", "variance", "skewness", "kurtosis", "sum")]
+            pairs.append((dv.double().cpu().numpy() / nf,
+                          rdv.double().cpu().numpy() / nf))
+            for a, b in pairs:
+                require(np.allclose(a, b, rtol=RTOL_MOM, atol=ATOL_MOM,
+                                    equal_nan=True),
+                        f"{at}: moments or MAD outside rtol {RTOL_MOM}")
+                both = np.isfinite(a) & np.isfinite(b)
+                if both.any():
+                    worst = max(worst, float(np.max(
+                        np.abs(a[both] - b[both])
+                        / np.maximum(np.abs(b[both]), 1.0))))
+            c0 = corr.init(Ck, device)
+            c0["shift"] = t[2]
+            c0["set"].fill_(1)
+            rho_g = corr.finalize(fused._fold_corr(c0, P, S1, S2, N))
+            rho_r = corr.finalize(fused._fold_corr(c0, rP, rS1, rS2, rN))
+            require(np.allclose(rho_g, rho_r, rtol=0, atol=ATOL_RHO,
+                                equal_nan=True),
+                    f"{at}: rho outside atol {ATOL_RHO}")
+            del got, two, ref, t
+            print(f"{at}: bit-identical to K1 then K2; against the plain "
+                  "version counts/N/min/max/histograms exact, moments, MAD "
+                  "and rho within tolerance", flush=True)
+    x, rv = adversarial_batch(C, R, 96)
+    x, lo, hi, mean = hist_bounds(x, rv, 10, rng, narrow=0.1)
+    t = [torch.from_numpy(a).to(device)
+         for a in (x, rv, finite_shift(x), lo, hi, mean)]
+    a, b = k4(*t, 10), k4(*t, 10)
+    require(all(torch.equal(u, v) for u, v in zip(a, b)),
+            "K4 rerun changed bits")
+    print("K4 reruns: identical bits", flush=True)
+
+    # the time at the bench shape (clean data: the common case)
+    nbins = 10
+    xb = np.random.default_rng(5).normal(50.0, 10.0, (C, R)).astype(
+        np.float32)
+    xt = torch.from_numpy(xb).to(device)
+    rvt = torch.ones(R, dtype=torch.bool, device=device)
+    shift = torch.from_numpy(finite_shift(xb)).to(device)
+    lo, hi = xt.amin(1).contiguous(), xt.amax(1).contiguous()
+    mean = xt.mean(1).contiguous()
+    t4 = time_ms(lambda: k4(xt, rvt, shift, lo, hi, mean, nbins), torch,
+                 device)
+    p4 = time_ms(lambda: fused.tiles_ab_plain(xt, rvt, shift, lo, hi, mean,
+                                              nbins), torch, device, reps=5)
+    fin = torch.isfinite(xt) & rvt[None, :]
+    m = fin.float()
+    d = torch.where(fin, xt - shift[:, None], 0.0)
+    dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
+    lib4 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device)
+    b4, by4 = bound(C * R * 4 + R + 4 * C * 4 + C * 8 * 8 + 4 * C * C * 4
+                    + C * nbins * 4 + C * 4, gram_ops(C, R))
+    row = {"name": "fused_ab", "route": "cuda",
+           "source": "tpuprof_torch/kernels/csrc/fused_ab.cu",
+           "replaces": "tpuprof/kernels/fused.py:529",
+           "shape": f"{C}x{R} bins={nbins}", "max_abs_err": worst_abs,
+           "max_scaled_err": worst, "ms": t4, "plain_ms": p4,
+           "bound_ms": b4, "bound_by": by4, "library_ms": lib4}
+    print(f"fused_ab at {row['shape']}: {t4:.4f} ms (bound {b4:.4f} ms by "
+          f"{by4}; plain {p4:.4f} ms; library {lib4:.4f} ms, the Gram-only "
+          "torch.matmul of K1's row)", flush=True)
+    return [row]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -613,7 +741,8 @@ def compare_stats(a, b, what: str) -> None:
 COUNTERS = {"fused_a": ("fused", "launches"), "hist_b": ("hist", "launches"),
             "fused_wide": ("fused", "launches_wide"),
             "spear": ("fused", "launches_spear"),
-            "rank": ("fused", "launches_rank")}
+            "rank": ("fused", "launches_rank"),
+            "fused_ab": ("fused", "launches_ab")}
 
 
 def _kernel_module(name: str):
@@ -632,10 +761,23 @@ def zero_counts() -> None:
         setattr(_kernel_module(m), attr, 0)
 
 
+def exported(stats) -> str:
+    """The stats dict as its ``tpuprof-stats-v1`` export, canonical text:
+    two profiles are exactly equal when these are."""
+    from tpuprof_torch.report.export import stats_to_json
+    return json.dumps(stats_to_json(stats), sort_keys=True)
+
+
 def phase_main_path(torch, rehearsal: bool, card: str):
     """Returns {kernel: launches in the run that is its main path}."""
+    import atexit
+    import shutil
+    import tempfile
+
     import tpuprof_torch
     from tpuprof_torch import native, schema
+    from tpuprof_torch.artifact import read_artifact, write_artifact
+    from tpuprof_torch.runtime import singlepass
 
     # the host-bound rows/s below depend on which hash path ran: on the
     # card it must be the C++ library, not the numpy fallback
@@ -647,26 +789,32 @@ def phase_main_path(torch, rehearsal: bool, card: str):
     if rehearsal:
         n_wide, n_cut, n_mixed, batch = 4096, 2048, 3000, 512
         n_sp, n_sp_cut, cols_w, n_w, n_w_cut = 4096, 1024, 520, 1024, 512
+        cols_p, n_p = 520, 1024
         dev_kw = {"device": "cpu"}
     else:
         n_wide, n_cut, n_mixed, batch = 2_097_152, 262_144, 1_000_000, 65536
-        n_sp, n_sp_cut = 1_048_576, 131_072
-        cols_w, n_w, n_w_cut = 2048, 131_072, 65_536
+        n_sp, n_sp_cut = 1_048_576, 65_536
+        cols_w, n_w, n_w_cut = 2048, 131_072, 8_192
+        cols_p, n_p = 1024, 131_072
         dev_kw = {}                     # the default device: cuda:0
     cols = 200
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-")   # the seed artifacts
+    atexit.register(shutil.rmtree, tmp, True)
 
-    def run(df, label, need=(), **kw):
+    def run(df, label, need=(), exactly=(), **kw):
         """describe ``df`` with every launch count set to 0 just before
         and read just after; ``need`` = ((kernel, launches per batch),
-        ...) that the run must reach."""
+        ...) that the run must reach, ``exactly`` = ((kernel, launches),
+        ...) it must show.  Returns (stats, counts, seconds)."""
         zero_counts()
         if not rehearsal:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = tpuprof_torch.describe(df, batch_rows=batch, **kw)
+        kw.setdefault("batch_rows", batch)
+        stats = tpuprof_torch.describe(df, **kw)
         secs = time.perf_counter() - t0
         counts = read_counts()
-        n_batches = -(-len(df) // batch)
+        n_batches = -(-len(df) // kw["batch_rows"])
         require(schema.validate_stats(stats) == [],
                 f"{label}: validate_stats failed")
         if "device" not in kw:
@@ -674,53 +822,145 @@ def phase_main_path(torch, rehearsal: bool, card: str):
                 require(counts[name] >= per_batch * n_batches,
                         f"{label}: {name} launched {counts[name]} times "
                         f"for {n_batches} batches")
+            for name, n in exactly:
+                require(counts[name] == n, f"{label}: {name} launched "
+                        f"{counts[name]} times, expected {n}")
         shown = ", ".join(f"{k} {v}" for k, v in counts.items())
         print(f"{label}: {len(df)} rows x {df.shape[1]} cols in "
               f"{secs:.3f} s = {len(df) / secs:.0f} rows/s on {card}; "
               f"hash path {hash_path}; launches: {shown}", flush=True)
-        return stats, counts
+        return stats, counts, secs
 
     def against_cpu(df, label, **kw):
-        on_card, _ = run(df, label, **kw, **dev_kw)
-        on_cpu, _ = run(df, f"{label} (cpu)", **kw, device="cpu")
+        on_card, _, _ = run(df, label, **kw, **dev_kw)
+        on_cpu, _, _ = run(df, f"{label} (cpu)", **kw, device="cpu")
         compare_stats(on_card, on_cpu, label)
         print(f"{label}: card result matches the CPU result", flush=True)
+        return on_card
 
+    def same(a, b, what: str) -> None:
+        require(exported(a) == exported(b),
+                f"{what}: the fused profile differs from two-pass")
+        print(f"{what}: stats_to_json equal to the two-pass profile's",
+              flush=True)
+
+    def warm(df, two, label, expect_lanes, **kw):
+        """A fused run seeded from an artifact of the two-pass stats
+        ``two``: every lane must hit, and no re-bin run."""
+        art = f"{tmp}/{label.replace(' ', '_')}.json"
+        write_artifact(art, stats=two, config=tpuprof_torch.ProfilerConfig(
+            batch_rows=batch))
+        t0 = time.perf_counter()
+        read_artifact(art)
+        print(f"{label}: its seed artifact, {os.path.getsize(art)} bytes, "
+              f"reads and checks in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        h0, m0 = singlepass.edge_hits, singlepass.edge_misses
+        r0 = singlepass.rebins
+        stats, counts, secs = run(df, label, profile_passes="fused",
+                                  seed_edges=art, **kw)
+        hits = singlepass.edge_hits - h0
+        require(hits == expect_lanes and singlepass.edge_misses == m0
+                and singlepass.rebins == r0,
+                f"{label}: {hits} of {expect_lanes} lanes hit")
+        print(f"{label}: all {hits} lanes hit, no re-bin", flush=True)
+        return stats, counts, secs
+
+    n_batches = -(-n_wide // batch)
     a_b = (("fused_a", 1), ("hist_b", 1))
     wide = wide_frame(n_wide, cols, seed=1)
-    _, main_ab = run(wide, f"describe {cols} cols", need=a_b,
-                     scan_batches=8, **dev_kw)
+    two_ab, main_ab, t_two = run(wide, f"describe {cols} cols", need=a_b,
+                                 exactly=(("fused_ab", 0),),
+                                 scan_batches=8, **dev_kw)
+    # single-pass profiles of the same table: cold (edges sketched from
+    # the first batch; missed lanes re-bin with K2), then warm (edges
+    # seeded from an artifact of the two-pass profile: no second scan)
+    r0 = singlepass.rebins
+    cold, c_cold, t_cold = run(
+        wide, f"describe {cols} cols fused cold",
+        exactly=(("fused_ab", n_batches), ("fused_a", 0)),
+        profile_passes="fused", scan_batches=8, **dev_kw)
+    rebinned = singlepass.rebins - r0
+    require(rehearsal or c_cold["hist_b"] == n_batches * rebinned,
+            f"fused cold: {c_cold['hist_b']} K2 launches for {rebinned} "
+            "re-bin scan(s)")
+    print(f"fused cold: {rebinned} re-bin scan(s) of "
+          f"{singlepass.rebin_lanes} missed lanes so far", flush=True)
+    same(cold, two_ab, "fused cold")
+    warm_st, main_fab, t_warm = warm(
+        wide, two_ab, f"describe {cols} cols fused warm", cols,
+        exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0)),
+        scan_batches=8, **dev_kw)
+    same(warm_st, two_ab, "fused warm")
+    # host times vary between machines and the first run of a call pays
+    # warm-ups: a second two-pass and warm pair, in turn, on the same card
+    _, _, t_two2 = run(wide, f"describe {cols} cols (again)",
+                       exactly=(("fused_ab", 0),), scan_batches=8, **dev_kw)
+    _, _, t_warm2 = warm(
+        wide, two_ab, f"describe {cols} cols fused warm (again)", cols,
+        exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0)),
+        scan_batches=8, **dev_kw)
+    shown = ", ".join(f"{what} {t:.3f} s ({n_wide / t:.0f} rows/s)"
+                      for what, t in (("two-pass", t_two), ("cold", t_cold),
+                                      ("warm", t_warm),
+                                      ("two-pass", t_two2),
+                                      ("warm", t_warm2)))
+    print(f"headline {n_wide} x {cols} in run order: {shown} on {card}",
+          flush=True)
+    del cold, warm_st
     cut = wide.iloc[:n_cut].reset_index(drop=True)
     del wide
     against_cpu(cut, "describe cut", scan_batches=8)
+    against_cpu(cut, "describe cut fused", scan_batches=8,
+                profile_passes="fused")
     del cut
 
     mixed = mixed_frame(n_mixed, seed=42)
-    against_cpu(mixed, "describe mixed")
+    two_mixed = against_cpu(mixed, "describe mixed")
+    # its categorical columns need the top-k recount: a second scan
+    # whatever the edges
+    fused_mixed, _, _ = run(mixed, "describe mixed fused",
+                            profile_passes="fused", **dev_kw)
+    same(fused_mixed, two_mixed, "mixed fused")
     del mixed
 
     # Spearman at 200 columns: K5 folds the batches pass B ships
     sp = wide_frame(n_sp, cols, seed=3)
-    _, main_sp = run(sp, f"describe {cols} cols spearman",
-                     need=a_b + (("spear", 1),), spearman=True,
-                     scan_batches=8, **dev_kw)
+    _, main_sp, _ = run(sp, f"describe {cols} cols spearman",
+                        need=a_b + (("spear", 1),), spearman=True,
+                        scan_batches=8, **dev_kw)
     cut = sp.iloc[:n_sp_cut].reset_index(drop=True)
     del sp
     against_cpu(cut, "describe spearman cut", spearman=True, scan_batches=8)
     del cut
 
+    # past 512 columns a single-pass profile pairs K3 and K2 on each
+    # shipped batch
+    pt = wide_frame(n_p, cols_p, seed=5)
+    n_pb = -(-n_p // batch)
+    two_p, _, _ = run(pt, f"describe {cols_p} cols", **dev_kw)
+    paired, _, _ = warm(pt, two_p, f"describe {cols_p} cols fused warm",
+                        cols_p, exactly=(("fused_wide", n_pb),
+                                         ("hist_b", n_pb), ("fused_ab", 0),
+                                         ("fused_a", 0)), **dev_kw)
+    same(paired, two_p, f"fused warm {cols_p} cols")
+    del pt, two_p, paired
+
     # the widest table the kernels take: K3 for pass A and for the rank
     # Gram, K6 for the ranks, K2 for pass B
     wt = wide_frame(n_w, cols_w, seed=4, block=16, strength=30.0)
-    _, main_w = run(wt, f"describe {cols_w} cols spearman",
-                    need=(("fused_wide", 2), ("hist_b", 1), ("rank", 1)),
-                    spearman=True, **dev_kw)
+    _, main_w, _ = run(wt, f"describe {cols_w} cols spearman",
+                       need=(("fused_wide", 2), ("hist_b", 1), ("rank", 1)),
+                       spearman=True, **dev_kw)
     cut = wt.iloc[:n_w_cut].reset_index(drop=True)
     del wt
-    against_cpu(cut, "describe wide spearman cut", spearman=True)
+    # in batches of its own size: every batch is padded to batch_rows,
+    # and the CPU's plain rank of a padded 65,536-row batch takes minutes
+    against_cpu(cut, "describe wide spearman cut", spearman=True,
+                batch_rows=n_w_cut)
     return {"fused_a": main_ab["fused_a"], "hist_b": main_ab["hist_b"],
             "spear": main_sp["spear"], "fused_wide": main_w["fused_wide"],
-            "rank": main_w["rank"]}
+            "rank": main_w["rank"], "fused_ab": main_fab["fused_ab"]}
 
 
 def main(argv=None) -> int:
@@ -760,12 +1000,23 @@ def main(argv=None) -> int:
                 flush=True)
     del tpuprof_torch
 
-    rows = phase_kernels(torch, device, args.cpu_rehearsal)
-    rows += phase_kernels_wide_and_rank(torch, device, args.cpu_rehearsal)
+    def timed(phase, *a):
+        """``phase(*a)``, printing its seconds (the script has a time
+        limit: this says which phase to cut when it grows)."""
+        t0 = time.perf_counter()
+        out = phase(*a)
+        print(f"{phase.__name__} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    rows = timed(phase_kernels, torch, device, args.cpu_rehearsal)
+    rows += timed(phase_kernels_wide_and_rank, torch, device,
+                  args.cpu_rehearsal)
+    rows += timed(phase_kernel_ab, torch, device, args.cpu_rehearsal)
     # null when the main path did not run: no count was read
     launches = dict.fromkeys(COUNTERS)
     if not args.kernels_only:
-        launches = phase_main_path(torch, args.cpu_rehearsal, card)
+        launches = timed(phase_main_path, torch, args.cpu_rehearsal, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["matched"] = True         # phase 3 exits before here otherwise

@@ -238,7 +238,7 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("profile_passes", "fused"), ("seed_edges", "artifact"),
+    ("artifact_path", "/nonexistent/a.json"), ("stream_flush_rows", 1000),
     ("checkpoint_path", "/nonexistent/ck"), ("elastic", True),
     ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
     ("nested", "opaque"), ("parity", True)])
@@ -276,6 +276,17 @@ def test_port_imports_no_jax_and_no_reference():
         stats = tpuprof_torch.describe(wide, device="cpu", batch_rows=64,
                                        spearman=True)
         assert stats["correlations"]["spearman"].shape == (520, 520)
+        import os, tempfile
+        from tpuprof_torch.artifact import read_artifact, write_artifact
+        two = tpuprof_torch.describe(df, device="cpu", batch_rows=32)
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, "a.json")
+            write_artifact(art, stats=two)
+            assert read_artifact(art).sketches["bin_seeds"]
+            stats = tpuprof_torch.describe(df, device="cpu", batch_rows=32,
+                                           profile_passes="fused",
+                                           seed_edges=art)
+        assert stats["table"]["n"] == 100
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpuprof" or m.startswith("tpuprof."))

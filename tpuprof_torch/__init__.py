@@ -1,13 +1,19 @@
 """tpuprof_torch — the PyTorch/CUDA port of tpuprof.
 
 ``describe(df)`` / ``ProfileReport(df)`` profile a pandas DataFrame or a
-pyarrow Table with the two-pass scan: pass A and pass B each run one kernel
-written by hand for NVIDIA Hopper (``kernels/csrc``), on the first CUDA
-device unless the caller passes ``device="cpu"``.  The JAX package
+pyarrow Table with the two-pass scan (pass A and pass B each run kernels
+written by hand for NVIDIA Hopper, ``kernels/csrc``) or, with
+``profile_passes="fused"``, in one read of every batch on seeded bin edges
+(``runtime/singlepass.py``), on the first CUDA device unless the caller
+passes ``device="cpu"``.  ``tpuprof_torch.artifact`` writes and reads
+stats-only ``tpuprof-stats-v1`` artifacts.  The JAX package
 ``tpuprof`` is the reference; this package imports nothing from it.
 """
 
 from tpuprof_torch.api import ProfileReport, describe
 from tpuprof_torch.config import ProfilerConfig
 
-__all__ = ["ProfileReport", "ProfilerConfig", "describe"]
+# the port's own version; artifacts carry it in meta["tpuprof_version"]
+__version__ = "0.1.0"
+
+__all__ = ["ProfileReport", "ProfilerConfig", "__version__", "describe"]

@@ -1,0 +1,228 @@
+"""Stats artifacts: one profile persisted as one JSON document.
+
+Counterpart of ``tpuprof/artifact/store.py`` for stats-only artifacts, the
+same ``tpuprof-stats-v1`` format, so either package reads the other's:
+
+* ``stats`` — :func:`~tpuprof_torch.report.export.stats_to_json`;
+* ``sketches`` — per-column histograms (counts, edges), the ranked top-k
+  rows and ``bin_seeds``: every numeric lane's exact float32
+  ``[lo, hi, mean]`` pass-B bounds, from which the next
+  ``profile_passes="fused"`` profile of the source seeds its bin edges
+  (``tpuprof_torch/runtime/singlepass.py``);
+* ``integrity`` — a CRC32 over the document's canonical serialization.
+
+Writes are atomic (a dot-prefixed temporary file, fsync, rename).  Every
+read failure — truncation, a flipped byte, junk, a foreign or missing
+schema id, a torn payload — raises
+:class:`~tpuprof_torch.errors.CorruptArtifactError`; a missing file raises
+``FileNotFoundError``.  Fold-state artifacts (``write_artifact(profiler=)``,
+``Artifact.state_payload``) belong to the streaming slice of the port.
+"""
+
+from __future__ import annotations
+
+import base64
+import binascii
+import dataclasses
+import json
+import os
+import time
+import zlib
+from typing import Any, Dict, Optional
+
+from tpuprof_torch.errors import CorruptArtifactError
+from tpuprof_torch.report.export import SCHEMA_ID, json_scalar, stats_to_json
+
+# ranked top-k rows per CAT column in the sketches section
+TOPK_SKETCH_ROWS = 50
+
+# the canonical serialization the CRC covers: key-sorted, no whitespace
+_CANON = {"sort_keys": True, "separators": (",", ":")}
+
+_STREAMING = ("fold-state artifacts (write_artifact(profiler=...), "
+              "Artifact.state_payload) are the streaming slice of the "
+              "PyTorch port")
+
+
+@dataclasses.dataclass
+class Artifact:
+    """One artifact, read back and integrity-checked."""
+
+    schema: str
+    meta: Dict[str, Any]
+    stats: Dict[str, Any]
+    sketches: Dict[str, Any]
+    state_bytes: Optional[bytes] = None
+    path: Optional[str] = None
+    crc32: Optional[int] = None     # the verified document CRC
+
+    @property
+    def foldable(self) -> bool:
+        return self.state_bytes is not None
+
+    @property
+    def rows(self) -> int:
+        return int(self.meta.get("rows") or 0)
+
+    @property
+    def columns(self) -> Dict[str, str]:
+        """Column name -> refined kind, in profile order."""
+        return dict(self.meta.get("columns") or {})
+
+    def state_payload(self) -> Dict[str, Any]:
+        raise NotImplementedError(_STREAMING)
+
+
+def _config_meta(config) -> Dict[str, Any]:
+    """The config knobs two artifacts must agree on to be comparable."""
+    if config is None:
+        return {}
+    keys = ("bins", "hll_precision", "topk_capacity",
+            "quantile_sketch_size", "seed", "batch_rows", "nested",
+            "exact_distinct", "top_freq")
+    out = {k: getattr(config, k, None) for k in keys}
+    out["fingerprint"] = config.fingerprint()
+    return out
+
+
+def build_sketches(stats: Dict[str, Any]) -> Dict[str, Any]:
+    """The JSON-readable drift inputs the export leaves out: per-column
+    histograms, ranked top-k rows, and the pass-B bound seeds (the stats
+    dict's private ``_bin_seeds``)."""
+    hists: Dict[str, Any] = {}
+    for name, var in stats["variables"].items():
+        h = var.get("histogram")
+        if h is None:
+            continue
+        counts, edges = h
+        hists[str(name)] = {"counts": [int(c) for c in counts],
+                            "edges": [float(e) for e in edges]}
+    topk: Dict[str, Any] = {}
+    for col, vc in (stats.get("freq") or {}).items():
+        topk[str(col)] = [
+            {"value": json_scalar(idx), "count": int(cnt)}
+            for idx, cnt in list(vc.items())[:TOPK_SKETCH_ROWS]]
+    out = {"histograms": hists, "topk": topk}
+    seeds = stats.get("_bin_seeds")
+    if seeds:
+        out["bin_seeds"] = {str(k): [float(x) for x in v]
+                            for k, v in seeds.items()}
+    return out
+
+
+def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
+                   config=None, profiler=None,
+                   source: Optional[str] = None) -> Dict[str, Any]:
+    """Write the stats dict ``stats`` (of a profile run with ``config``) as
+    one stats-only ``tpuprof-stats-v1`` artifact at ``path``, atomically.
+    Returns a copy of the document's ``meta`` with its ``crc32``."""
+    if profiler is not None:
+        raise NotImplementedError(_STREAMING)
+    if stats is None:
+        raise ValueError("write_artifact needs stats=")
+    meta = {
+        "format": SCHEMA_ID,
+        "tpuprof_version": _version(),
+        "created_unix": round(time.time(), 3),
+        "rows": int(stats["table"]["n"]),
+        "columns": {str(name): var["type"]
+                    for name, var in stats["variables"].items()},
+        "config": _config_meta(config),
+        "foldable": False,
+        "degraded": False,
+        "source": source,
+    }
+    core = {
+        "schema": SCHEMA_ID,
+        "meta": meta,
+        "stats": stats_to_json(stats),
+        "sketches": build_sketches(stats),
+        "state": None,
+    }
+    doc = dict(core)
+    doc["integrity"] = {
+        "algorithm": "crc32/canonical-json",
+        "crc32": zlib.crc32(json.dumps(core, **_CANON).encode()) & 0xFFFFFFFF,
+    }
+    data = json.dumps(doc, indent=1).encode()
+    # dot-prefixed, so a directory scan never sees the write in flight
+    tmp = os.path.join(os.path.dirname(path) or ".",
+                       f".{os.path.basename(path)}.tmp")
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())       # data on disk before the rename
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    os.replace(tmp, path)
+    out = dict(meta)
+    out["crc32"] = doc["integrity"]["crc32"]
+    return out
+
+
+def read_artifact(path: str) -> Artifact:
+    """Read and integrity-check one artifact (``CorruptArtifactError`` on
+    any failure but a missing file, which raises ``FileNotFoundError``)."""
+    try:
+        with open(path, "rb") as fh:
+            data = fh.read()
+    except FileNotFoundError:
+        raise
+    except OSError as exc:
+        raise CorruptArtifactError(
+            f"artifact {path!r} is unreadable "
+            f"({type(exc).__name__}: {exc})") from exc
+    try:
+        doc = json.loads(data)
+    except Exception as exc:
+        raise CorruptArtifactError(
+            f"artifact {path!r} is not valid JSON — truncated or corrupt "
+            f"({type(exc).__name__}: {exc})") from exc
+    if not isinstance(doc, dict):
+        raise CorruptArtifactError(
+            f"artifact {path!r} decodes to {type(doc).__name__}, not an "
+            "artifact document")
+    if doc.get("schema") != SCHEMA_ID:
+        raise CorruptArtifactError(
+            f"artifact {path!r} has schema {doc.get('schema')!r}; this "
+            f"build reads {SCHEMA_ID!r}")
+    integrity = doc.pop("integrity", None)
+    if not isinstance(integrity, dict) or "crc32" not in integrity:
+        raise CorruptArtifactError(
+            f"artifact {path!r} lacks its integrity envelope — torn or "
+            "hand-edited")
+    canon = json.dumps(doc, **_CANON).encode()
+    if zlib.crc32(canon) & 0xFFFFFFFF != integrity["crc32"]:
+        raise CorruptArtifactError(
+            f"artifact {path!r} CRC mismatch — corrupt artifact")
+    state_bytes = None
+    state = doc.get("state")
+    if state is not None:
+        try:
+            state_bytes = base64.b64decode(
+                state["payload"].encode("ascii"), validate=True)
+        except (KeyError, TypeError, AttributeError,
+                binascii.Error) as exc:
+            raise CorruptArtifactError(
+                f"artifact {path!r} fold-state payload does not decode "
+                f"({type(exc).__name__}: {exc})") from exc
+        if len(state_bytes) != state.get("length") or \
+                zlib.crc32(state_bytes) & 0xFFFFFFFF != state.get("crc32"):
+            raise CorruptArtifactError(
+                f"artifact {path!r} fold-state payload fails its CRC — "
+                "torn write")
+    return Artifact(schema=doc["schema"], meta=doc.get("meta") or {},
+                    stats=doc.get("stats") or {},
+                    sketches=doc.get("sketches") or {},
+                    state_bytes=state_bytes, path=path,
+                    crc32=int(integrity["crc32"]))
+
+
+def _version() -> str:
+    from tpuprof_torch import __version__
+    return __version__

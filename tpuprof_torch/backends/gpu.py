@@ -1,6 +1,6 @@
-"""GPUStatsBackend — the two-pass scan on one device.
+"""GPUStatsBackend — the profile scans on one device.
 
-Counterpart of the two-pass, single-process, no-checkpoint path of
+Counterpart of the single-process, no-checkpoint paths of
 ``tpuprof/backends/tpu.py`` (``TPUStatsBackend.collect``) and its helpers.
 Batches stream once through pass A (kernel K1, or K3 past 512 numeric
 columns: moments, min/max, null/zero/inf counts, the pairwise Pearson Gram;
@@ -11,6 +11,13 @@ the grid-rank Spearman Gram from the same shipped batches, kernel K5, or K6
 then K3 past 512 columns; host: the exact top-k recount).  ``_assemble``
 turns the merged results into the stats dict.
 
+With ``profile_passes="fused"`` pass A also folds the histograms, on
+provisional edges (kernel K4, or K3 then K2 on the same shipped batch past
+512 columns; ``runtime/singlepass.py``).  Lanes whose edges held keep those
+counts; a second scan runs only to re-bin the missed lanes (K2 on those
+columns), to recount the top-k or to rank for Spearman — or not at all.
+The result equals the two-pass profile's exactly.
+
 Division of labour: the device folds every numeric statistic; the host
 decodes strings, hashes, keeps the frequent values, dates and first rows.
 Numeric values are profiled in float32.
@@ -18,16 +25,18 @@ Numeric values are profiled in float32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
-
+import dataclasses
 import logging
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
+import torch
 
 from tpuprof_torch import native, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_prepare_workers,
+                                  resolve_profile_passes,
                                   resolve_unique_budget)
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
                                         prefetch_prepared)
@@ -39,6 +48,7 @@ from tpuprof_torch.kernels import moments as kmoments
 from tpuprof_torch.kernels import unique as kunique
 from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
+from tpuprof_torch.runtime import singlepass
 from tpuprof_torch.runtime.runner import Runner
 
 logger = logging.getLogger("tpuprof_torch")
@@ -178,7 +188,8 @@ class Recounter:
 
 
 class GPUStatsBackend:
-    """Profile an in-memory table with the two-pass scan on one device."""
+    """Profile an in-memory table on one device, in two passes or, with
+    ``profile_passes="fused"``, in one."""
 
     name = "gpu"
 
@@ -196,6 +207,13 @@ class GPUStatsBackend:
         workers = resolve_prepare_workers(config.prepare_workers)
         scan_s = max(int(config.scan_batches), 1)
         depth = max(2, min(scan_s, 8))
+        # single-pass profiles (runtime/singlepass.py): pass A folds the
+        # histograms too, on provisional edges from an artifact or the
+        # first batch
+        fused_scan = resolve_profile_passes(config.profile_passes) \
+            == "fused" and plan.n_num > 0
+        sp_seeds = singlepass.resolve_seeds(config, plan) \
+            if fused_scan else None
 
         hostagg = HostAgg(plan, config)
         sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
@@ -218,25 +236,42 @@ class GPUStatsBackend:
                     fold_one(p)
             pending.clear()
 
-        # ---- pass A ------------------------------------------------------
+        # ---- pass A (with the provisional histograms when fused) ---------
         state = None
+        state_h = None          # the fused scan's histogram state
+        sp_edges = None         # ... and the provisional edges it bins on
+        edges_d = None
         batches = prefetch_prepared(ingest, pad, config.hll_precision,
                                     depth=depth, workers=workers)
         pending: List[HostBatch] = []
 
         def staged_a(group):
-            nonlocal state
-            state = runner.scan_a(state, runner.stage_batches(
-                group, with_hll=with_hll))
+            nonlocal state, state_h
+            sb = runner.stage_batches(group, with_hll=with_hll)
+            if state_h is not None:
+                state, state_h = runner.scan_ab(state, state_h, sb,
+                                                *edges_d)
+            else:
+                state = runner.scan_a(state, sb)
 
         def one_a(hb):
-            nonlocal state
-            state = runner.step_a(state, runner.put_batch(
-                hb, with_hll=with_hll))
+            nonlocal state, state_h
+            db = runner.put_batch(hb, with_hll=with_hll)
+            if state_h is not None:
+                state, state_h = runner.step_ab(state, state_h, db,
+                                                *edges_d)
+            else:
+                state = runner.step_a(state, db)
 
         for hb in batches:
             if state is None:
                 state = runner.init_pass_a(estimate_shift(hb))
+                if fused_scan:
+                    sp_edges = singlepass.sketch_edges(hb.x, hb.nrows,
+                                                       into=sp_seeds)
+                    state_h = runner.init_pass_b()
+                    edges_d = tuple(runner.put_replicated(a) for a in (
+                        sp_edges.lo, sp_edges.hi, sp_edges.mean))
             # host folds run while the device works on earlier groups
             sampler.update(hb.x, hb.nrows)
             if host_hll is not None:
@@ -251,8 +286,12 @@ class GPUStatsBackend:
 
         run_pass_b = config.exact_passes and ingest.rescannable \
             and plan.n_num > 0 and hostagg.n_rows > 0
-        # pass-B bounds come off the device (no host round trip first)
-        bounds_d = runner.bounds_b_device(state) if run_pass_b else None
+        # the exact pass-B inputs, computed on the device (no host round
+        # trip before pass B): what K2 bins with, what a fused profile's
+        # provisional edges are held to, and what the artifact seeds carry
+        bounds_d = runner.bounds_b_device(state) if plan.n_num > 0 else None
+        exact = singlepass.exact_triple(bounds_d) \
+            if bounds_d is not None else None
         res_a = runner.finalize_a(state)
         momf = kmoments.finalize(res_a["mom"])
         rho_all = kcorr.finalize(res_a["corr"])
@@ -262,6 +301,28 @@ class GPUStatsBackend:
         hll_est = khll.finalize(host_hll.regs if host_hll is not None
                                 else res_a["hll"])
 
+        # ---- fused: which lanes the provisional edges got right ----------
+        res_h = None            # the fused histograms, finalized
+        rebin = None            # lanes a second scan re-bins (fused)
+        adopted = None          # fused histograms taken as they are
+        exact_lanes = None      # lanes whose histogram/MAD are exact
+        if state_h is not None and hostagg.n_rows > 0:
+            res_h = runner.finalize_b(state_h)
+            hits = singlepass.hit_lanes(sp_edges, exact)
+            if run_pass_b:
+                if hits.all() and not hostagg.mg and not config.spearman:
+                    # every edge held and nothing else needs a second
+                    # read: the profile is complete after one scan
+                    run_pass_b = False
+                    adopted = res_h
+                else:
+                    rebin = np.nonzero(~hits)[0]
+            else:
+                # no second scan (exact_passes=False): the exact histogram
+                # and MAD where the edges held, the sample tier elsewhere
+                adopted = res_h
+                exact_lanes = None if hits.all() else hits
+
         # ---- pass B: exact histograms + MAD + top-k recount ----------------
         hists: Optional[List] = None
         mad: Optional[np.ndarray] = None
@@ -270,28 +331,57 @@ class GPUStatsBackend:
         spear_approx = False
         if run_pass_b:
             recounter = Recounter(hostagg)
-            state_b = runner.init_pass_b()
-            lo_d, hi_d, mean_d = bounds_d
+            lanes_d = None
+            if rebin is None:
+                state_b = runner.init_pass_b()
+                lo_d, hi_d, mean_d = bounds_d
+            elif len(rebin):
+                # the missed lanes only, on the exact triple the hit check
+                # held them to
+                state_b = runner.init_pass_b(len(rebin))
+                lo_d, hi_d, mean_d = (runner.put_replicated(a[rebin])
+                                      for a in exact)
+                lanes_d = torch.as_tensor(rebin, device=runner.device)
+            else:
+                state_b = None  # all hit: the second scan is for others
             spear_state = None
             if config.spearman:
                 spear_state = runner.init_spearman()
                 grid_d = runner.put_replicated(
                     spearman_grid(sampler, config.spearman_grid))
+            # ship only the missed columns when nothing else reads the
+            # batch; with Spearman on the whole plane ships for the rank
+            # kernels and the re-bin takes its columns from it on the
+            # device (lanes_d)
+            subset = rebin is not None and spear_state is None
+
+            def view(hb):
+                return dataclasses.replace(hb, x=hb.x[:, rebin]) \
+                    if subset else hb
 
             # the Spearman state folds from the batches pass B ships: one
             # transfer feeds K2 and the rank kernels
             def staged_b(group):
                 nonlocal state_b, spear_state
-                sb = runner.stage_batches(group, with_hll=False)
-                state_b = runner.scan_b(state_b, sb, lo_d, hi_d, mean_d)
+                if state_b is None and spear_state is None:
+                    return
+                sb = runner.stage_batches([view(hb) for hb in group],
+                                          with_hll=False)
+                if state_b is not None:
+                    state_b = runner.scan_b(state_b, sb, lo_d, hi_d, mean_d,
+                                            None if subset else lanes_d)
                 if spear_state is not None:
                     spear_state = runner.scan_spearman_grid(spear_state, sb,
                                                             grid_d)
 
             def one_b(hb):
                 nonlocal state_b, spear_state
-                db = runner.put_batch(hb, with_hll=False)
-                state_b = runner.step_b(state_b, db, lo_d, hi_d, mean_d)
+                if state_b is None and spear_state is None:
+                    return
+                db = runner.put_batch(view(hb), with_hll=False)
+                if state_b is not None:
+                    state_b = runner.step_b(state_b, db, lo_d, hi_d, mean_d,
+                                            None if subset else lanes_d)
                 if spear_state is not None:
                     spear_state = runner.step_spearman_grid(spear_state, db,
                                                             grid_d)
@@ -305,12 +395,24 @@ class GPUStatsBackend:
                 if len(pending_b) >= scan_s:
                     flush_group(pending_b, staged_b, one_b)
             flush_group(pending_b, staged_b, one_b)
+            res_b = runner.finalize_b(state_b) if state_b is not None \
+                else None
+            if rebin is not None:
+                # hit lanes keep their fused counts, missed lanes take the
+                # re-bin: two-pass's result, lane for lane
+                if res_b is not None:
+                    res_b = singlepass.merge_rebinned(res_h, res_b, rebin)
+                    singlepass.record_rebin(len(rebin))
+                else:
+                    res_b = res_h
             hists, mad = khistogram.finalize(
-                runner.finalize_b(state_b), momf["fmin"], momf["fmax"],
-                momf["n"], config.bins)
+                res_b, momf["fmin"], momf["fmax"], momf["n"], config.bins)
             if spear_state is not None:
                 rho_spear = kcorr.finalize(
                     runner.finalize_spearman(spear_state))
+        elif adopted is not None:
+            hists, mad = khistogram.finalize(
+                adopted, momf["fmin"], momf["fmax"], momf["n"], config.bins)
         elif config.exact_passes and ingest.rescannable \
                 and hostagg.n_rows > 0:
             # no numeric columns: only the top-k recount needs a rescan
@@ -326,10 +428,15 @@ class GPUStatsBackend:
             spear_approx = True
             rho_spear = sampler.spearman()
 
-        return _assemble(plan, config, ingest.sample(config.sample_rows),
-                         hostagg, momf, rho_all, quants, sample_vals,
-                         sample_kept, hll_est, hists, mad, recounter, probes,
-                         rho_spear, spear_approx)
+        stats = _assemble(plan, config, ingest.sample(config.sample_rows),
+                          hostagg, momf, rho_all, quants, sample_vals,
+                          sample_kept, hll_est, hists, mad, recounter,
+                          probes, rho_spear, spear_approx, exact_lanes)
+        if exact is not None:
+            # the pass-B bounds a later fused profile of this source seeds
+            # its edges from (artifacts seal them); private, never exported
+            stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
+        return stats
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +455,8 @@ def _sample_mode(values: np.ndarray, kept: np.ndarray) -> float:
 
 def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
               sample_vals, sample_kept, hll_est, hists, mad, recounter,
-              probes, rho_spear=None, spear_approx=False) -> Dict[str, Any]:
+              probes, rho_spear=None, spear_approx=False,
+              exact_lanes=None) -> Dict[str, Any]:
     n = hostagg.n_rows
     variables: Dict[str, Dict[str, Any]] = {}
     freq: Dict[str, pd.Series] = {}
@@ -436,7 +544,7 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
         if kind == schema.NUM:
             stats.update(_numeric_stats(spec.num_lane, momf, quants,
                                         sample_vals, sample_kept, hists,
-                                        mad, probes, config))
+                                        mad, probes, config, exact_lanes))
         elif kind == schema.BOOL:
             lane = spec.num_lane
             n_true = int(round(momf["sum"][lane])) if common["count"] else 0
@@ -503,7 +611,7 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
 
 
 def _numeric_stats(lane, momf, quants, sample_vals, sample_kept, hists, mad,
-                   probes, config) -> Dict[str, Any]:
+                   probes, config, exact_lanes=None) -> Dict[str, Any]:
     out = {
         "mean": float(momf["mean"][lane]),
         "std": float(momf["std"][lane]),
@@ -524,12 +632,15 @@ def _numeric_stats(lane, momf, quants, sample_vals, sample_kept, hists, mad,
     for idx, p in enumerate(probes):
         out[schema.QUANTILE_FIELDS[p]] = float(quants[idx, lane])
     out["iqr"] = out["p75"] - out["p25"]
-    if mad is not None:
+    # a fused profile without a second scan has the exact histogram and MAD
+    # only where its provisional edges held (exact_lanes); None = every lane
+    lane_exact = exact_lanes is None or bool(exact_lanes[lane])
+    if mad is not None and lane_exact:
         out["mad"] = float(mad[lane])
     else:  # single-pass mode: MAD from the uniform sample
         v = sample_vals[lane][sample_kept[lane]]
         out["mad"] = float(np.abs(v - v.mean()).mean()) if v.size else np.nan
-    if hists is not None:
+    if hists is not None and lane_exact:
         out["histogram"] = hists[lane]
     else:  # single-pass mode: sample-scaled histogram
         v = sample_vals[lane][sample_kept[lane]]

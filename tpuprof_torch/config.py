@@ -11,10 +11,12 @@ ignored.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import Optional, Sequence
 
 PASS_B_KERNELS = ("cumulative", "legacy")
+PROFILE_PASSES = ("two_pass", "fused")
 
 # the exact-unique tracker's global row budget when none is given (the
 # reference's historical default)
@@ -84,7 +86,6 @@ _LATER = {
     "metrics_block_sample": _TELEMETRY,
     "use_pallas": "none: the port always runs its kernels on CUDA",
     "use_fused": "none: the port always runs its kernels on CUDA",
-    "seed_edges": "single-pass profiles",
 }
 
 # the largest Spearman CDF grid (G) the kernels K5/K6 take: each column's
@@ -127,7 +128,10 @@ class ProfilerConfig:
     pass_b_kernel: Optional[str] = None     # "cumulative" | "legacy": the
                                             # reference's two pass-B
                                             # formulations (same counts)
-    profile_passes: Optional[str] = None    # only "two_pass" in this slice
+    profile_passes: Optional[str] = None    # "two_pass" | "fused" (see
+                                            # resolve_profile_passes)
+    seed_edges: Optional[str] = None        # artifact seeding a fused
+                                            # profile's bin edges
     quantile_probes: Sequence[float] = (0.05, 0.25, 0.5, 0.75, 0.95)
 
     # ---- reference fields a later slice ports (see _LATER) ----------------
@@ -188,7 +192,6 @@ class ProfilerConfig:
     metrics_block_sample: int = 0
     use_pallas: Optional[bool] = None
     use_fused: Optional[bool] = None
-    seed_edges: Optional[str] = None
 
     # ---- Spearman rank correlation (pass B, kernels K5/K6/K3) -------------
     spearman: bool = False
@@ -204,13 +207,11 @@ class ProfilerConfig:
                     f"{name}={value!r} is not in the PyTorch port yet "
                     f"(later slice: {slice_name}); leave it at "
                     f"{defaults[name]!r}")
-        if self.profile_passes not in (None, "two_pass"):
-            if self.profile_passes == "fused":
-                raise NotImplementedError(
-                    "profile_passes='fused' is not in the PyTorch port yet "
-                    "(later slice: single-pass profiles, kernel K4)")
+        if self.profile_passes not in (None,) + PROFILE_PASSES:
             raise ValueError(f"profile_passes={self.profile_passes!r} — "
-                             "use 'two_pass' (or None)")
+                             f"use one of {PROFILE_PASSES} (or None for "
+                             "the TPUPROF_PROFILE_PASSES/default "
+                             "resolution)")
         if self.pass_b_kernel not in (None,) + PASS_B_KERNELS:
             raise ValueError(f"pass_b_kernel={self.pass_b_kernel!r} — use "
                              f"one of {PASS_B_KERNELS} (or None)")
@@ -245,6 +246,14 @@ class ProfilerConfig:
         if not 4 <= self.hll_precision <= MAX_PRECISION:
             raise ValueError(
                 f"hll_precision must be in [4, {MAX_PRECISION}]")
+
+    def fingerprint(self) -> str:
+        """Short stable digest of every config field (an artifact's
+        ``meta["config"]`` carries it)."""
+        items = sorted(
+            (f.name, repr(getattr(self, f.name, None)))
+            for f in dataclasses.fields(self))
+        return hashlib.sha1(repr(items).encode()).hexdigest()[:12]
 
     @property
     def pass_b(self) -> str:
@@ -285,3 +294,31 @@ def resolve_prepare_workers(value: Optional[int] = None) -> int:
         return max(int(value), 1)
     return max(1, min(4, (os.cpu_count() or 1) // 2))
 
+
+def resolve_profile_passes(value: Optional[str] = None) -> str:
+    """The profile's pass structure: the config value, else
+    ``TPUPROF_PROFILE_PASSES``, else ``two_pass``.  ``fused`` folds the
+    moments and the histograms in one read of every batch, binning on
+    provisional per-column edges (from ``seed_edges`` or the first batch);
+    lanes whose edges match the exact pass-A bounds keep their counts, the
+    rest re-bin in a second scan of those columns only
+    (``tpuprof_torch/runtime/singlepass.py``)."""
+    for cand, origin in ((value, "profile_passes"),
+                         (os.environ.get("TPUPROF_PROFILE_PASSES"),
+                          "TPUPROF_PROFILE_PASSES")):
+        if cand:
+            if cand not in PROFILE_PASSES:
+                raise ValueError(
+                    f"{origin}={cand!r} — use one of {PROFILE_PASSES}")
+            return cand
+    return "two_pass"
+
+
+def resolve_seed_edges(value: Optional[str] = None) -> Optional[str]:
+    """The ``tpuprof-stats-v1`` artifact whose bin seeds give a fused
+    profile its provisional edges: the config value, else
+    ``TPUPROF_SEED_EDGES``, else None (the first batch's sketch).  A seed
+    that cannot be used warns and falls back to the sketch."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_SEED_EDGES") or None

@@ -1,10 +1,13 @@
 // Device code shared by the pass-A kernels K1 (fused_a.cu), K3
-// (fused_wide.cu) and the narrow Spearman kernel K5 (spear.cu):
+// (fused_wide.cu), the single-pass kernel K4 (fused_ab.cu) and the narrow
+// Spearman kernel K5 (spear.cu):
 //
-// * stats_partial / stats_fold: the per-column statistics of one batch
-//   (s1..s4 of d = x - shift over finite values, min/max over non-null
-//   values, min/max over finite values; finite n, zeros, +-inf, missing)
-//   over a fixed (column, row-split) partition, folded in split order;
+// * StatsAcc / stats_store / stats_partial / stats_fold: the per-column
+//   statistics of one batch (s1..s4 of d = x - shift over finite values,
+//   min/max over non-null values, min/max over finite values; finite n,
+//   zeros, +-inf, missing) over a fixed (column, row-split) partition,
+//   folded in split order (the fused K4, fused_ab.cu, runs the same
+//   per-value and per-block code);
 // * gram_tile: one (TILE x TILE) output tile of the pairwise-complete Gram
 //   sums P = d d^T, S1 = d m^T, S2 = d^2 m^T, N = m m^T over the rows of one
 //   split, with the operands d (masked, centred) and m (finite mask) formed
@@ -31,24 +34,21 @@ constexpr int GRAM_THREADS = TPE * TPE;
 
 typedef float Chunk[TILE + 1];    // one row of a (TR x TILE) chunk
 
-__global__ void __launch_bounds__(STATS_THREADS)
-stats_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
-              const float* __restrict__ shift, int64_t R,
-              int64_t rows_per_split, int splits,
-              float* __restrict__ psums, int* __restrict__ pcounts) {
-  const int c = blockIdx.x;
-  const int s = blockIdx.y;
-  const float* col = xt + (int64_t)c * R;
-  const float sh = shift[c];
-  const int64_t r0 = (int64_t)s * rows_per_split;
-  const int64_t r1 = min(R, r0 + rows_per_split);
+// One thread's accumulators of the per-column statistics, fed the values of
+// one (column, row-split) block in row order.  K1, K3 and the fused K4
+// (fused_ab.cu) run this one copy, so their sums agree bit for bit.
+struct StatsAcc {
+  float f[8];
+  int k[4];
 
-  float f[8] = {0.f, 0.f, 0.f, 0.f, INFINITY, -INFINITY, INFINITY,
-                -INFINITY};
-  int k[4] = {0, 0, 0, 0};
-  for (int64_t r = r0 + threadIdx.x; r < r1; r += STATS_THREADS) {
-    const float x = col[r];
-    const bool valid = rv[r] != 0;
+  __device__ __forceinline__ StatsAcc() {
+    f[0] = f[1] = f[2] = f[3] = 0.f;
+    f[4] = f[6] = INFINITY;
+    f[5] = f[7] = -INFINITY;
+    k[0] = k[1] = k[2] = k[3] = 0;
+  }
+
+  __device__ __forceinline__ void add(float x, bool valid, float sh) {
     const bool nan = isnan(x);
     const bool inf = isinf(x);
     const bool notnull = valid && !nan;
@@ -72,12 +72,18 @@ stats_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
     k[2] += notnull && inf;
     k[3] += valid && nan;
   }
+};
 
-  // fixed-shape tree reduction across the block: deterministic order
+// The block's fixed-shape tree reduction of every thread's StatsAcc
+// (deterministic order), written by thread 0 to partial slot ``base``.
+// Every thread of the block must call it.
+__device__ __forceinline__ void stats_store(const StatsAcc& a, int64_t base,
+                                            float* __restrict__ psums,
+                                            int* __restrict__ pcounts) {
   __shared__ float sf[8][STATS_THREADS];
   __shared__ int si[4][STATS_THREADS];
-  for (int q = 0; q < 8; ++q) sf[q][threadIdx.x] = f[q];
-  for (int q = 0; q < 4; ++q) si[q][threadIdx.x] = k[q];
+  for (int q = 0; q < 8; ++q) sf[q][threadIdx.x] = a.f[q];
+  for (int q = 0; q < 4; ++q) si[q][threadIdx.x] = a.k[q];
   __syncthreads();
   for (int stride = STATS_THREADS / 2; stride > 0; stride >>= 1) {
     if (threadIdx.x < stride) {
@@ -92,10 +98,26 @@ stats_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    const int64_t base = (int64_t)c * splits + s;
     for (int q = 0; q < 8; ++q) psums[base * 8 + q] = sf[q][0];
     for (int q = 0; q < 4; ++q) pcounts[base * 4 + q] = si[q][0];
   }
+}
+
+__global__ void __launch_bounds__(STATS_THREADS)
+stats_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
+              const float* __restrict__ shift, int64_t R,
+              int64_t rows_per_split, int splits,
+              float* __restrict__ psums, int* __restrict__ pcounts) {
+  const int c = blockIdx.x;
+  const int s = blockIdx.y;
+  const float* col = xt + (int64_t)c * R;
+  const float sh = shift[c];
+  const int64_t r0 = (int64_t)s * rows_per_split;
+  const int64_t r1 = min(R, r0 + rows_per_split);
+  StatsAcc acc;
+  for (int64_t r = r0 + threadIdx.x; r < r1; r += STATS_THREADS)
+    acc.add(col[r], rv[r] != 0, sh);
+  stats_store(acc, (int64_t)c * splits + s, psums, pcounts);
 }
 
 __global__ void stats_fold(const float* __restrict__ psums,

@@ -16,11 +16,17 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
   ``_spear_tiles``), up to ``MAX_FUSED_COLS`` columns;
 * wider tables rank in two stages: :func:`rank_transform`, kernel K6
   (``csrc/rank.cu``, replaces ``_rank_tiles``), writes the ranks, and
-  :func:`spearman_update_wide` runs K3 with ``skip_stats`` over them.
+  :func:`spearman_update_wide` runs K3 with ``skip_stats`` over them;
+* :func:`update_with_hist` folds a batch into the moments, corr AND
+  histogram states in one read, binning on provisional bounds
+  (``profile_passes="fused"``): kernel K4 (``csrc/fused_ab.cu``, replaces
+  ``_fused_ab_tiles``), up to ``MAX_FUSED_AB_COLS`` columns, bit for bit
+  K1 followed by K2.
 
 All return the reference's state dicts, so merge and finalize never care
-which ran.  ``launches``, ``launches_wide``, ``launches_spear`` and
-``launches_rank`` count the launches of K1, K3, K5 and K6.
+which ran.  ``launches``, ``launches_wide``, ``launches_spear``,
+``launches_rank`` and ``launches_ab`` count the launches of K1, K3, K5, K6
+and K4.
 """
 
 from __future__ import annotations
@@ -33,20 +39,24 @@ import torch
 
 from tpuprof_torch import kernels as _k
 from tpuprof_torch.config import MAX_SPEAR_GRID
+from tpuprof_torch.kernels import hist as khist
 
 MAX_FUSED_COLS = 512
 MAX_FUSED_COLS_WIDE = 2048
+# K4 runs K1's Gram and statistics, so it takes what K1 takes; wider tables
+# pair K3 and K2 on one shipped batch (runtime/runner.py)
+MAX_FUSED_AB_COLS = MAX_FUSED_COLS
 
 launches = 0            # K1 launches in this process (see module docstring)
 launches_wide = 0       # K3
 launches_spear = 0      # K5
 launches_rank = 0       # K6
+launches_ab = 0         # K4
 
 _F32 = torch.float32
 _I32 = torch.int32
 _TARGET_BLOCKS = 4 * 132        # a few waves over an H100's 132 SMs
 _MAX_SPLIT_ROWS = 1 << 20       # keeps each split's f32 pair count exact
-_STATS_THREADS = 256
 # K3's row splits each hold (4, C, C) partial Gram sums (64 MiB at
 # C=2048), so their count is capped: the scratch stays a small multiple of
 # the outputs
@@ -56,6 +66,8 @@ _PLAIN_RANK_CHUNK = 1 << 21     # values ranked per step of the plain rank
 Tiles = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor, torch.Tensor]
 Grams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+TilesAB = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _WIDER = ("the reference's XLA formulation for more than "
           f"{MAX_FUSED_COLS_WIDE} numeric columns is a later slice of the "
@@ -176,6 +188,16 @@ def spear_tiles_plain(xt: torch.Tensor, row_valid: torch.Tensor,
     return _gram_plain(d, finite.to(_F32))
 
 
+def tiles_ab_plain(xt: torch.Tensor, row_valid: torch.Tensor,
+                   shift: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   mean: torch.Tensor, nbins: int) -> TilesAB:
+    """What K4 returns, in plain PyTorch: :func:`tiles_plain`'s six outputs
+    then :func:`hist.histogram_plain`'s (hist (C, nbins) i32, dev (C,)
+    f32) on the provisional ``lo``/``hi``/``mean``."""
+    return (tiles_plain(xt, row_valid, shift)
+            + khist.histogram_plain(xt, row_valid, lo, hi, mean, nbins))
+
+
 def update_plain(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
                  xt: torch.Tensor, row_valid: torch.Tensor):
     """The plain PyTorch version of :func:`update` (K1's and K3's plain
@@ -200,7 +222,7 @@ def spearman_update_wide_plain(co: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# kernels K1, K3, K5, K6
+# kernels K1, K3, K5, K6, K4
 # ---------------------------------------------------------------------------
 
 def _bind_common(lib: ctypes.CDLL) -> None:
@@ -264,14 +286,13 @@ def splits(C: int, R: int, tile: int, tr: int,
     """(stat_splits, stat_rows, gram_splits, gram_rows): the fixed row
     partition of one batch, for a Gram kernel with ``tile``-column output
     tiles that reads ``tr`` rows per chunk (``tpt_gram_tile`` /
-    ``tpt_gram_rows`` of the built library).  ``max_gram_splits`` caps the
-    Gram splits, never below what keeps each split under 2^20 rows.  It
+    ``tpt_gram_rows`` of the built library).  The statistics take K2's
+    partition (:func:`hist.splits`), so K4 folds its statistics and its
+    MAD partials as K1 and K2 do.  ``max_gram_splits`` caps the Gram
+    splits, never below what keeps each split under 2^20 rows.  It
     depends only on the shape, so the partial sums, and their fold order,
     are the same on every run."""
-    stat_s = max(1, min(-(-_TARGET_BLOCKS // max(C, 1)),
-                        -(-R // (_STATS_THREADS * 16))))
-    stat_rows = max(-(-R // stat_s), 1)
-    stat_s = max(-(-R // stat_rows), 1)
+    stat_s, stat_rows = khist.splits(C, R)
     tiles = (-(-C // tile)) ** 2
     gram_s = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-R // tr)))
     if max_gram_splits is not None:
@@ -463,6 +484,66 @@ def rank_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     return out
 
 
+def _bind_ab(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    _bind_gram(lib)
+    lib.tpt_fused_ab.argtypes = [p, p, p, p, p, p, i32, i64, i32, i32, i64,
+                                 i32, i64, p, p, p, p, p, p, p, p, p, p, p,
+                                 p, p]
+    lib.tpt_fused_ab.restype = ctypes.c_int
+    lib.tpt_fused_ab_max_bins.restype = ctypes.c_int
+    if lib.tpt_fused_ab_max_bins() != khist.MAX_BINS:
+        raise RuntimeError("hist.cuh HIST_MAX_BINS disagrees with "
+                           "tpuprof_torch/kernels/hist.py")
+
+
+def _check_ab(xt, row_valid, shift, lo, hi, mean, nbins,
+              kernel: str = "cumulative") -> None:
+    _check_inputs(xt, row_valid, shift)
+    khist.check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel)
+    _narrow_only(xt.shape[0], "kernel K4")
+
+
+def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
+                  shift: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  mean: torch.Tensor, nbins: int) -> TilesAB:
+    """Launch K4 on the current stream; same outputs as
+    :func:`tiles_ab_plain`, bit for bit those of :func:`tiles_cuda` then
+    :func:`hist.histogram_cuda` on the same inputs."""
+    global launches_ab
+    _check_ab(xt, row_valid, shift, lo, hi, mean, nbins)
+    _need_cuda(xt, "tiles_ab_cuda")
+    lib = _k.library("fused_ab", _bind_ab)
+    C, R = xt.shape
+    dev = xt.device
+    stat_s, stat_rows, gram_s, gram_rows = splits(
+        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows())
+    sums = torch.empty((C, 8), dtype=_F32, device=dev)
+    counts = torch.empty((C, 8), dtype=_I32, device=dev)
+    P, S1, S2, N = _grams(C, dev)
+    hcounts = torch.zeros((C, nbins), dtype=_I32, device=dev)
+    absdev = torch.empty((C,), dtype=_F32, device=dev)
+    if C == 0:
+        return sums, counts, P, S1, S2, N, hcounts, absdev
+    scale = khist.bin_scale(lo, hi, nbins).contiguous()
+    psums = torch.empty((C * stat_s * 8,), dtype=_F32, device=dev)
+    pcounts = torch.empty((C * stat_s * 4,), dtype=_I32, device=dev)
+    pdev = torch.empty((C * stat_s,), dtype=_F32, device=dev)
+    partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.tpt_fused_ab(
+            xt.data_ptr(), row_valid.data_ptr(), shift.data_ptr(),
+            lo.data_ptr(), scale.data_ptr(), mean.data_ptr(), C, R, nbins,
+            stat_s, stat_rows, gram_s, gram_rows, psums.data_ptr(),
+            pcounts.data_ptr(), pdev.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), P.data_ptr(),
+            S1.data_ptr(), S2.data_ptr(), N.data_ptr(), hcounts.data_ptr(),
+            absdev.data_ptr(), _stream(dev))
+    launches_ab += 1
+    _k.check(status, "fused_ab (K4)", lib)
+    return sums, counts, P, S1, S2, N, hcounts, absdev
+
+
 # ---------------------------------------------------------------------------
 # entry points and state folds
 # ---------------------------------------------------------------------------
@@ -531,6 +612,31 @@ def spearman_update_wide(co: Dict[str, torch.Tensor], ranks_t: torch.Tensor,
         return _fold_corr(co, *tiles[2:])
     _cpu_only(ranks_t, "Spearman")
     return spearman_update_wide_plain(co, ranks_t, row_valid)
+
+
+def update_with_hist(mom: Dict[str, torch.Tensor],
+                     co: Dict[str, torch.Tensor],
+                     hstate: Dict[str, torch.Tensor], xt: torch.Tensor,
+                     row_valid: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor, mean: torch.Tensor,
+                     kernel: str = "cumulative"):
+    """Fold one batch into the moments, corr and histogram states in one
+    read, binning on the provisional ``lo``/``hi``/``mean``: K4 for a CUDA
+    tensor (at most ``MAX_FUSED_AB_COLS`` columns), the plain version for a
+    CPU tensor.  ``kernel`` names the reference's pass-B formulation (both
+    give the same counts).  Returns ``(mom, co, hstate)``."""
+    nbins = hstate["counts"].shape[1]
+    _check_ab(xt, row_valid, mom["shift"], lo, hi, mean, nbins, kernel)
+    if xt.is_cuda:
+        tiles = tiles_ab_cuda(xt, row_valid, mom["shift"], lo, hi, mean,
+                              nbins)
+    else:
+        _cpu_only(xt, "single-pass")
+        tiles = tiles_ab_plain(xt, row_valid, mom["shift"], lo, hi, mean,
+                               nbins)
+    return (_fold_mom(mom, tiles[0], tiles[1]), _fold_corr(co, *tiles[2:6]),
+            {"counts": hstate["counts"] + tiles[6],
+             "abs_dev": hstate["abs_dev"] + tiles[7]})
 
 
 def _fold_corr(co, P, S1, S2, N):

@@ -21,7 +21,7 @@ counts K2 launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,8 +61,18 @@ def histogram_plain(xt: torch.Tensor, row_valid: torch.Tensor,
     cum[:, 0] = finite.sum(1, dtype=torch.int32)
     for b in range(1, nbins):
         cum[:, b] = (t >= float(b)).sum(1, dtype=torch.int32)
-    dev = torch.where(finite, (xt - mean[:, None]).abs(), 0.0).sum(1)
+    dev = row_sums(torch.where(finite, (xt - mean[:, None]).abs(), 0.0))
     return counts_from_cumulative(cum), dev
+
+
+def row_sums(a: torch.Tensor) -> torch.Tensor:
+    """Per-row float32 sums of ``a`` (C, R) whose bits do not depend on C:
+    on the CPU, torch splits a lone long row across threads (another
+    order), so a lone row is summed beside a zero row.  A re-bin of one
+    column then gives the MAD numerator of the full-width pass."""
+    if a.shape[0] == 1:
+        return torch.cat([a, torch.zeros_like(a)]).sum(1)[:1]
+    return a.sum(1)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -79,9 +89,12 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def splits(C: int, R: int) -> Tuple[int, int]:
-    """(splits, rows_per_split): the fixed row partition of one batch; it
-    depends only on the shape, so the MAD partials fold in the same order
-    on every run."""
+    """(splits, rows_per_split): the fixed row partition of a batch of ``C``
+    columns and ``R`` rows into (column, row-split) blocks.  It depends
+    only on the shape, so the partials fold in the same order on every
+    run.  K2's MAD partials and the statistics of K1, K3 and K4 all use
+    this one partition (``fused.splits``), which K4's identity with K1
+    followed by K2 rests on."""
     s = max(1, min(-(-_TARGET_BLOCKS // max(C, 1)),
                    -(-R // (_THREADS * 16))))
     rows = max(-(-R // s), 1)
@@ -90,9 +103,13 @@ def splits(C: int, R: int) -> Tuple[int, int]:
 
 def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
                    lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
-                   nbins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   nbins: int, split_cols: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on the current stream; same outputs as
-    :func:`histogram_plain`."""
+    :func:`histogram_plain`.  The rows split as a batch of ``split_cols``
+    columns does (default: ``xt``'s own): a re-bin of a few of a table's
+    columns passes the table's width, so each column's MAD folds in the
+    order the full-width pass folds it, bit for bit."""
     global launches
     if not xt.is_cuda:
         raise ValueError("histogram_cuda needs CUDA tensors")
@@ -104,7 +121,7 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     absdev = torch.empty((C,), dtype=torch.float32, device=dev)
     if C == 0:
         return counts, absdev
-    n_s, rows = splits(C, R)
+    n_s, rows = splits(split_cols or C, R)
     pdev = torch.empty((C * n_s,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -117,7 +134,13 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     return counts, absdev
 
 
-def _check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel) -> None:
+def check_inputs(xt, row_valid, lo, hi, mean, nbins,
+                 kernel: str = "cumulative",
+                 split_cols: Optional[int] = None) -> None:
+    """Raise ``ValueError`` on inputs K2 (and K4's binning) does not
+    take."""
+    if split_cols is not None and split_cols < 1:
+        raise ValueError(f"split_cols must be >= 1, got {split_cols}")
     if kernel not in KERNELS:
         raise ValueError(f"unknown pass-B kernel {kernel!r} — use "
                          f"{list(KERNELS)}")
@@ -142,14 +165,18 @@ def _check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel) -> None:
 
 def histogram_batch(xt: torch.Tensor, row_valid: torch.Tensor,
                     lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
-                    nbins: int, kernel: str = "cumulative"
+                    nbins: int, kernel: str = "cumulative",
+                    split_cols: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batch's per-bin counts and sum |x - mean|: K2 for a CUDA
     tensor, the plain version for a CPU tensor.  ``kernel`` names the
-    reference formulation; both give the same counts."""
-    _check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel)
+    reference formulation; both give the same counts.  ``split_cols``:
+    see :func:`histogram_cuda` (the plain version's sums do not depend on
+    it)."""
+    check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel, split_cols)
     if xt.is_cuda:
-        return histogram_cuda(xt, row_valid, lo, hi, mean, nbins)
+        return histogram_cuda(xt, row_valid, lo, hi, mean, nbins,
+                              split_cols)
     if xt.device.type != "cpu":
         raise ValueError(f"no pass-B path for device {xt.device}")
     return histogram_plain(xt, row_valid, lo, hi, mean, nbins)

@@ -1,12 +1,14 @@
-"""Single-device execution of the two profile passes.
+"""Single-device execution of the profile passes.
 
 Counterpart of ``tpuprof/runtime/mesh.py`` for one device.  The runner owns
 the device, ships host batches to it, and folds them into the pass-A state
 ``{"mom", "corr", "hll"}`` (kernel K1, or K3 past 512 numeric columns), the
 pass-B state ``{"counts", "abs_dev"}`` (kernel K2) and, with Spearman on, the
 rank-correlation state (a corr state about 0.5: kernel K5, or K6 then K3 past
-512 columns).  States are dicts of tensors with the reference's keys, so the
-merge laws and finalizers carry over.
+512 columns).  A single-pass profile folds the pass-A and pass-B states from
+one shipped batch (``step_ab`` / ``scan_ab``): kernel K4 up to 512 columns,
+K3 then K2 past that.  States are dicts of tensors with the reference's
+keys, so the merge laws and finalizers carry over.
 
 Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
 copies S batches as ONE host-to-device transfer from pinned memory, and the
@@ -21,7 +23,7 @@ Spearman state, ``merge_corr_local``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -145,8 +147,11 @@ class Runner:
         return {"mom": mom, "corr": co,
                 "hll": hll.init(self.n_hash, self.precision, self.device)}
 
-    def init_pass_b(self) -> State:
-        return histogram.init(self.n_num, self.bins, self.device)
+    def init_pass_b(self, n_cols: Optional[int] = None) -> State:
+        """Pass-B state for all numeric columns, or for ``n_cols`` of them
+        (a single-pass profile's re-bin of its missed lanes)."""
+        return histogram.init(self.n_num if n_cols is None else n_cols,
+                              self.bins, self.device)
 
     def init_spearman(self) -> State:
         """The Spearman state: a corr state whose shift is the constant
@@ -163,12 +168,32 @@ class Runner:
         return {"mom": mom, "corr": co,
                 "hll": hll.update(state["hll"], hllt.T)}
 
-    def _fold_b(self, state: State, xt, row_valid, lo, hi, mean) -> State:
+    def _fold_b(self, state: State, xt, row_valid, lo, hi, mean,
+                lanes=None) -> State:
+        """K2 over ``xt``, or over its rows ``lanes`` (a device index
+        tensor: a re-bin of some columns of a batch that shipped whole).
+        The rows split as in the full-width pass, so the MAD of every
+        column folds in one order whatever subset runs."""
+        if lanes is not None:
+            xt = xt.index_select(0, lanes)
         counts, abs_dev = hist.histogram_batch(
             xt, row_valid, lo, hi, mean, state["counts"].shape[1],
-            kernel=self.pass_b_kernel)
+            kernel=self.pass_b_kernel, split_cols=self.n_num)
         return {"counts": state["counts"] + counts,
                 "abs_dev": state["abs_dev"] + abs_dev}
+
+    def _fold_ab(self, state: State, state_h: State, xt, row_valid, hllt,
+                 lo, hi, mean):
+        if self.n_num <= fused.MAX_FUSED_AB_COLS:
+            mom, co, h = fused.update_with_hist(
+                state["mom"], state["corr"], state_h, xt, row_valid, lo, hi,
+                mean, kernel=self.pass_b_kernel)
+            return ({"mom": mom, "corr": co,
+                     "hll": hll.update(state["hll"], hllt.T)}, h)
+        # wide: K3 then K2 on the same shipped batch (the reference's
+        # paired dispatch)
+        return (self._fold_a(state, xt, row_valid, hllt),
+                self._fold_b(state_h, xt, row_valid, lo, hi, mean))
 
     def step_a(self, state: State, db: DeviceBatch) -> State:
         return self._fold_a(state, db.xt, db.row_valid, db.hllt)
@@ -179,14 +204,33 @@ class Runner:
                                  sb.hllts[i])
         return state
 
-    def step_b(self, state: State, db: DeviceBatch, lo, hi, mean) -> State:
-        return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean)
+    def step_b(self, state: State, db: DeviceBatch, lo, hi, mean,
+               lanes=None) -> State:
+        return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean, lanes)
 
-    def scan_b(self, state: State, sb: StackedBatch, lo, hi, mean) -> State:
+    def scan_b(self, state: State, sb: StackedBatch, lo, hi, mean,
+               lanes=None) -> State:
         for i in range(sb.n_batches):
             state = self._fold_b(state, sb.xts[i], sb.row_valids[i],
-                                 lo, hi, mean)
+                                 lo, hi, mean, lanes)
         return state
+
+    def step_ab(self, state: State, state_h: State, db: DeviceBatch, lo, hi,
+                mean):
+        """Fold one shipped batch into the pass-A state AND the histogram
+        state on the provisional ``lo``/``hi``/``mean`` (a single-pass
+        profile).  Returns ``(state, state_h)``."""
+        return self._fold_ab(state, state_h, db.xt, db.row_valid, db.hllt,
+                             lo, hi, mean)
+
+    def scan_ab(self, state: State, state_h: State, sb: StackedBatch, lo,
+                hi, mean):
+        """:meth:`step_ab` over the staged batches, in order."""
+        for i in range(sb.n_batches):
+            state, state_h = self._fold_ab(state, state_h, sb.xts[i],
+                                           sb.row_valids[i], sb.hllts[i],
+                                           lo, hi, mean)
+        return state, state_h
 
     def _fold_spearman(self, state: State, xt, row_valid, grid) -> State:
         if self.n_num <= fused.MAX_FUSED_COLS:
