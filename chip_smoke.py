@@ -24,6 +24,19 @@ Phases, each fatal on failure:
    and 512 columns for 1, 10, 100 and 8192 bins on provisional bounds
    narrower than the data, bit for bit against K1 then K2 and within
    tolerance of its plain version, timed at 200 x 65,536 with 10 bins;
+   K1, K3 (513 columns) and K4 also at the ``LAYOUTS``: ragged row counts
+   and inputs not 16-byte aligned, the Gram's other load paths;
+   K1, K3 and K4 run one Gram on the tensor cores (3xTF32), so each has
+   three bounds: the function's (each product at the rate of the
+   cheapest type exact to float32, ``bound_ms``), its route's (TF32
+   products at 495 TFLOP/s, ``route_bound_ms``) and the float32 one of
+   the same work (``bound_f32_ms``); then the float64 phase: K1 (200
+   columns), K3 with and without ``skip_stats`` (1,024) and K4 (200) at
+   65,536 rows on an adversarial batch (also at the ``LAYOUTS``), an
+   all-positive one and one of extremes (+-1e20, mean far above spread),
+   each Gram's largest error scaled by sum |a b| against float64 beside
+   the plain (cuBLAS float32) version's: at most 4x it, the same
+   non-finite entries, rho within 5e-4 of float64's;
 4. the main path, ``tpuprof_torch.describe(df)`` at its default device,
    each run with the launch counters set to 0 just before and read just
    after: a 200-column x 2,097,152-row float32 table in two passes (K1,
@@ -60,8 +73,20 @@ import numpy as np
 # H100 SXM peaks the bounds are computed against (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# dense, on the tensor cores
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 RTOL_MOM, ATOL_MOM, ATOL_RHO = 5e-4, 1e-5, 5e-4
+
+# (rows, offset views) of the Gram's load paths beyond the main path's
+# aligned 65,536-row batches: a ragged row count that leaves a partial
+# last chunk with R % 4 != 0 (4-byte copies of x), one with R % 4 == 0
+# (16-byte copies ending mid-chunk), and inputs that start one element
+# into their buffers (x not 16-byte aligned, row_valid read byte by byte)
+LAYOUTS = ((65533, False), (65540, False), (65533, True))
+REHEARSAL_LAYOUTS = ((301, False), (308, False), (301, True))
 
 
 def fail(msg: str) -> None:
@@ -102,6 +127,17 @@ def adversarial_batch(C: int, R: int, seed: int):
     rv = np.ones(R, dtype=bool)
     rv[-max(R // 10, 1):] = False
     return x, rv
+
+
+def on_device(torch, device, a: np.ndarray, offset: bool = False):
+    """``a`` on ``device``; with ``offset``, as a contiguous tensor that
+    starts one element into its buffer, so its address is not 16-byte
+    aligned."""
+    t = torch.from_numpy(a)
+    if not offset:
+        return t.to(device)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    return buf[1:].view(t.shape).copy_(t)
 
 
 def finite_shift(x: np.ndarray) -> np.ndarray:
@@ -162,10 +198,10 @@ def time_ms(fn, torch, device, warmup=3, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, flops: float = F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    operations over ``flops`` (the float32 rate unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -177,9 +213,43 @@ def gram_ops(C: int, R: int) -> int:
     return 2 * C * (C + 1) * R + 4 * C * C * R
 
 
+def gram_bounds(nbytes: float, C: int, R: int):
+    """The bounds of a kernel whose work is the Gram (K1, K3, K4):
+    (bound_ms, bound_by, route_bound_ms, bound_f32_ms).
+
+    ``bound_ms`` is the function's: each product at the card's rate for
+    the cheapest type that computes it to float32 accuracy.  P = d d^T
+    (one triangle) takes 3 TF32 passes (a 3xTF32 split; six bf16 passes
+    cost the same); S1 = d m^T and S2 = d^2 m^T take 3 bf16 passes each
+    (m is 0 or 1, exact in bf16, and three bf16 parts hold a float32
+    value); N = m m^T (one triangle) one exact int8 pass.  Those rates'
+    times add.  ``route_bound_ms`` is the route the kernel takes: the
+    3xTF32 split's TF32 products, twice :func:`gram_ops` (3 + 1 passes for
+    P and N, 2 + 2 for S1 and S2, over two), at the TF32 rate.
+    ``bound_f32_ms`` is :func:`gram_ops` at the float32 rate, kept from
+    the CUDA-core design."""
+    tri = C * (C + 1) * R               # one triangle at 2 flops a row
+    t_ops = (3 * tri / TF32_FLOPS + 12 * C * C * R / BF16_FLOPS
+             + tri / INT8_OPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes",
+            bound(nbytes, 2 * gram_ops(C, R), TF32_FLOPS)[0],
+            bound(nbytes, gram_ops(C, R))[0])
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def print_row(r) -> None:
+    """One kernel-line row as a line of text."""
+    print(f"{r['name']} at {r['shape']}: {r['ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}, route bound "
+          f"{r.get('route_bound_ms')}, float32 bound "
+          f"{r.get('bound_f32_ms')}; plain {r['plain_ms']:.4f} ms; "
+          f"library {r['library_ms']})", flush=True)
+
 
 def max_abs_diff(torch, a, b) -> float:
     """Largest |a - b| over the entries finite in both (0.0 if none)."""
@@ -191,16 +261,17 @@ def max_abs_diff(torch, a, b) -> float:
 def check_pass_a(torch, device, label, kernel_fn, plain_fn, shapes,
                  seed0=0, skip_stats=False):
     """A pass-A kernel (K1, or K3 with or without ``skip_stats``) against
-    its plain version at ``shapes``.  Returns (the largest absolute error
-    of its float outputs s1..s4, P, S1, S2; the largest error of the
-    finalized moments scaled by max(|ref|, 1) and of rho) over all
-    shapes."""
+    its plain version at ``shapes``, (C, R, offset) each (``offset``:
+    x and row_valid as :func:`on_device` offsets them).  Returns (the
+    largest absolute error of its float outputs s1..s4, P, S1, S2; the
+    largest error of the finalized moments scaled by max(|ref|, 1) and of
+    rho) over all shapes."""
     from tpuprof_torch.kernels import corr, fused, moments
     worst_abs = worst = 0.0
-    for k, (C, R) in enumerate(shapes):
+    for k, (C, R, offset) in enumerate(shapes):
         x, rv = adversarial_batch(C, R, seed0 + k)
-        xt = torch.from_numpy(x).to(device)
-        rvt = torch.from_numpy(rv).to(device)
+        xt = on_device(torch, device, x, offset)
+        rvt = on_device(torch, device, rv, offset)
         shift = torch.from_numpy(finite_shift(x)).to(device)
         got = kernel_fn(xt, rvt, shift)
         ref = plain_fn(xt, rvt, shift)
@@ -209,7 +280,7 @@ def check_pass_a(torch, device, label, kernel_fn, plain_fn, shapes,
         sums, counts, P, S1, S2, N = got
         rs, rc, rP, rS1, rS2, rN = ref
         del xt, got, ref
-        at = f"{label} at {C}x{R}"
+        at = f"{label} at {C}x{R}" + (" offset" if offset else "")
         require(torch.equal(counts, rc), f"{at}: counts differ")
         require(torch.equal(N, rN), f"{at}: pair counts N differ")
         require(torch.equal(sums[:, 4:], rs[:, 4:]), f"{at}: min/max differ")
@@ -288,10 +359,14 @@ def phase_kernels(torch, device, rehearsal: bool):
     if rehearsal:
         k1, k2 = fused.tiles_plain, hist.histogram_plain
         shapes, C, R = [(5, 300), (13, 700)], 13, 700
+        layouts = REHEARSAL_LAYOUTS
     else:
         k1, k2 = fused.tiles_cuda, hist.histogram_cuda
         R = 65536
         shapes, C = [(37, R), (200, R), (512, R)], 200
+        layouts = LAYOUTS
+    shapes = [(c, r, False) for c, r in shapes] + [
+        (C, r, offset) for r, offset in layouts]
     err1, scaled1 = check_pass_a(torch, device, "K1", k1, fused.tiles_plain,
                                  shapes)
     err2, scaled2 = check_k2(torch, device, k2, C, R, (10, 128))
@@ -331,8 +406,8 @@ def phase_kernels(torch, device, rehearsal: bool):
     t2 = time_ms(lambda: k2(xt, rvt, lo, hi, mean, nbins), torch, device)
     p2 = time_ms(lambda: hist.histogram_plain(xt, rvt, lo, hi, mean, nbins),
                  torch, device, reps=5)
-    b1, by1 = bound(C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4,
-                    gram_ops(C, R))
+    b1, by1, b1r, b1f = gram_bounds(
+        C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4, C, R)
     b2, by2 = bound(C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
                     8 * C * R)
     rows = [
@@ -341,7 +416,7 @@ def phase_kernels(torch, device, rehearsal: bool):
          "replaces": "tpuprof/kernels/fused.py:245", "shape": f"{C}x{R}",
          "max_abs_err": err1, "max_scaled_err": scaled1,
          "ms": t1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
-         "library_ms": lib1},
+         "route_bound_ms": b1r, "bound_f32_ms": b1f, "library_ms": lib1},
         {"name": "hist_b", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/hist_b.cu",
          "replaces": "tpuprof/kernels/pallas_hist.py:202",
@@ -350,10 +425,7 @@ def phase_kernels(torch, device, rehearsal: bool):
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]
     for r in rows:
-        print(f"{r['name']} at {C}x{R}: {r['ms']:.4f} ms (bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; plain "
-              f"{r['plain_ms']:.4f} ms; library {r['library_ms']})",
-              flush=True)
+        print_row(r)
     print("K1 library_ms covers the Gram only: torch.matmul of already "
           "materialized d, m, d^2", flush=True)
     return rows
@@ -432,13 +504,16 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
                       fused.rank_transform_plain)
         R, C5, CW, C3s = 300, 13, 520, (520,)
         cases = [(C, R, G) for C in (5, 13) for G in (16, 100)]
+        layouts = REHEARSAL_LAYOUTS
     else:
         k3, k5, k6 = fused.tiles_wide_cuda, fused.spear_tiles_cuda, \
             fused.rank_cuda
         R, C5, CW, C3s = 65536, 200, 2048, (513, 1024, 2048)
         cases = [(C, R, G) for C in (37, 200, 512) for G in (16, 100, 256)]
+        layouts = LAYOUTS
     cases.append((CW, R, 256))
-    shapes3 = [(C, R) for C in C3s]
+    shapes3 = [(C, R, False) for C in C3s] + [
+        (C3s[0], r, offset) for r, offset in layouts]
     err3, scaled3 = check_pass_a(torch, device, "K3", k3,
                                  fused.tiles_wide_plain, shapes3, seed0=60)
     err3s, scaled3s = check_pass_a(
@@ -499,13 +574,13 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
     dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
     lib3 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device, reps=5)
     del fin, m, d, dm, d2m
-    b3, by3 = bound(CW * R * 4 + R + CW * 4 + CW * 64 + 16 * CW * CW,
-                    gram_ops(CW, R))
+    b3, by3, b3r, b3f = gram_bounds(
+        CW * R * 4 + R + CW * 4 + CW * 64 + 16 * CW * CW, CW, R)
     half = CW // 2
     xh, sh = xt[:half], shift[:half].contiguous()
     t3h = time_ms(lambda: k3(xh, rvt, sh), torch, device)
-    b3h, _ = bound(half * R * 4 + R + half * 68 + 16 * half * half,
-                   gram_ops(half, R))
+    b3h, _, b3hr, b3hf = gram_bounds(
+        half * R * 4 + R + half * 68 + 16 * half * half, half, R)
     t6 = time_ms(lambda: k6(xt, rvt, grid), torch, device)
     p6 = time_ms(lambda: fused.rank_transform_plain(xt, rvt, grid), torch,
                  device, warmup=1, reps=2)
@@ -518,8 +593,11 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
          "shape": f"{CW}x{R}", "max_abs_err": max(err3, err3s),
          "max_scaled_err": max(scaled3, scaled3s), "ms": t3,
          "ms_skip_stats": t3s, f"ms_{half}_cols": t3h,
-         f"bound_ms_{half}_cols": b3h, "plain_ms": p3, "bound_ms": b3,
-         "bound_by": by3, "library_ms": lib3},
+         f"bound_ms_{half}_cols": b3h,
+         f"route_bound_ms_{half}_cols": b3hr,
+         f"bound_f32_ms_{half}_cols": b3hf,
+         "plain_ms": p3, "bound_ms": b3, "bound_by": by3,
+         "route_bound_ms": b3r, "bound_f32_ms": b3f, "library_ms": lib3},
         {"name": "spear", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/spear.cu",
          "replaces": "tpuprof/kernels/fused.py:688",
@@ -534,12 +612,10 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
          "bound_by": by6, "library_ms": None},
     ]
     for r in rows:
-        print(f"{r['name']} at {r['shape']}: {r['ms']:.4f} ms (bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; plain "
-              f"{r['plain_ms']:.4f} ms; library {r['library_ms']})",
-              flush=True)
+        print_row(r)
     print(f"fused_wide skip_stats at {CW}x{R}: {t3s:.4f} ms; at {half}x{R}:"
-          f" {t3h:.4f} ms (bound {b3h:.4f} ms)", flush=True)
+          f" {t3h:.4f} ms (bound {b3h:.4f} ms, route bound {b3hr:.4f} ms, "
+          f"float32 bound {b3hf:.4f} ms)", flush=True)
     print("fused_wide library_ms covers the Gram only: torch.matmul of "
           "already materialized d, m, d^2; spear and rank: no single "
           "PyTorch call ranks against a grid (library_ms null)",
@@ -557,19 +633,25 @@ def phase_kernel_ab(torch, device, rehearsal: bool):
         k4, k1, k2 = fused.tiles_ab_plain, fused.tiles_plain, \
             hist.histogram_plain
         R, cols, C = 700, (5, 13), 13
+        layouts = REHEARSAL_LAYOUTS
     else:
         k4, k1, k2 = fused.tiles_ab_cuda, fused.tiles_cuda, \
             hist.histogram_cuda
         R, cols, C = 65536, (37, 200, 512), 200
+        layouts = LAYOUTS
+    # (columns, rows, offset, bin counts)
+    cases = [(Ck, R, False, (1, 10, 100, 8192)) for Ck in cols] + [
+        (C, r, offset, (10,)) for r, offset in layouts]
     rng = np.random.default_rng(11)
     worst_abs = worst = 0.0
-    for k, Ck in enumerate(cols):
-        x0, rv = adversarial_batch(Ck, R, 80 + k)
-        for nbins in (1, 10, 100, 8192):
+    for k, (Ck, Rk, offset, bins_list) in enumerate(cases):
+        x0, rv = adversarial_batch(Ck, Rk, 80 + k)
+        for nbins in bins_list:
             x, lo, hi, mean = hist_bounds(x0, rv, nbins, rng, narrow=0.1)
-            t = [torch.from_numpy(a).to(device)
-                 for a in (x, rv, finite_shift(x), lo, hi, mean)]
-            at = f"K4 at {Ck}x{R} bins={nbins}"
+            t = [on_device(torch, device, a, offset and j < 2) for j, a in
+                 enumerate((x, rv, finite_shift(x), lo, hi, mean))]
+            at = f"K4 at {Ck}x{Rk} bins={nbins}" + (" offset" if offset
+                                                    else "")
             got = k4(*t, nbins)
             two = k1(*t[:3]) + k2(t[0], t[1], *t[3:], nbins)
             if device.type == "cuda":
@@ -644,18 +726,144 @@ def phase_kernel_ab(torch, device, rehearsal: bool):
     d = torch.where(fin, xt - shift[:, None], 0.0)
     dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
     lib4 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device)
-    b4, by4 = bound(C * R * 4 + R + 4 * C * 4 + C * 8 * 8 + 4 * C * C * 4
-                    + C * nbins * 4 + C * 4, gram_ops(C, R))
+    b4, by4, b4r, b4f = gram_bounds(
+        C * R * 4 + R + 4 * C * 4 + C * 8 * 8 + 4 * C * C * 4
+        + C * nbins * 4 + C * 4, C, R)
     row = {"name": "fused_ab", "route": "cuda",
            "source": "tpuprof_torch/kernels/csrc/fused_ab.cu",
            "replaces": "tpuprof/kernels/fused.py:529",
            "shape": f"{C}x{R} bins={nbins}", "max_abs_err": worst_abs,
            "max_scaled_err": worst, "ms": t4, "plain_ms": p4,
-           "bound_ms": b4, "bound_by": by4, "library_ms": lib4}
-    print(f"fused_ab at {row['shape']}: {t4:.4f} ms (bound {b4:.4f} ms by "
-          f"{by4}; plain {p4:.4f} ms; library {lib4:.4f} ms, the Gram-only "
-          "torch.matmul of K1's row)", flush=True)
+           "bound_ms": b4, "bound_by": by4, "route_bound_ms": b4r,
+           "bound_f32_ms": b4f, "library_ms": lib4}
+    print_row(row)
+    print("fused_ab library_ms: the Gram-only torch.matmul of K1's row",
+          flush=True)
     return [row]
+
+
+def gram_batches(C: int, R: int, seed: int, layouts):
+    """The float64 phase's batches, (label, x, row_valid, shift, offset)
+    each: the adversarial batch, and again at each (rows, offset) of
+    ``layouts``; all-positive columns with shift 0 (every term
+    of P, S1 and S2 positive: the sums the tensor cores' truncating
+    float32 accumulation drifts on, 65,536 rows at the main path's
+    batch); and a batch of extremes: a column at +-1e20 with shift 0 (d^2
+    overflows, the split's non-finite guard), a column whose mean (1e6)
+    is far above its spread (0.1), centred by its shift as the main path
+    centres it, a small partner column (finite products with the 1e20
+    one) and 5% missing values against it."""
+    x, rv = adversarial_batch(C, R, seed)
+    yield "adversarial", x, rv, finite_shift(x), False
+    for k, (rows, offset) in enumerate(layouts):
+        x, rv = adversarial_batch(C, rows, seed + 10 + k)
+        yield ("adversarial" + (" offset" if offset else ""), x, rv,
+               finite_shift(x), offset)
+    rng = np.random.default_rng(seed + 1)
+    ones = np.ones(R, dtype=bool)
+    yield ("all-positive", rng.uniform(1.0, 2.0, (C, R)).astype(np.float32),
+           ones, np.zeros(C, dtype=np.float32), False)
+    x = rng.normal(5.0, 2.0, (C, R)).astype(np.float32)
+    x[0] = np.float32(1e20) * rng.choice([-1.0, 1.0], R)
+    x[1] = 1e6 + rng.normal(0.0, 0.1, R)
+    x[2] = rng.normal(0.0, 1e-3, R)
+    x[3, rng.random(R) < 0.05] = np.nan
+    shift = finite_shift(x)
+    shift[[0, 2]] = 0.0
+    yield "extremes", x, ones, shift, False
+
+
+def gram_f64(torch, xt, rvt, shift):
+    """(P, S1, S2) in float64 from the float32 d, d^2 and m every version
+    forms, and each entry's scale sum_r |a_r b_r|."""
+    fin = rvt[None, :] & torch.isfinite(xt)
+    d = torch.where(fin, xt - shift[:, None], 0.0)
+    d64, q64, m64 = d.double(), (d * d).double(), fin.double()
+    del d, fin
+    exact = (d64 @ d64.T, d64 @ m64.T, q64 @ m64.T)
+    d64.abs_()
+    q64.abs_()
+    return exact, (d64 @ d64.T, d64 @ m64.T, q64 @ m64.T)
+
+
+def scaled_err(torch, got, exact, scale) -> float:
+    """max |G - G64| / sum_r |a_r b_r| over the entries finite in both."""
+    g = got.double()
+    ok = torch.isfinite(g) & torch.isfinite(exact) & (scale > 0)
+    if not ok.any():
+        return 0.0
+    return float(((g - exact).abs() / scale)[ok].max())
+
+
+def phase_gram_f64(torch, device, rehearsal: bool):
+    """The tensor-core Gram of K1, K3 (with and without ``skip_stats``)
+    and K4 against float64 on :func:`gram_batches`, beside the plain
+    (cuBLAS float32) version on the same batch.  Fails if a kernel's
+    largest scaled error exceeds 4x the plain version's (or one float32
+    rounding, 2^-24, where the plain version is nearer than that), if its
+    non-finite entries are not the plain version's, or if its rho is
+    more than 5e-4 from the float64 rho.  Returns {kernel name: (the
+    kernel's largest scaled error, the plain version's)}."""
+    from tpuprof_torch.kernels import corr, fused
+    R = 300 if rehearsal else 65536
+    c1, c3 = (13, 40) if rehearsal else (200, 1024)
+    if rehearsal:
+        k1, k3, k4 = fused.tiles_plain, fused.tiles_wide_plain, \
+            fused.tiles_ab_plain
+        layouts = REHEARSAL_LAYOUTS
+    else:
+        k1, k3, k4 = fused.tiles_cuda, fused.tiles_wide_cuda, \
+            fused.tiles_ab_cuda
+        layouts = LAYOUTS
+    cases = [
+        ("fused_a", "K1", c1, lambda *a: k1(*a)),
+        ("fused_wide", "K3", c3, lambda *a: k3(*a)),
+        ("fused_wide", "K3 skip_stats", c3,
+         lambda *a: k3(*a, skip_stats=True)),
+        ("fused_ab", "K4", c1,
+         lambda xt, rv, sh: k4(xt, rv, sh, sh, sh + 1, sh, 10)[:6]),
+    ]
+    out = {}
+    for name, label, C, fn in cases:
+        for what, x, rv, shift, offset in gram_batches(C, R, 120, layouts):
+            xt = on_device(torch, device, x, offset)
+            rvt = on_device(torch, device, rv, offset)
+            sh = torch.from_numpy(shift).to(device)
+            got = fn(xt, rvt, sh)[2:6]
+            plain = fused.tiles_plain(xt, rvt, sh)[2:6]
+            exact, scale = gram_f64(torch, xt, rvt, sh)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            at = f"{label} at {C}x{x.shape[1]} {what}"
+            require(torch.equal(got[3], plain[3]), f"{at}: N differs")
+            ek = ep = 0.0
+            for g, p, e, sc, s_name in zip(got, plain, exact, scale,
+                                           ("P", "S1", "S2")):
+                require(torch.equal(torch.isfinite(g), torch.isfinite(p))
+                        and torch.equal(torch.isnan(g), torch.isnan(p)),
+                        f"{at}: {s_name} is not finite, inf and NaN where "
+                        "the plain version is")
+                ek = max(ek, scaled_err(torch, g, e, sc))
+                ep = max(ep, scaled_err(torch, p, e, sc))
+            require(ek <= max(4 * ep, 2.0 ** -24),
+                    f"{at}: scaled error {ek:.3e} over 4x the plain "
+                    f"version's {ep:.3e}")
+            c0 = corr.init(C, device)
+            c0["shift"] = sh
+            c0["set"].fill_(1)
+            rho = corr.finalize(fused._fold_corr(c0, *got))
+            rho64 = corr.finalize({"N": got[3], "S1": exact[1],
+                                   "S2": exact[2], "P": exact[0]})
+            both = np.isfinite(rho) & np.isfinite(rho64)
+            drho = float(np.max(np.abs(rho - rho64)[both])) \
+                if both.any() else 0.0
+            require(drho <= ATOL_RHO, f"{at}: rho {drho:.3e} from float64")
+            del got, plain, exact, scale, xt
+            prev = out.get(name, (0.0, 0.0))
+            out[name] = (max(prev[0], ek), max(prev[1], ep))
+            print(f"{at}: scaled error vs float64 {ek:.3e} (plain float32 "
+                  f"{ep:.3e}), rho within {drho:.3e} of float64", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -996,7 +1204,8 @@ def main(argv=None) -> int:
         for name, log in kernels.build_logs.items():
             print(f"ptxas {name}: " + " / ".join(
                 ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "Compiling entry" in ln),
+                if "registers" in ln or "Compiling entry" in ln
+                or "spill" in ln),
                 flush=True)
     del tpuprof_torch
 
@@ -1013,6 +1222,10 @@ def main(argv=None) -> int:
     rows += timed(phase_kernels_wide_and_rank, torch, device,
                   args.cpu_rehearsal)
     rows += timed(phase_kernel_ab, torch, device, args.cpu_rehearsal)
+    f64 = timed(phase_gram_f64, torch, device, args.cpu_rehearsal)
+    for r in rows:
+        if r["name"] in f64:
+            r["f64_scaled_err"], r["f64_plain_scaled_err"] = f64[r["name"]]
     # null when the main path did not run: no count was read
     launches = dict.fromkeys(COUNTERS)
     if not args.kernels_only:

@@ -145,11 +145,15 @@ def test_update_rejects_bad_inputs(bad):
 @pytest.mark.parametrize("C,R", [(200, 65536), (37, 65536), (512, 65536),
                                  (3, 1000)])
 def test_splits_depend_only_on_shape(C, R):
-    tile, tr = 64, 32           # gram.cuh's TILE and TR
+    tile, tr = 64, 32           # gram.cuh's TC_TILE and TC_ROWS
     stat_s, stat_rows, gram_s, gram_rows = fused.splits(C, R, tile, tr)
     assert stat_s * stat_rows >= R > (stat_s - 1) * stat_rows
     assert gram_s * gram_rows >= R > (gram_s - 1) * gram_rows
     assert gram_rows % tr == 0 and gram_rows <= max(1 << 20, tr)
+    # one block per tile pair of the upper triangle and split, at most
+    # _TARGET_BLOCKS of them
+    t = -(-C // tile)
+    assert gram_s * t * (t + 1) // 2 <= fused._TARGET_BLOCKS
     assert fused.splits(C, R, tile, tr) == (stat_s, stat_rows, gram_s,
                                             gram_rows)
 

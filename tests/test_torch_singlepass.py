@@ -424,7 +424,7 @@ def test_env_seed_edges_is_honoured(tmp_path, edge_df, two_pass,
 @pytest.mark.parametrize("C", [1, 2, 5, 37, 200, 512, 520, 2048])
 @pytest.mark.parametrize("R", [1, 300, 4096, 65536, 65537, 1 << 20])
 def test_stats_and_hist_partitions_are_one(C, R):
-    tile, tr = 64, 32                     # gram.cuh's TILE and TR
+    tile, tr = 64, 32                     # gram.cuh's TC_TILE, TC_ROWS
     stat_s, stat_rows, _, _ = fused.splits(C, R, tile, tr)
     assert (stat_s, stat_rows) == hist.splits(C, R)
     assert stat_s * stat_rows >= R > (stat_s - 1) * stat_rows

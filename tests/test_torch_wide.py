@@ -140,7 +140,7 @@ def test_wide_update_routes_and_folds_like_reference():
                                  (2048, 65536), (2048, 131072),
                                  (2048, 5_000_000)])
 def test_wide_splits_bound_scratch_and_keep_counts_exact(C, R):
-    tile, tr = 64, 32           # gram.cuh's TILE and TR
+    tile, tr = 64, 32           # gram.cuh's TC_TILE and TC_ROWS
     cap = fused._WIDE_MAX_GRAM_SPLITS
     stat_s, stat_rows, gram_s, gram_rows = fused.splits(
         C, R, tile, tr, max_gram_splits=cap)
@@ -148,6 +148,12 @@ def test_wide_splits_bound_scratch_and_keep_counts_exact(C, R):
     assert gram_rows <= 1 << 20             # f32 pair counts stay exact
     assert gram_s <= max(cap, -(-R // (1 << 20)))
     assert stat_s * stat_rows >= R
+    # the triangle's tile pairs: past the card's target only when the
+    # 2^20-row limit forces more splits
+    t = -(-C // tile)
+    pairs = t * (t + 1) // 2
+    assert gram_s * pairs <= max(fused._TARGET_BLOCKS,
+                                 pairs * -(-R // (1 << 20)))
 
 
 def test_more_than_2048_numeric_columns_raise():

@@ -14,21 +14,32 @@
 //
 // What bounds it on an H100: the Gram work the function needs is one
 // multiply-add per (i, j, row) for S1 and S2 and, as P and N are
-// symmetric, per (i <= j, row) for P and N: 2*C*(C+1)*R + 4*C^2*R flops,
-// float32 outside the tensor cores (the reference runs at
-// precision=HIGHEST, so no TF32).  At C=200, R=65536 that is 15.8 GFLOP
-// against 67 TFLOP/s, about 0.235 ms; the batch itself is 52 MB, about
-// 16 us at 3.35 TB/s.  So the kernel is bound by operations.  It computes
-// P and N in full (both triangles, 8*C^2*R flops in all), a third more
-// than the bound counts: one tile schedule for all four sums is the
-// price of keeping this first version simple.  Its design keeps the FMA
-// units fed:
+// symmetric, per (i <= j, row) for P and N: 2*C*(C+1)*R + 4*C^2*R flops.
+// The reference runs it at precision=HIGHEST (float32 accuracy), so the
+// bound depends on the type each product runs in (at C=200, R=65536):
 //
-// * the Gram kernel loads row chunks of column blocks i and j into shared
-//   memory and forms d, m (and d^2 in registers) there, as the TPU kernel
-//   did in VMEM: the masked, centered operands never go to device memory;
-// * each thread owns a 4x4 micro-tile of all four Gram sums, 64 FMAs for
-//   every 16 shared-memory loads;
+// * the function's: each product in the cheapest type exact to float32:
+//   P as 3 TF32 passes at 495 TFLOP/s, S1 and S2 as 3 bf16 passes each at
+//   989 TFLOP/s (m is 0 or 1, exact in bf16), N once in int8 at 1,979
+//   TOP/s: 0.049 ms;
+// * the route this kernel takes, all of it in TF32 with a 3xTF32 split
+//   (3 + 1 passes for P and N, 2 + 2 for S1 and S2), 31.5 GFLOP: 0.064 ms;
+// * float32 on the CUDA cores, 67 TFLOP/s: 15.8 GFLOP, 0.235 ms (the route
+//   of the earlier design, 1.61 ms).
+//
+// The batch itself is 52 MB, about 16 us at 3.35 TB/s, so each way the
+// kernel is bound by operations.  It takes the tensor-core route
+// (gram.cuh gram_tc):
+//
+// * mma.sync m16n8k8 TF32 on operands formed and split once per chunk
+//   from raw x into shared memory, so d, d^2 and m never go to device
+//   memory (as the TPU kernel kept them in VMEM), and float32 promotion
+//   every 128 rows, since the tensor cores' float32 accumulation is not
+//   documented to round to nearest;
+// * one block per pair of 64-column tiles of the upper triangle: the work
+//   the bound counts, not both triangles of P and N;
+// * a 3-stage cp.async ring of raw x and row_valid, so loads overlap the
+//   tensor cores;
 // * the rows split over a fixed number of blocks that depends only on the
 //   shape, partial sums land in scratch, and a second launch folds them in
 //   split order.  No float atomics anywhere, so a rerun gives the same bits.
@@ -36,10 +47,12 @@
 // The per-column statistics are a separate memory-bound pass over
 // (column, row-split) blocks with the same fixed-order fold.  Ragged C and
 // R are masked inside the kernels; nothing is padded or copied.  The device
-// code lives in gram.cuh, shared with K3 (fused_wide.cu) and K5 (spear.cu).
+// code lives in gram.cuh, shared with K3 (fused_wide.cu) and K4
+// (fused_ab.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math: the
-// statistics count NaN, +-inf and denormals exactly).
+// statistics count NaN, +-inf and denormals exactly; no flush to zero, no
+// single-pass TF32).
 
 #include "gram.cuh"
 

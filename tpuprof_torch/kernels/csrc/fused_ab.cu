@@ -30,18 +30,22 @@
 //   fixed-shape trees (stats_store, hist_store).  Bin counts are
 //   shared-memory integer atomics; the two folds (stats_fold, dev_fold)
 //   run in split order;
-// * the Gram: K1's kernel (gram.cuh launch_gram), unchanged, on K1's
-//   Gram splits.
+// * the Gram: K1's launch (gram.cuh launch_gram: the tensor-core gram_tc
+//   and its fold), unchanged, on K1's Gram splits.
 //
-// No float atomics, no TF32, no fast math: a rerun gives the same bits.
+// No float atomics, no single-pass TF32, no fast math: a rerun gives the
+// same bits.
 //
-// What bounds it on an H100: the Gram, as K1: 2*C*(C+1)*R + 4*C^2*R float32
-// flops (P and N symmetric), 15.8 GFLOP at C=200, R=65536, about 0.235 ms
-// at 67 TFLOP/s; the binning adds about C*R compares, which that bound
-// does not count; the batch is 52 MB, about 16 us at 3.35 TB/s.  What K4
-// saves over K1 then K2 is K2's second read of the batch on the device;
-// the larger saving is on the host, which ingests and ships every batch
-// once instead of twice.
+// What bounds it on an H100: the Gram, as K1: 2*C*(C+1)*R + 4*C^2*R flops
+// (P and N symmetric), 15.8 GFLOP at C=200, R=65536.  On the route it
+// takes, the 3xTF32 split on the tensor cores, that is 31.5 GFLOP of TF32
+// products, 0.064 ms at 495 TFLOP/s (0.235 ms in float32 at 67 TFLOP/s;
+// 0.049 ms with each product in its cheapest type exact to float32, as
+// K1's header counts it); the binning adds about C*R compares, which neither bound counts; the
+// batch is 52 MB, about 16 us at 3.35 TB/s.  What K4 saves over K1 then
+// K2 is K2's second read of the batch on the device; the larger saving
+// is on the host, which ingests and ships every batch once instead of
+// twice.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).
 

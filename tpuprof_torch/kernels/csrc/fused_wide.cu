@@ -14,24 +14,29 @@
 // -inf for the maxima), as the reference's skip_stats does: the Spearman
 // rank Gram over K6's ranks (shift 0.5) needs no statistics.
 //
-// What bounds it on an H100: the Gram, 2*C*(C+1)*R + 4*C^2*R float32
-// flops (P and N symmetric), no TF32 (the reference runs at
-// precision=HIGHEST).  At C=2048, R=65536 that is 1.65 TFLOP, 24.6 ms at
-// 67 TFLOP/s, while the batch is 537 MB, 0.16 ms at 3.35 TB/s: bound by
-// operations, by a wider margin than K1 as the work grows with C^2.
+// What bounds it on an H100: the Gram, 2*C*(C+1)*R + 4*C^2*R flops (P and
+// N symmetric) at float32 accuracy (the reference runs at
+// precision=HIGHEST).  At C=2048, R=65536 that is 1.65 TFLOP: 24.6 ms at
+// the CUDA cores' 67 TFLOP/s float32, or, on the route K3 takes, twice
+// that in TF32 products (the 3xTF32 split, gram.cuh gram_tc) at 495
+// TFLOP/s, 6.67 ms; with each product in its cheapest type exact to
+// float32 (K1's header), 5.14 ms.  The batch is 537 MB, 0.16 ms at 3.35
+// TB/s: bound by operations, by a wider margin than K1 as the work grows
+// with C^2.
 //
 // What changes against K1 is memory, not the schedule.  The Pallas kernel
 // tiled (256, 256) output blocks over a sequential row grid because the
 // narrow kernel's (C, 2C) VMEM accumulators stop fitting past 512
-// columns.  K1's Gram (gram.cuh) already tiles any C in 64-column output
-// tiles with registers as accumulators, so K3 runs the same device code.
-// What grows is the scratch of the row splits: each split holds its own
-// (4, C, C) partial sums, 64 MiB at C=2048.  The wrapper (fused.py
-// ``splits`` with a cap) bounds the split count so the scratch stays a
-// small multiple of the outputs (at C=2048 the 1,024 output tiles alone
-// fill the card, so one split), while keeping each split under 2^20 rows so
-// the float32 pair counts stay exact.  The fold of the splits is in split
-// order: no float atomics, a rerun gives the same bits.
+// columns.  K1's Gram (gram.cuh gram_tc) already tiles any C in pairs of
+// 64-column tiles of the upper triangle with registers as accumulators,
+// so K3 runs the same device code.  What grows is the scratch of the row
+// splits: each split holds its own (4, C, C) partial sums, 64 MiB at
+// C=2048.  The wrapper (fused.py ``splits`` with a cap) bounds the split
+// count so the scratch stays a small multiple of the outputs (at C=2048
+// the 528 tile pairs alone fill the card's 132 SMs four times, so one
+// split), while keeping each split under 2^20 rows so the float32 pair
+// counts stay exact.  The fold of the splits is in split order: no float
+// atomics, a rerun gives the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).
 

@@ -232,7 +232,8 @@ def _bind_common(lib: ctypes.CDLL) -> None:
 
 def _bind_gram(lib: ctypes.CDLL) -> None:
     _bind_common(lib)
-    for fn in (lib.tpt_gram_tile, lib.tpt_gram_rows):
+    for fn in (lib.tpt_gram_tile, lib.tpt_gram_rows, lib.tpt_tc_tile,
+               lib.tpt_tc_rows):
         fn.argtypes = []
         fn.restype = ctypes.c_int
 
@@ -281,20 +282,30 @@ def _bind_rank(lib: ctypes.CDLL) -> None:
 
 
 def splits(C: int, R: int, tile: int, tr: int,
-           max_gram_splits: Optional[int] = None
+           max_gram_splits: Optional[int] = None, triangle: bool = True
            ) -> Tuple[int, int, int, int]:
     """(stat_splits, stat_rows, gram_splits, gram_rows): the fixed row
     partition of one batch, for a Gram kernel with ``tile``-column output
-    tiles that reads ``tr`` rows per chunk (``tpt_gram_tile`` /
-    ``tpt_gram_rows`` of the built library).  The statistics take K2's
+    tiles that reads ``tr`` rows per chunk.  K1, K3 and K4 run one block
+    per pair of tiles of the upper triangle, T (T + 1) / 2 of them for
+    T = ceil(C / tile) (``tpt_tc_tile`` / ``tpt_tc_rows`` of the built
+    library), and their splits fill at most ``_TARGET_BLOCKS``; K5 runs
+    the T^2 tiles of the whole square (``triangle=False``,
+    ``tpt_gram_tile`` / ``tpt_gram_rows``).  The statistics take K2's
     partition (:func:`hist.splits`), so K4 folds its statistics and its
     MAD partials as K1 and K2 do.  ``max_gram_splits`` caps the Gram
     splits, never below what keeps each split under 2^20 rows.  It
     depends only on the shape, so the partial sums, and their fold order,
     are the same on every run."""
     stat_s, stat_rows = khist.splits(C, R)
-    tiles = (-(-C // tile)) ** 2
-    gram_s = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-R // tr)))
+    t = -(-C // tile)
+    if triangle:
+        # gram_tc holds one block per SM: round down, so no wave is left
+        # with a stray block
+        gram_s = _TARGET_BLOCKS // max(t * (t + 1) // 2, 1)
+    else:
+        gram_s = -(-_TARGET_BLOCKS // max(t * t, 1))
+    gram_s = max(1, min(gram_s, -(-R // tr)))
     if max_gram_splits is not None:
         gram_s = min(gram_s, max_gram_splits)
     gram_s = max(gram_s, -(-R // _MAX_SPLIT_ROWS))
@@ -377,7 +388,7 @@ def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     C, R = xt.shape
     dev = xt.device
     stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows())
+        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows())
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
@@ -409,7 +420,7 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     C, R = xt.shape
     dev = xt.device
     stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows(),
+        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows(),
         max_gram_splits=_WIDE_MAX_GRAM_SPLITS)
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
@@ -446,7 +457,7 @@ def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     G = grid.shape[1]
     dev = xt.device
     _, _, gram_s, gram_rows = splits(C, R, lib.tpt_gram_tile(),
-                                     lib.tpt_gram_rows())
+                                     lib.tpt_gram_rows(), triangle=False)
     P, S1, S2, N = _grams(C, dev)
     if C == 0:
         return P, S1, S2, N
@@ -517,7 +528,7 @@ def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     C, R = xt.shape
     dev = xt.device
     stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_gram_tile(), lib.tpt_gram_rows())
+        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows())
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
