@@ -17,21 +17,27 @@ Phases, each fatal on failure:
    rtol 5e-4, rho at atol 5e-4): K1 and K2 at the bench shape's widths, K3
    at 513, 1024 and 2048 columns with and without ``skip_stats``, K5 at
    37, 200 and 512 columns for grids of 16, 100 and 256 points, K6 beside
-   each; reruns give identical bits; then the time of each kernel at the
-   main path's shapes (K1, K2, K5: 200 float32 columns x 65,536 rows; K3,
-   K6: 2,048 columns x 65,536 rows, K3 also at 1,024) beside its bound,
-   its plain version's time and one library call's time; K4 at 37, 200
-   and 512 columns for 1, 10, 100 and 8192 bins on provisional bounds
-   narrower than the data, bit for bit against K1 then K2 and within
-   tolerance of its plain version, timed at 200 x 65,536 with 10 bins;
-   K1, K3 (513 columns) and K4 also at the ``LAYOUTS``: ragged row counts
-   and inputs not 16-byte aligned, the Gram's other load paths;
-   K1, K3 and K4 run one Gram on the tensor cores (3xTF32), so each has
-   three bounds: the function's (each product at the rate of the
-   cheapest type exact to float32, ``bound_ms``), its route's (TF32
+   each, and K5 bit for bit K6 then K3 with ``skip_stats`` over its ranks
+   (the ranks' inputs hold a constant and a three-valued column, so whole
+   grids are runs of ties); reruns give identical bits; then the time of
+   each kernel at the main path's shapes (K1, K2, K5: 200 float32 columns
+   x 65,536 rows; K3, K6: 2,048 columns x 65,536 rows, K3 also at 1,024)
+   beside its bound, its plain version's time and one library route's
+   time (K6: two ``torch.searchsorted`` and ``torch.where``, checked
+   against K6's bits first; K5: that, then the Gram-only
+   ``torch.matmul``); K4 at 37, 200 and 512 columns for 1, 10, 100 and
+   8192 bins on provisional bounds narrower than the data, bit for bit
+   against K1 then K2 and within tolerance of its plain version, timed at
+   200 x 65,536 with 10 bins; K1, K3 (513 columns), K4, K5 and K6 (200)
+   also at the ``LAYOUTS``: ragged row counts and inputs not 16-byte
+   aligned, the Gram's and the rank launch's other load paths;
+   K1, K3, K4 and K5 run one Gram on the tensor cores (3xTF32), so each
+   has three bounds: the function's (each product at the rate of the
+   cheapest type exact to float32, ``bound_ms``; K5's from the bf16 terms
+   its run's ranks need, ``bound_bf16_parts_d_d2``), its route's (TF32
    products at 495 TFLOP/s, ``route_bound_ms``) and the float32 one of
-   the same work (``bound_f32_ms``); then the float64 phase: K1 (200
-   columns), K3 with and without ``skip_stats`` (1,024) and K4 (200) at
+   the same work (``bound_f32_ms``); then the float64 phase: K1, K4 and
+   K5 (200 columns) and K3 with and without ``skip_stats`` (1,024) at
    65,536 rows on an adversarial batch (also at the ``LAYOUTS``), an
    all-positive one and one of extremes (+-1e20, mean far above spread),
    each Gram's largest error scaled by sum |a b| against float64 beside
@@ -213,29 +219,45 @@ def gram_ops(C: int, R: int) -> int:
     return 2 * C * (C + 1) * R + 4 * C * C * R
 
 
-def gram_bounds(nbytes: float, C: int, R: int):
-    """The bounds of a kernel whose work is the Gram (K1, K3, K4):
+def gram_bounds(nbytes: float, C: int, R: int, d_parts: int = 3,
+                d2_parts: int = 3):
+    """The bounds of a kernel whose work is the Gram (K1, K3, K4, K5):
     (bound_ms, bound_by, route_bound_ms, bound_f32_ms).
 
     ``bound_ms`` is the function's: each product at the card's rate for
-    the cheapest type that computes it to float32 accuracy.  P = d d^T
-    (one triangle) takes 3 TF32 passes (a 3xTF32 split; six bf16 passes
-    cost the same); S1 = d m^T and S2 = d^2 m^T take 3 bf16 passes each
-    (m is 0 or 1, exact in bf16, and three bf16 parts hold a float32
-    value); N = m m^T (one triangle) one exact int8 pass.  Those rates'
-    times add.  ``route_bound_ms`` is the route the kernel takes: the
-    3xTF32 split's TF32 products, twice :func:`gram_ops` (3 + 1 passes for
-    P and N, 2 + 2 for S1 and S2, over two), at the TF32 rate.
+    the cheapest type that computes it to float32 accuracy.  ``d_parts``
+    and ``d2_parts`` are the bf16 terms that hold every d and d^2 of the
+    inputs exactly (:func:`bf16_parts`; 3 hold any float32 value).  P =
+    d d^T (one triangle) takes d_parts^2 bf16 passes, at most 3 TF32
+    passes (a 3xTF32 split; six bf16 passes cost the same); S1 = d m^T
+    and S2 = d^2 m^T take d_parts and d2_parts bf16 passes (m is 0 or 1,
+    exact in bf16); N = m m^T (one triangle) one exact int8 pass.  Those
+    rates' times add.  ``route_bound_ms`` is the route the kernel takes:
+    the 3xTF32 split's TF32 products, twice :func:`gram_ops` (3 + 1
+    passes for P and N, 2 + 2 for S1 and S2, over two), at the TF32 rate.
     ``bound_f32_ms`` is :func:`gram_ops` at the float32 rate, kept from
     the CUDA-core design."""
     tri = C * (C + 1) * R               # one triangle at 2 flops a row
-    t_ops = (3 * tri / TF32_FLOPS + 12 * C * C * R / BF16_FLOPS
+    t_ops = (min(d_parts ** 2 * tri / BF16_FLOPS, 3 * tri / TF32_FLOPS)
+             + 2 * (d_parts + d2_parts) * C * C * R / BF16_FLOPS
              + tri / INT8_OPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops > t_bytes else "bytes",
             bound(nbytes, 2 * gram_ops(C, R), TF32_FLOPS)[0],
             bound(nbytes, gram_ops(C, R))[0])
+
+
+def bf16_parts(torch, v) -> int:
+    """How many bf16 terms, each the rounding of what the ones before left,
+    sum to every value of the float32 tensor ``v`` exactly: 1, 2, or 3
+    (three hold a float32 value to float32 accuracy)."""
+    rest = v
+    for parts in (1, 2):
+        rest = rest - rest.bfloat16().float()
+        if bool((rest == 0).all()):
+            return parts
+    return 3
 
 
 # ---------------------------------------------------------------------------
@@ -397,12 +419,8 @@ def phase_kernels(torch, device, rehearsal: bool):
     t1 = time_ms(lambda: k1(xt, rvt, shift), torch, device)
     p1 = time_ms(lambda: fused.tiles_plain(xt, rvt, shift), torch, device,
                  reps=5)
-    fin = torch.isfinite(xt) & rvt[None, :]
-    m = fin.float()
-    d = torch.where(fin, xt - shift[:, None], 0.0)
-    d2 = d * d
-    dm, d2m = torch.cat([d, m]), torch.cat([d2, m])
-    lib1 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device)
+    ops = gram_operands(torch, xt, rvt, shift)
+    lib1 = time_ms(lambda: gram_products(*ops), torch, device)
     t2 = time_ms(lambda: k2(xt, rvt, lo, hi, mean, nbins), torch, device)
     p2 = time_ms(lambda: hist.histogram_plain(xt, rvt, lo, hi, mean, nbins),
                  torch, device, reps=5)
@@ -431,20 +449,31 @@ def phase_kernels(torch, device, rehearsal: bool):
     return rows
 
 
+def sample_grid(x: np.ndarray, G: int, seed: int) -> np.ndarray:
+    """The (C, G) CDF grid of ``x`` (C, R) as the main path builds it: the
+    port's row sampler over the first rows, then ``cdf_grid``."""
+    from tpuprof_torch.ingest.sample import RowSampler
+    n = min(x.shape[1], 16384)
+    sampler = RowSampler(4096, x.shape[0], seed=seed)
+    sampler.update(x[:, :n].T, n)
+    return sampler.cdf_grid(G)
+
+
 def rank_inputs(C: int, R: int, G: int, seed: int):
     """(xt (C, R) f32, row_valid (R,) bool, grid (C, G) f32): K1's
-    adversarial batch (NaN, +-inf, zeros, denormals, a constant and an
-    all-NaN column, invalid rows), a CDF grid built by the port's row
+    adversarial batch (NaN, +-inf, zeros, denormals, a constant column,
+    whose grid is all one value, and an all-NaN column, invalid rows), a
+    discrete column of three values (its grid is three long runs of ties:
+    the rank search's tie count), a CDF grid built by the port's row
     sampler as the main path builds it, an eighth of the values set equal
     to grid points (ties), and a column of finite values whose grid is all
     +inf."""
-    from tpuprof_torch.ingest.sample import RowSampler
     x, rv = adversarial_batch(C, R, seed)
-    n = min(R, 16384)
-    sampler = RowSampler(4096, C, seed=seed)
-    sampler.update(x[:, :n].T, n)
-    grid = sampler.cdf_grid(G)
     rng = np.random.default_rng(seed + 1)
+    if C > 5:
+        x[4] = rng.choice(np.array([-1.0, 0.5, 2.0], dtype=np.float32), R)
+        x[4, rng.random(R) < 0.07] = np.nan
+    grid = sample_grid(x, G, seed)
     pos = rng.integers(0, R, (C, max(R // 8, 1)))
     pick = rng.integers(0, G, pos.shape)
     x[np.arange(C)[:, None], pos] = np.take_along_axis(grid, pick, axis=1)
@@ -452,29 +481,37 @@ def rank_inputs(C: int, R: int, G: int, seed: int):
     return x, rv, grid
 
 
-def check_rank_kernels(torch, device, k5, k6, cases, seed0=40):
+def check_rank_kernels(torch, device, k5, k6, k3, cases, seed0=40):
     """K6 bit for bit against rank_transform_plain, and K5 (at most 512
-    columns) against spear_tiles_plain, on ``rank_inputs`` at each (C, R,
-    G) of ``cases``.  Returns (the largest absolute error of K5's P, S1,
-    S2; the largest rho error)."""
+    columns) bit for bit against K6 then K3 with ``skip_stats`` over its
+    ranks and within tolerance of spear_tiles_plain, on ``rank_inputs`` at
+    each (C, R, G, offset) of ``cases`` (``offset``: x and row_valid as
+    :func:`on_device` offsets them).  Returns (the largest absolute error
+    of K5's P, S1, S2; the largest rho error)."""
     from tpuprof_torch.kernels import corr, fused
     worst_abs = worst = 0.0
-    for k, (C, R, G) in enumerate(cases):
+    for k, (C, R, G, offset) in enumerate(cases):
         x, rv, grid = rank_inputs(C, R, G, seed0 + k)
-        t = [torch.from_numpy(a).to(device) for a in (x, rv, grid)]
-        at = f"at {C}x{R} G={G}"
+        t = [on_device(torch, device, a, offset and j < 2)
+             for j, a in enumerate((x, rv, grid))]
+        at = f"at {C}x{R} G={G}" + (" offset" if offset else "")
         ranks, ref = k6(*t), fused.rank_transform_plain(*t)
         if device.type == "cuda":
             torch.cuda.synchronize()
         require(torch.equal(ranks.view(torch.int32), ref.view(torch.int32)),
                 f"K6 {at}: ranks not bit-identical")
-        del ranks, ref
+        del ref
         if C > fused.MAX_FUSED_COLS:
             print(f"K6 {at}: ranks bit-identical", flush=True)
             continue
-        got, ref = k5(*t), fused.spear_tiles_plain(*t)
+        got = k5(*t)
+        half = torch.full((C,), 0.5, dtype=torch.float32, device=device)
+        two = k3(ranks, t[1], half, skip_stats=True)[2:]
+        ref = fused.spear_tiles_plain(*t)
         if device.type == "cuda":
             torch.cuda.synchronize()
+        require(all(torch.equal(u, v) for u, v in zip(got, two)),
+                f"K5 {at}: not bit-identical to K6 then K3 skip_stats")
         require(torch.equal(got[3], ref[3]), f"K5 {at}: pair counts differ")
         worst_abs = max([worst_abs] + [max_abs_diff(torch, u, v)
                                        for u, v in zip(got[:3], ref[:3])])
@@ -489,29 +526,63 @@ def check_rank_kernels(torch, device, k5, k6, cases, seed0=40):
         both = np.isfinite(rho_g) & np.isfinite(rho_r)
         if both.any():
             worst = max(worst, float(np.max(np.abs(rho_g - rho_r)[both])))
-        print(f"K6 {at}: ranks bit-identical; K5: N exact, rho within "
-              "tolerance", flush=True)
+        del ranks, got, two, ref
+        print(f"K6 {at}: ranks bit-identical; K5: bit-identical to K6 then "
+              "K3 skip_stats, N exact, rho within tolerance", flush=True)
     return worst_abs, worst
 
 
-def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
-    """Phase 3 for K3, K5 and K6: checks against the plain versions,
-    reruns, times.  Returns their kernel-line rows."""
-    from tpuprof_torch.ingest.sample import RowSampler
+def rank_library(torch, xt, rvt, grid):
+    """The closest PyTorch route to K6: two ``torch.searchsorted`` over
+    the (C, G) grid (lt and le as int32), their sum times float32(0.5 /
+    G), NaN where the row is invalid or x not finite."""
     from tpuprof_torch.kernels import fused
+    c = torch.tensor(fused._rank_scale(grid.shape[1]), dtype=torch.float32,
+                     device=xt.device)
+    lt = torch.searchsorted(grid, xt, side="left", out_int32=True)
+    le = torch.searchsorted(grid, xt, side="right", out_int32=True)
+    fin = rvt[None, :] & torch.isfinite(xt)
+    return torch.where(fin, (lt + le).float() * c, float("nan"))
+
+
+def gram_operands(torch, vt, rvt, shift):
+    """(d, m, [d; m], [d^2; m]) of values ``vt`` about ``shift``: the
+    operands of the Gram-only library route."""
+    fin = torch.isfinite(vt) & rvt[None, :]
+    m = fin.float()
+    d = torch.where(fin, vt - shift[:, None], 0.0)
+    return d, m, torch.cat([d, m]), torch.cat([d * d, m])
+
+
+def gram_products(d, m, dm, d2m):
+    """The Gram-only library route: two torch.matmul calls, P and S1 as
+    d [d; m]^T, S2 and N as [d^2; m] m^T."""
+    return d @ dm.T, d2m @ m.T
+
+
+def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
+    """Phase 3 for K3, K5 and K6: checks against the plain versions (K5
+    also bit for bit against K6 then K3 with ``skip_stats``), reruns,
+    times.  Returns their kernel-line rows."""
+    from tpuprof_torch.kernels import fused
+    G = fused.MAX_SPEAR_GRID
     if rehearsal:
         k3, k5, k6 = (fused.tiles_wide_plain, fused.spear_tiles_plain,
                       fused.rank_transform_plain)
         R, C5, CW, C3s = 300, 13, 520, (520,)
-        cases = [(C, R, G) for C in (5, 13) for G in (16, 100)]
+        cases = [(C, R, g, False) for C in (5, 13) for g in (16, 100)]
         layouts = REHEARSAL_LAYOUTS
     else:
         k3, k5, k6 = fused.tiles_wide_cuda, fused.spear_tiles_cuda, \
             fused.rank_cuda
         R, C5, CW, C3s = 65536, 200, 2048, (513, 1024, 2048)
-        cases = [(C, R, G) for C in (37, 200, 512) for G in (16, 100, 256)]
+        cases = [(C, R, g, False) for C in (37, 200, 512)
+                 for g in (16, 100, 256)]
         layouts = LAYOUTS
-    cases.append((CW, R, 256))
+    # K5 and K6 at the ragged and unaligned layouts (the rank launch's
+    # scalar path; 65,540 rows take the vector one), then K6 at the widest
+    cases += [(C5, r, G, offset) for r, offset in layouts]
+    cases.append((CW, R, G, False))
     shapes3 = [(C, R, False) for C in C3s] + [
         (C3s[0], r, offset) for r, offset in layouts]
     err3, scaled3 = check_pass_a(torch, device, "K3", k3,
@@ -521,7 +592,7 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
         lambda *a: k3(*a, skip_stats=True),
         lambda *a: fused.tiles_wide_plain(*a, skip_stats=True), shapes3,
         seed0=70, skip_stats=True)
-    err5, scaled5 = check_rank_kernels(torch, device, k5, k6, cases)
+    err5, scaled5 = check_rank_kernels(torch, device, k5, k6, k3, cases)
 
     # determinism: each kernel twice on one input gives the same bits
     for label, fn, C in (("K3", k3, CW // 2),
@@ -535,7 +606,7 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
                 f"{label} rerun changed bits")
     for label, fn, C in (("K5", k5, C5), ("K6", k6, CW)):
         t = [torch.from_numpy(a).to(device)
-             for a in rank_inputs(C, R, 256, 97)]
+             for a in rank_inputs(C, R, G, 97)]
         a, b = fn(*t), fn(*t)
         same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
             if label == "K6" else all(torch.equal(u, v)
@@ -546,34 +617,55 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
 
     # times at the main path's shapes (clean data: the common case)
     rng = np.random.default_rng(5)
-    G = fused.MAX_SPEAR_GRID
 
     def clean(C):
         x = rng.normal(50.0, 10.0, (C, R)).astype(np.float32)
-        sampler = RowSampler(4096, C, seed=5)
-        sampler.update(x[:, :16384].T, min(R, 16384))
         return [torch.from_numpy(a).to(device)
                 for a in (x, np.ones(R, dtype=bool), finite_shift(x),
-                          sampler.cdf_grid(G))]
+                          sample_grid(x, G, 5))]
+
+    def check_rank_library(xt, rvt, grid, kernel_ranks):
+        """The library route's ranks, held to the kernel's bits on the
+        finite values before they are timed."""
+        lib = rank_library(torch, xt, rvt, grid)
+        fin = torch.isfinite(kernel_ranks)
+        require(torch.equal(lib[fin].view(torch.int32),
+                            kernel_ranks[fin].view(torch.int32))
+                and torch.equal(fin, torch.isfinite(lib)),
+                "the searchsorted route's ranks differ from K6's")
 
     xt, rvt, shift, grid = clean(C5)
+    half5 = torch.full((C5,), 0.5, dtype=torch.float32, device=device)
     t5 = time_ms(lambda: k5(xt, rvt, grid), torch, device)
+    # K5's two stages apart: K6 at its width, then K3's Gram of the ranks
+    # (K1's partition at this width, so K5's Gram stage)
+    ranks = k6(xt, rvt, grid)
+    t5_rank = time_ms(lambda: k6(xt, rvt, grid), torch, device)
+    t5_gram = time_ms(lambda: k3(ranks, rvt, half5, skip_stats=True),
+                      torch, device)
     p5 = time_ms(lambda: fused.spear_tiles_plain(xt, rvt, grid), torch,
                  device, reps=5)
-    b5, by5 = bound(C5 * R * 4 + R + C5 * G * 4 + 16 * C5 * C5,
-                    gram_ops(C5, R))
+    check_rank_library(xt, rvt, grid, ranks)
+    lib5 = time_ms(lambda: gram_products(*gram_operands(
+        torch, rank_library(torch, xt, rvt, grid), rvt, half5)), torch,
+        device)
+    # K5's function bound counts each product at the bf16 terms this
+    # run's d = rank - 0.5 and d^2 need (at G = 256 a rank is a multiple
+    # of 1/512: d is exact in one bf16 term, d^2 in two)
+    d5 = torch.where(torch.isfinite(ranks), ranks - 0.5, 0.0)
+    parts5 = (bf16_parts(torch, d5), bf16_parts(torch, d5 * d5))
+    del d5
+    b5, by5, b5r, b5f = gram_bounds(
+        C5 * R * 4 + R + C5 * G * 4 + 16 * C5 * C5, C5, R, *parts5)
     xt, rvt, shift, grid = clean(CW)
     t3 = time_ms(lambda: k3(xt, rvt, shift), torch, device)
     t3s = time_ms(lambda: k3(xt, rvt, shift, skip_stats=True), torch,
                   device)
     p3 = time_ms(lambda: fused.tiles_wide_plain(xt, rvt, shift), torch,
                  device, reps=5)
-    fin = torch.isfinite(xt) & rvt[None, :]
-    m = fin.float()
-    d = torch.where(fin, xt - shift[:, None], 0.0)
-    dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
-    lib3 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device, reps=5)
-    del fin, m, d, dm, d2m
+    ops = gram_operands(torch, xt, rvt, shift)
+    lib3 = time_ms(lambda: gram_products(*ops), torch, device, reps=5)
+    del ops
     b3, by3, b3r, b3f = gram_bounds(
         CW * R * 4 + R + CW * 4 + CW * 64 + 16 * CW * CW, CW, R)
     half = CW // 2
@@ -584,6 +676,9 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
     t6 = time_ms(lambda: k6(xt, rvt, grid), torch, device)
     p6 = time_ms(lambda: fused.rank_transform_plain(xt, rvt, grid), torch,
                  device, warmup=1, reps=2)
+    check_rank_library(xt, rvt, grid, k6(xt, rvt, grid))
+    lib6 = time_ms(lambda: rank_library(torch, xt, rvt, grid), torch, device,
+                   reps=5)
     b6, by6 = bound(2 * CW * R * 4 + R + CW * G * 4, 0)
     del xt, xh
     rows = [
@@ -603,23 +698,32 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
          "replaces": "tpuprof/kernels/fused.py:688",
          "shape": f"{C5}x{R} G={G}", "max_abs_err": err5,
          "max_scaled_err": scaled5, "ms": t5, "plain_ms": p5,
-         "bound_ms": b5, "bound_by": by5, "library_ms": None},
+         "bound_ms": b5, "bound_by": by5, "route_bound_ms": b5r,
+         "bound_f32_ms": b5f, "library_ms": lib5,
+         "bound_bf16_parts_d_d2": list(parts5),
+         "ms_rank_stage": t5_rank, "ms_gram_stage": t5_gram},
         {"name": "rank", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/rank.cu",
          "replaces": "tpuprof/kernels/fused.py:754",
          "shape": f"{CW}x{R} G={G}", "max_abs_err": 0.0,
          "max_scaled_err": 0.0, "ms": t6, "plain_ms": p6, "bound_ms": b6,
-         "bound_by": by6, "library_ms": None},
+         "bound_by": by6, "library_ms": lib6},
     ]
     for r in rows:
         print_row(r)
+    print(f"spear's stages at {C5}x{R}: ranks (K6) {t5_rank:.4f} ms, Gram "
+          f"(K3 skip_stats over them) {t5_gram:.4f} ms; its function bound "
+          f"counts d in {parts5[0]} and d^2 in {parts5[1]} bf16 terms",
+          flush=True)
     print(f"fused_wide skip_stats at {CW}x{R}: {t3s:.4f} ms; at {half}x{R}:"
           f" {t3h:.4f} ms (bound {b3h:.4f} ms, route bound {b3hr:.4f} ms, "
           f"float32 bound {b3hf:.4f} ms)", flush=True)
     print("fused_wide library_ms covers the Gram only: torch.matmul of "
-          "already materialized d, m, d^2; spear and rank: no single "
-          "PyTorch call ranks against a grid (library_ms null)",
-          flush=True)
+          "already materialized d, m, d^2; rank library_ms: two "
+          "torch.searchsorted (left, right) on the grid, their sum times "
+          "float32(0.5/G), torch.where (its ranks equal K6's on finite "
+          "values); spear library_ms: that rank route, d and m formed, and "
+          "the Gram-only torch.matmul of K1's row", flush=True)
     return rows
 
 
@@ -721,11 +825,8 @@ def phase_kernel_ab(torch, device, rehearsal: bool):
                  device)
     p4 = time_ms(lambda: fused.tiles_ab_plain(xt, rvt, shift, lo, hi, mean,
                                               nbins), torch, device, reps=5)
-    fin = torch.isfinite(xt) & rvt[None, :]
-    m = fin.float()
-    d = torch.where(fin, xt - shift[:, None], 0.0)
-    dm, d2m = torch.cat([d, m]), torch.cat([d * d, m])
-    lib4 = time_ms(lambda: (d @ dm.T, d2m @ m.T), torch, device)
+    ops = gram_operands(torch, xt, rvt, shift)
+    lib4 = time_ms(lambda: gram_products(*ops), torch, device)
     b4, by4, b4r, b4f = gram_bounds(
         C * R * 4 + R + 4 * C * 4 + C * 8 * 8 + 4 * C * C * 4
         + C * nbins * 4 + C * 4, C, R)
@@ -796,42 +897,56 @@ def scaled_err(torch, got, exact, scale) -> float:
 
 
 def phase_gram_f64(torch, device, rehearsal: bool):
-    """The tensor-core Gram of K1, K3 (with and without ``skip_stats``)
-    and K4 against float64 on :func:`gram_batches`, beside the plain
-    (cuBLAS float32) version on the same batch.  Fails if a kernel's
-    largest scaled error exceeds 4x the plain version's (or one float32
-    rounding, 2^-24, where the plain version is nearer than that), if its
-    non-finite entries are not the plain version's, or if its rho is
-    more than 5e-4 from the float64 rho.  Returns {kernel name: (the
-    kernel's largest scaled error, the plain version's)}."""
+    """The tensor-core Gram of K1, K3 (with and without ``skip_stats``),
+    K4 and K5 against float64 on :func:`gram_batches`, beside the plain
+    (cuBLAS float32) version on the same batch (K5's over the plain
+    version's ranks of the batch against its sampled grid, shift 0.5).
+    Fails if a kernel's largest scaled error exceeds 4x the plain
+    version's (or one float32 rounding, 2^-24, where the plain version is
+    nearer than that), if its non-finite entries are not the plain
+    version's, or if its rho is more than 5e-4 from the float64 rho.
+    Returns {kernel name: (the kernel's largest scaled error, the plain
+    version's)}."""
     from tpuprof_torch.kernels import corr, fused
     R = 300 if rehearsal else 65536
     c1, c3 = (13, 40) if rehearsal else (200, 1024)
     if rehearsal:
-        k1, k3, k4 = fused.tiles_plain, fused.tiles_wide_plain, \
-            fused.tiles_ab_plain
+        k1, k3, k4, k5 = fused.tiles_plain, fused.tiles_wide_plain, \
+            fused.tiles_ab_plain, fused.spear_tiles_plain
         layouts = REHEARSAL_LAYOUTS
     else:
-        k1, k3, k4 = fused.tiles_cuda, fused.tiles_wide_cuda, \
-            fused.tiles_ab_cuda
+        k1, k3, k4, k5 = fused.tiles_cuda, fused.tiles_wide_cuda, \
+            fused.tiles_ab_cuda, fused.spear_tiles_cuda
         layouts = LAYOUTS
+
+    def pass_a(fn):
+        """(the Gram, the values it is of, their shift) of a pass-A
+        kernel."""
+        return lambda xt, rv, sh, x: (fn(xt, rv, sh)[2:6], xt, sh)
+
+    def spear(xt, rv, sh, x):
+        grid = torch.from_numpy(
+            sample_grid(x, fused.MAX_SPEAR_GRID, 121)).to(device)
+        return (k5(xt, rv, grid), fused.rank_transform_plain(xt, rv, grid),
+                torch.full_like(sh, 0.5))
+
     cases = [
-        ("fused_a", "K1", c1, lambda *a: k1(*a)),
-        ("fused_wide", "K3", c3, lambda *a: k3(*a)),
+        ("fused_a", "K1", c1, pass_a(k1)),
+        ("fused_wide", "K3", c3, pass_a(k3)),
         ("fused_wide", "K3 skip_stats", c3,
-         lambda *a: k3(*a, skip_stats=True)),
+         pass_a(lambda *a: k3(*a, skip_stats=True))),
         ("fused_ab", "K4", c1,
-         lambda xt, rv, sh: k4(xt, rv, sh, sh, sh + 1, sh, 10)[:6]),
+         pass_a(lambda xt, rv, sh: k4(xt, rv, sh, sh, sh + 1, sh, 10))),
+        ("spear", "K5", c1, spear),
     ]
     out = {}
     for name, label, C, fn in cases:
         for what, x, rv, shift, offset in gram_batches(C, R, 120, layouts):
             xt = on_device(torch, device, x, offset)
             rvt = on_device(torch, device, rv, offset)
-            sh = torch.from_numpy(shift).to(device)
-            got = fn(xt, rvt, sh)[2:6]
-            plain = fused.tiles_plain(xt, rvt, sh)[2:6]
-            exact, scale = gram_f64(torch, xt, rvt, sh)
+            got, vt, sh = fn(xt, rvt, torch.from_numpy(shift).to(device), x)
+            plain = fused.tiles_plain(vt, rvt, sh)[2:6]
+            exact, scale = gram_f64(torch, vt, rvt, sh)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             at = f"{label} at {C}x{x.shape[1]} {what}"
@@ -858,7 +973,7 @@ def phase_gram_f64(torch, device, rehearsal: bool):
             drho = float(np.max(np.abs(rho - rho64)[both])) \
                 if both.any() else 0.0
             require(drho <= ATOL_RHO, f"{at}: rho {drho:.3e} from float64")
-            del got, plain, exact, scale, xt
+            del got, plain, exact, scale, xt, vt
             prev = out.get(name, (0.0, 0.0))
             out[name] = (max(prev[0], ek), max(prev[1], ep))
             print(f"{at}: scaled error vs float64 {ek:.3e} (plain float32 "

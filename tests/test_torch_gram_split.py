@@ -1,5 +1,5 @@
 """The arithmetic of the tensor-core Gram (``csrc/gram.cuh::gram_tc``, run
-by kernels K1, K3 and K4) modelled in torch on the CPU.
+by kernels K1, K3, K4 and K5) modelled in torch on the CPU.
 
 The kernel itself needs the card.  What it computes is fixed here:
 
@@ -19,12 +19,15 @@ within the split's error bound, and its rho against the reference's
 ``_fused_tiles(..., interpret=True)`` at the reference's tolerance (atol
 5e-4), on ``chip_smoke.py``-style adversarial batches and on columns at
 +-1e20 and 3e38.  The row partition the kernel runs on is checked here
-too: one block per pair of tiles of the upper triangle.
+too: one block per pair of tiles of the upper triangle, one partition a
+width for K1, K3 and K5 (the Spearman Gram over its ranks) up to 512
+columns.
 
 The model's tile, chunk and promotion constants are read from
 ``gram.cuh`` itself, so the model follows the kernel's source.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -291,6 +294,48 @@ def test_splits_count_triangle_tile_pairs(C, R, pairs, gram_s, gram_rows):
     assert got_rows % TC_ROWS == 0
 
 
-def test_k5_keeps_the_square_partition():
-    # K5 still runs one block per tile of the whole square
-    assert fused.splits(200, 65536, 64, 32, triangle=False)[2:] == (33, 2016)
+class _RecordingLib:
+    """Stands in for the built libraries: the tile constants of gram.cuh,
+    and each Gram entry point records the (gram_splits, gram_rows) its
+    wrapper hands it."""
+
+    # entry point -> position of gram_splits among its arguments
+    GRAM_ARG = {"tpt_fused_a": 7, "tpt_fused_wide": 8, "tpt_spear": 7}
+
+    def __init__(self):
+        self.partition = {}
+
+    def tpt_tc_tile(self):
+        return TC_TILE
+
+    def tpt_tc_rows(self):
+        return TC_ROWS
+
+    def __getattr__(self, name):
+        k = self.GRAM_ARG[name]
+
+        def entry(*args):
+            self.partition[name] = tuple(args[k:k + 2])
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("C", [37, 200, 512])
+def test_k5_runs_k1s_triangle_partition(C, monkeypatch):
+    """K5's Gram runs on K1's partition (and K3's at these widths), so K5
+    is bit for bit K6 then K3 with skip_stats on the card."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(fused._k, "library", lambda name, bind: lib)
+    monkeypatch.setattr(fused, "_need_cuda", lambda xt, what: None)
+    monkeypatch.setattr(fused, "_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    R = 65536
+    xt = torch.empty((C, R))
+    rv = torch.ones(R, dtype=torch.bool)
+    fused.spear_tiles_cuda(xt, rv, torch.zeros((C, 256)))
+    fused.tiles_cuda(xt, rv, torch.zeros(C))
+    fused.tiles_wide_cuda(xt, rv, torch.zeros(C), skip_stats=True)
+    k1 = fused.splits(C, R, TC_TILE, TC_ROWS)[2:]
+    assert lib.partition == {"tpt_spear": k1, "tpt_fused_a": k1,
+                             "tpt_fused_wide": k1}

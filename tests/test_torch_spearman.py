@@ -130,7 +130,9 @@ def test_spear_plain_matches_pallas_interpret(cols):
 # the wide tier: K6 then K3 with skip_stats
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cols", [5, 300])     # 300 > 256: multi-tile
+# 37 and 200: K5's widths, where the card runs K5 as K6 then K3's Gram;
+# 300 > 256: multi-tile
+@pytest.mark.parametrize("cols", [5, 37, 200, 300])
 def test_wide_composition_matches_reference_and_narrow(cols):
     rng = np.random.default_rng(1)
     n = 600
@@ -158,6 +160,7 @@ def test_wide_composition_matches_reference_and_narrow(cols):
                                rtol=0, atol=RHO_ATOL, equal_nan=True)
     narrow = fused.spearman_update_plain(_port_co(cols), _t(xt), _t(rv),
                                          _t(grid))
+    assert torch.equal(wide["N"], narrow["N"])
     np.testing.assert_allclose(corr.finalize(wide), corr.finalize(narrow),
                                rtol=0, atol=1e-5, equal_nan=True)
     routed = fused.spearman_update_wide(
@@ -373,7 +376,11 @@ def test_k5_k6_match_plain_on_card(cuda_device, cols, n_grid):
     got = fused.spear_tiles_cuda(*t)
     again = fused.spear_tiles_cuda(*t)
     ref = fused.spear_tiles_plain(*t)
+    half = torch.full((cols,), 0.5, device=cuda_device)
+    two_stage = fused.tiles_wide_cuda(ranks, t[1], half, skip_stats=True)
     torch.cuda.synchronize()
     assert torch.equal(ranks.view(torch.int32), ref_ranks.view(torch.int32))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # K5 is K6 then K3 with skip_stats, bit for bit
+    assert all(torch.equal(a, b) for a, b in zip(got, two_stage[2:]))
     assert torch.equal(got[3], ref[3])

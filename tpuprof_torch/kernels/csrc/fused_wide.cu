@@ -31,11 +31,12 @@
 // 64-column tiles of the upper triangle with registers as accumulators,
 // so K3 runs the same device code.  What grows is the scratch of the row
 // splits: each split holds its own (4, C, C) partial sums, 64 MiB at
-// C=2048.  The wrapper (fused.py ``splits`` with a cap) bounds the split
-// count so the scratch stays a small multiple of the outputs (at C=2048
-// the 528 tile pairs alone fill the card's 132 SMs four times, so one
-// split), while keeping each split under 2^20 rows so the float32 pair
-// counts stay exact.  The fold of the splits is in split order: no float
+// C=2048.  Past 512 columns the wrapper (fused.py ``splits`` with a cap)
+// bounds the split count so the scratch stays a small multiple of the
+// outputs (at C=2048 the 528 tile pairs alone fill the card's 132 SMs four
+// times, so one split), while keeping each split under 2^20 rows so the
+// float32 pair counts stay exact; at K1's widths K3 takes K1's partition,
+// so the Spearman Gram of K5 (spear.cu) is K3's bit for bit.  The fold of the splits is in split order: no float
 // atomics, a rerun gives the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).

@@ -1,6 +1,6 @@
 // Device code shared by the pass-A kernels K1 (fused_a.cu), K3
 // (fused_wide.cu), the single-pass kernel K4 (fused_ab.cu) and the narrow
-// Spearman kernel K5 (spear.cu):
+// Spearman kernel K5 (spear.cu, the Gram of its ranks):
 //
 // * StatsAcc / stats_store / stats_partial / stats_fold: the per-column
 //   statistics of one batch (s1..s4 of d = x - shift over finite values,
@@ -9,12 +9,9 @@
 //   folded in split order (the fused K4, fused_ab.cu, runs the same
 //   per-value and per-block code);
 // * gram_tc / launch_gram: the pairwise-complete Gram sums P = d d^T,
-//   S1 = d m^T, S2 = d^2 m^T, N = m m^T of K1, K3 and K4 on the tensor
-//   cores (3xTF32 split, one block per pair of tiles of the upper
+//   S1 = d m^T, S2 = d^2 m^T, N = m m^T of K1, K3, K4 and K5 on the
+//   tensor cores (3xTF32 split, one block per pair of tiles of the upper
 //   triangle, a cp.async ring, float32 promotion), section below;
-// * gram_tile: the CUDA-core float32 Gram tile of the earlier design,
-//   kept for K5 alone (spear.cu, with its own constants TILE / TR and
-//   its rank loader) until K5 is redesigned;
 // * gram_fold: the splits' partial Gram sums folded in split order.
 //
 // No float atomics anywhere: every partition depends only on the shape
@@ -30,14 +27,6 @@
 namespace tpt {
 
 constexpr int STATS_THREADS = 256;
-// gram_tile's constants (K5 only; fused.py ``splits`` reads them through
-// tpt_gram_tile / tpt_gram_rows)
-constexpr int TILE = 64;          // Gram output tile edge (columns)
-constexpr int TR = 32;            // rows per shared-memory chunk
-constexpr int TPE = 16;           // threads per tile edge (4x4 per thread)
-constexpr int GRAM_THREADS = TPE * TPE;
-
-typedef float Chunk[TILE + 1];    // one row of a (TR x TILE) chunk
 
 // One thread's accumulators of the per-column statistics, fed the values of
 // one (column, row-split) block in row order.  K1, K3 and the fused K4
@@ -149,75 +138,6 @@ __global__ void stats_fold(const float* __restrict__ psums,
   for (int j = 4; j < 8; ++j) counts[(int64_t)c * 8 + j] = 0;
 }
 
-// One (TILE x TILE) tile of P, S1, S2, N over rows [r0, r1), written to
-// ``out``, the (4, C, C) partial block of this row split.  Each thread owns
-// a 4x4 micro-tile of all four sums: 64 float32 FMAs for every 16 shared
-// loads.  Only K5 (spear.cu) runs it; K1, K3 and K4 run gram_tc.
-template <class LoadI, class LoadJ>
-__device__ __forceinline__ void gram_tile(const LoadI& load_i,
-                                          const LoadJ& load_j, int C,
-                                          int64_t r0, int64_t r1, int bi,
-                                          int bj, float* __restrict__ out) {
-  const int tx = threadIdx.x % TPE;
-  const int ty = threadIdx.x / TPE;
-
-  __shared__ float di[TR][TILE + 1], mi[TR][TILE + 1];
-  __shared__ float dj[TR][TILE + 1], mj[TR][TILE + 1];
-
-  float aP[4][4], aS1[4][4], aS2[4][4], aN[4][4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      aP[p][q] = aS1[p][q] = aS2[p][q] = aN[p][q] = 0.f;
-
-  for (int64_t rc = r0; rc < r1; rc += TR) {
-    load_i(rc, r1, bi, di, mi);
-    load_j(rc, r1, bj, dj, mj);
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < TR; ++rr) {
-      float a[4], a2[4], am[4], b[4], bm[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        a[p] = di[rr][ty + TPE * p];
-        am[p] = mi[rr][ty + TPE * p];
-        a2[p] = a[p] * a[p];
-        b[p] = dj[rr][tx + TPE * p];
-        bm[p] = mj[rr][tx + TPE * p];
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          aP[p][q] = fmaf(a[p], b[q], aP[p][q]);
-          aS1[p][q] = fmaf(a[p], bm[q], aS1[p][q]);
-          aS2[p][q] = fmaf(a2[p], bm[q], aS2[p][q]);
-          aN[p][q] = fmaf(am[p], bm[q], aN[p][q]);
-        }
-    }
-    __syncthreads();
-  }
-
-  // partial layout: (splits, 4, C, C) — P, S1, S2, N of this row split
-  const int64_t cc = (int64_t)C * C;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = bi + ty + TPE * p;
-    if (i >= C) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = bj + tx + TPE * q;
-      if (j >= C) continue;
-      const int64_t o = (int64_t)i * C + j;
-      out[o] = aP[p][q];
-      out[cc + o] = aS1[p][q];
-      out[2 * cc + o] = aS2[p][q];
-      out[3 * cc + o] = aN[p][q];
-    }
-  }
-}
-
 __global__ void gram_fold(const float* __restrict__ partial, int C,
                           int splits, float* __restrict__ P,
                           float* __restrict__ S1, float* __restrict__ S2,
@@ -243,7 +163,7 @@ __global__ void gram_fold(const float* __restrict__ partial, int C,
 }
 
 // ---------------------------------------------------------------------------
-// The Gram of K1, K3 and K4 on the tensor cores: gram_tc + gram_fold.
+// The Gram of K1, K3, K4 and K5 on the tensor cores: gram_tc + gram_fold.
 //
 // One block per unordered pair of TC_TILE-column tiles (bi <= bj) and row
 // split.  Raw x and row_valid of both tiles arrive in a ring of TC_STAGES
@@ -617,7 +537,5 @@ inline void launch_stats(const float* xt, const uint8_t* rv,
 extern "C" const char* tpt_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
-extern "C" int tpt_gram_tile() { return tpt::TILE; }
-extern "C" int tpt_gram_rows() { return tpt::TR; }
 extern "C" int tpt_tc_tile() { return tpt::TC_TILE; }
 extern "C" int tpt_tc_rows() { return tpt::TC_ROWS; }

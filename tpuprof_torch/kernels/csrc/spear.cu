@@ -1,121 +1,64 @@
-// K5: the narrow Spearman tier (at most 512 numeric columns) in one read
-// of the batch, for Hopper (sm_90a).
+// K5: the narrow Spearman tier (at most 512 numeric columns), for Hopper
+// (sm_90a).
 //
 // Replaces tpuprof/kernels/fused.py::_spear_tiles (Pallas body
 // _spear_kernel).  For one batch xt (C, R) float32, row_valid (R,) bytes
 // and each column's G-point CDF grid (C, G) float32 (G <= 256, rows
 // nondecreasing, +inf where a column has no sample) it ranks every value
-// against its column's grid (grid_rank.cuh) and computes the pairwise-
-// complete Gram sums of d = rank - 0.5 over the finite values:
+// against its column's grid and computes the pairwise-complete Gram sums
+// of d = rank - 0.5 over the finite values:
 //
 //   P, S1, S2 (C, C) f32 and N (C, C) i32, as K1 does for d = x - shift.
 //
-// What bounds it on an H100: the Gram, as for K1 (2*C*(C+1)*R + 4*C^2*R
-// float32 flops; 0.235 ms at C=200, R=65536), plus one read of xt.  The
-// rank searches are not counted: they are this design's cost, not work the
-// function needs (the reference's dense compare does 2G compares a value).
+// What bounds it on an H100: the Gram of the ranks plus one read of xt
+// (chip_smoke.py gram_bounds with each product at its cheapest exact
+// type's rate: 0.020 ms at C=200, R=65536, G=256, where a rank is a
+// multiple of 1/512, so d is exact in one bf16 term and d^2 in two: P and
+// S1 one bf16 pass, S2 two, N one int8 pass over a triangle; the bytes
+// alone take 0.016 ms).  The rank searches are not counted: they are this
+// design's cost, not work the function needs (the reference's dense
+// compare does 2G compares a value).
 //
-// Design: K1's Gram (gram.cuh gram_tile) with another chunk loader.  Where
-// K1's loader forms d = x - shift, K5's forms d = rank - 0.5 with
-// __fsub_rn, so d is bit for bit what K6 followed by K3 forms.  A block
-// stages the grids of its two 64-column blocks in shared memory once
-// (2 * 64 * G * 4 bytes, 128 KiB at G=256: dynamic shared memory above the
-// 48 KiB default, opted into with cudaFuncSetAttribute), and the loader
-// ranks each value by binary search against them.  The grid never leaves
-// shared memory and the ranks never reach device memory, which is what the
-// TPU kernel's single read was for.  Row splits and their in-order fold
-// are K1's: no float atomics, a rerun gives the same bits.
+// Design: two stages on one stream.
+//
+// 1. K6's rank launch (grid_rank.cuh launch_rank, one copy of the device
+//    code) writes the ranks of the batch into a (C, R) float32 scratch,
+//    NaN where the row is invalid or x not finite: each value is ranked
+//    once, by one search.
+// 2. K1's tensor-core Gram (gram.cuh launch_gram: gram_tc + gram_fold, the
+//    3xTF32 split with float32 promotion) over the scratch with shift 0.5,
+//    on the row partition K1 takes at C columns (fused.py ``splits``).
+//
+// So K5 is bit for bit K6 followed by K3 with skip_stats on the same
+// batch (K3 takes K1's partition at these widths): the narrow and the
+// wide Spearman tiers cannot drift apart.  The TPU kernel kept the ranks
+// out of device memory; here their round trip, 2*C*R*4 bytes (105 MB at
+// C=200, R=65536: 0.031 ms at 3.35 TB/s), buys a Gram on the tensor cores,
+// which has no shared memory left for a grid stage (gram.cuh TC_SMEM).
+// Row splits and their in-order fold are K1's: no float atomics, a rerun
+// gives the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).
 
 #include "gram.cuh"
 #include "grid_rank.cuh"
 
-namespace {
-
-using tpt::Chunk;
-using tpt::GRAM_THREADS;
-using tpt::TILE;
-using tpt::TR;
-
-// d = rank - 0.5 and m = 1 where the row is valid and x finite, 0
-// elsewhere; ``g`` is this column block's (TILE, G) grid in shared memory.
-struct RankLoader {
-  const float* __restrict__ xt;
-  const uint8_t* __restrict__ rv;
-  const float* g;
-  int G;
-  float c;
-  int C;
-  int64_t R;
-
-  __device__ __forceinline__ void operator()(int64_t r_chunk, int64_t r_end,
-                                             int col0, Chunk* d,
-                                             Chunk* m) const {
-    for (int e = threadIdx.x; e < TR * TILE; e += GRAM_THREADS) {
-      const int rr = e % TR;
-      const int cc = e / TR;
-      const int64_t r = r_chunk + rr;
-      const int col = col0 + cc;
-      bool fin = false;
-      float v = 0.f;
-      if (r < r_end && col < C && rv[r] != 0) {
-        const float x = xt[(int64_t)col * R + r];
-        fin = isfinite(x);
-        if (fin) v = __fsub_rn(tpt::grid_rank(g + cc * G, G, x, c), 0.5f);
-      }
-      d[rr][cc] = v;
-      m[rr][cc] = fin ? 1.f : 0.f;
-    }
-  }
-};
-
-__global__ void __launch_bounds__(GRAM_THREADS)
-spear_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
-              const float* __restrict__ grid, int C, int64_t R, int G,
-              float c, int64_t rows_per_split, float* __restrict__ partial) {
-  extern __shared__ float grids[];        // (2, TILE, G)
-  const int bi = blockIdx.x * TILE;
-  const int bj = blockIdx.y * TILE;
-  float* gi = grids;
-  float* gj = grids + TILE * G;
-  for (int e = threadIdx.x; e < TILE * G; e += GRAM_THREADS) {
-    const int cc = e / G;
-    const int k = e % G;
-    gi[e] = bi + cc < C ? grid[(int64_t)(bi + cc) * G + k] : INFINITY;
-    gj[e] = bj + cc < C ? grid[(int64_t)(bj + cc) * G + k] : INFINITY;
-  }
-  __syncthreads();
-  const int s = blockIdx.z;
-  const int64_t r0 = (int64_t)s * rows_per_split;
-  const int64_t r1 = min(R, r0 + rows_per_split);
-  const RankLoader load_i{xt, rv, gi, G, c, C, R};
-  const RankLoader load_j{xt, rv, gj, G, c, C, R};
-  tpt::gram_tile(load_i, load_j, C, r0, r1, bi, bj,
-                 partial + (int64_t)s * 4 * C * C);
-}
-
-}  // namespace
-
-// One narrow Spearman batch: two launches on ``stream``; returns the
-// status of the shared-memory opt-in or cudaGetLastError().  ``c`` is
-// float32(0.5 / G).  Scratch: partial (gram_splits*4*C*C f32).
+// One narrow Spearman batch: three launches on ``stream`` (the ranks, the
+// Gram, its fold); returns the rank launch's status or cudaGetLastError().
+// ``c`` is float32(0.5 / G); ``half`` holds C copies of 0.5 (the shift of
+// d = rank - 0.5, filled once by the caller).  Scratch: ranks (C*R f32),
+// partial (gram_splits*4*C*C f32).
 extern "C" int tpt_spear(const float* xt, const uint8_t* row_valid,
                          const float* grid, int C, int64_t R, int G, float c,
-                         int gram_splits, int64_t gram_rows, float* partial,
+                         int gram_splits, int64_t gram_rows,
+                         const float* half, float* ranks, float* partial,
                          float* P, float* S1, float* S2, int* N,
                          void* stream) {
-  if (G < 1 || G > tpt::MAX_GRID) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = 2 * TILE * G * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      spear_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      tpt::launch_rank(xt, row_valid, grid, C, R, G, c, ranks, st);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (C + TILE - 1) / TILE;
-  spear_partial<<<dim3(tiles, tiles, gram_splits), GRAM_THREADS, smem, st>>>(
-      xt, row_valid, grid, C, R, G, c, gram_rows, partial);
-  const int64_t cc = (int64_t)C * C;
-  tpt::gram_fold<<<(unsigned)((cc + 255) / 256), 256, 0, st>>>(
-      partial, C, gram_splits, P, S1, S2, N);
+  tpt::launch_gram(ranks, row_valid, half, C, R, gram_splits, gram_rows,
+                   partial, P, S1, S2, N, st);
   return (int)cudaGetLastError();
 }

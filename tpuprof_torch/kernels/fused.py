@@ -12,8 +12,10 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
   (``csrc/fused_wide.cu``, replaces ``_fused_tiles_wide``) up to
   ``MAX_FUSED_COLS_WIDE``;
 * :func:`spearman_update` folds a batch's grid ranks into a corr state
-  whose shift is 0.5, in one read: kernel K5 (``csrc/spear.cu``, replaces
-  ``_spear_tiles``), up to ``MAX_FUSED_COLS`` columns;
+  whose shift is 0.5: kernel K5 (``csrc/spear.cu``, replaces
+  ``_spear_tiles``), up to ``MAX_FUSED_COLS`` columns, which runs K6's
+  rank launch into a scratch and K1's Gram over it, bit for bit K6 then
+  K3 with ``skip_stats``;
 * wider tables rank in two stages: :func:`rank_transform`, kernel K6
   (``csrc/rank.cu``, replaces ``_rank_tiles``), writes the ranks, and
   :func:`spearman_update_wide` runs K3 with ``skip_stats`` over them;
@@ -58,8 +60,8 @@ _I32 = torch.int32
 _TARGET_BLOCKS = 4 * 132        # a few waves over an H100's 132 SMs
 _MAX_SPLIT_ROWS = 1 << 20       # keeps each split's f32 pair count exact
 # K3's row splits each hold (4, C, C) partial Gram sums (64 MiB at
-# C=2048), so their count is capped: the scratch stays a small multiple of
-# the outputs
+# C=2048), so past MAX_FUSED_COLS columns their count is capped: the
+# scratch stays a small multiple of the outputs
 _WIDE_MAX_GRAM_SPLITS = 4
 _PLAIN_RANK_CHUNK = 1 << 21     # values ranked per step of the plain rank
 
@@ -232,8 +234,7 @@ def _bind_common(lib: ctypes.CDLL) -> None:
 
 def _bind_gram(lib: ctypes.CDLL) -> None:
     _bind_common(lib)
-    for fn in (lib.tpt_gram_tile, lib.tpt_gram_rows, lib.tpt_tc_tile,
-               lib.tpt_tc_rows):
+    for fn in (lib.tpt_tc_tile, lib.tpt_tc_rows):
         fn.argtypes = []
         fn.restype = ctypes.c_int
 
@@ -268,7 +269,7 @@ def _bind_spear(lib: ctypes.CDLL) -> None:
     _bind_gram(lib)
     _bind_max_grid(lib)
     lib.tpt_spear.argtypes = [p, p, p, i32, i64, i32, f32, i32, i64,
-                              p, p, p, p, p, p]
+                              p, p, p, p, p, p, p, p]
     lib.tpt_spear.restype = ctypes.c_int
 
 
@@ -282,29 +283,24 @@ def _bind_rank(lib: ctypes.CDLL) -> None:
 
 
 def splits(C: int, R: int, tile: int, tr: int,
-           max_gram_splits: Optional[int] = None, triangle: bool = True
+           max_gram_splits: Optional[int] = None
            ) -> Tuple[int, int, int, int]:
     """(stat_splits, stat_rows, gram_splits, gram_rows): the fixed row
     partition of one batch, for a Gram kernel with ``tile``-column output
-    tiles that reads ``tr`` rows per chunk.  K1, K3 and K4 run one block
-    per pair of tiles of the upper triangle, T (T + 1) / 2 of them for
-    T = ceil(C / tile) (``tpt_tc_tile`` / ``tpt_tc_rows`` of the built
-    library), and their splits fill at most ``_TARGET_BLOCKS``; K5 runs
-    the T^2 tiles of the whole square (``triangle=False``,
-    ``tpt_gram_tile`` / ``tpt_gram_rows``).  The statistics take K2's
-    partition (:func:`hist.splits`), so K4 folds its statistics and its
-    MAD partials as K1 and K2 do.  ``max_gram_splits`` caps the Gram
-    splits, never below what keeps each split under 2^20 rows.  It
-    depends only on the shape, so the partial sums, and their fold order,
-    are the same on every run."""
+    tiles that reads ``tr`` rows per chunk.  The Gram (``gram_tc``) runs
+    one block per pair of tiles of the upper triangle, T (T + 1) / 2 of
+    them for T = ceil(C / tile) (``tpt_tc_tile`` / ``tpt_tc_rows`` of the
+    built library), and its splits fill at most ``_TARGET_BLOCKS``.  The
+    statistics take K2's partition (:func:`hist.splits`), so K4 folds its
+    statistics and its MAD partials as K1 and K2 do.  ``max_gram_splits``
+    caps the Gram splits, never below what keeps each split under 2^20
+    rows.  It depends only on the shape, so the partial sums, and their
+    fold order, are the same on every run."""
     stat_s, stat_rows = khist.splits(C, R)
     t = -(-C // tile)
-    if triangle:
-        # gram_tc holds one block per SM: round down, so no wave is left
-        # with a stray block
-        gram_s = _TARGET_BLOCKS // max(t * (t + 1) // 2, 1)
-    else:
-        gram_s = -(-_TARGET_BLOCKS // max(t * t, 1))
+    # gram_tc holds one block per SM: round down, so no wave is left with
+    # a stray block
+    gram_s = _TARGET_BLOCKS // max(t * (t + 1) // 2, 1)
     gram_s = max(1, min(gram_s, -(-R // tr)))
     if max_gram_splits is not None:
         gram_s = min(gram_s, max_gram_splits)
@@ -312,6 +308,20 @@ def splits(C: int, R: int, tile: int, tr: int,
     gram_rows = -(-max(-(-R // gram_s), 1) // tr) * tr
     gram_s = max(-(-R // gram_rows), 1)
     return stat_s, stat_rows, gram_s, gram_rows
+
+
+def _lib_splits(C: int, R: int, lib: ctypes.CDLL
+                ) -> Tuple[int, int, int, int]:
+    """:func:`splits` as every Gram kernel runs it at C columns (K1, K3,
+    K4, K5): one partition a width, so K4 equals K1 then K2 and K5 equals
+    K6 then K3 bit for bit.  The cap on K3's scratch binds only past
+    ``MAX_FUSED_COLS``, where K3 is the only Gram kernel of the main
+    path.  The uncapped branch serves K3 at ``MAX_FUSED_COLS`` columns or
+    fewer, which only ``chip_smoke.py`` and the ``cuda``-marked test run,
+    to hold K5 bit for bit against K6 then K3."""
+    cap = _WIDE_MAX_GRAM_SPLITS if C > MAX_FUSED_COLS else None
+    return splits(C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows(),
+                  max_gram_splits=cap)
 
 
 def _check_batch(xt, row_valid) -> None:
@@ -387,8 +397,7 @@ def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     lib = _k.library("fused_a", _bind)
     C, R = xt.shape
     dev = xt.device
-    stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows())
+    stat_s, stat_rows, gram_s, gram_rows = _lib_splits(C, R, lib)
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
@@ -419,9 +428,7 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     lib = _k.library("fused_wide", _bind_wide)
     C, R = xt.shape
     dev = xt.device
-    stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows(),
-        max_gram_splits=_WIDE_MAX_GRAM_SPLITS)
+    stat_s, stat_rows, gram_s, gram_rows = _lib_splits(C, R, lib)
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
@@ -446,8 +453,10 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
 def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
                      grid: torch.Tensor) -> Grams:
     """Launch K5 on the current stream; same outputs as
-    :func:`spear_tiles_plain`.  ``grid`` rows must be nondecreasing (the
-    backend checks the grid it builds)."""
+    :func:`spear_tiles_plain`, bit for bit those of :func:`rank_cuda`
+    then :func:`tiles_wide_cuda` with ``skip_stats`` on the same inputs.
+    ``grid`` rows must be nondecreasing (the backend checks the grid it
+    builds)."""
     global launches_spear
     _check_grid(xt, row_valid, grid)
     _narrow_only(xt.shape[0], "kernel K5")
@@ -456,18 +465,18 @@ def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     C, R = xt.shape
     G = grid.shape[1]
     dev = xt.device
-    _, _, gram_s, gram_rows = splits(C, R, lib.tpt_gram_tile(),
-                                     lib.tpt_gram_rows(), triangle=False)
+    _, _, gram_s, gram_rows = _lib_splits(C, R, lib)
     P, S1, S2, N = _grams(C, dev)
     if C == 0:
         return P, S1, S2, N
+    ranks = torch.empty_like(xt)
     partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         status = lib.tpt_spear(
             xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
-            _rank_scale(G), gram_s, gram_rows, partial.data_ptr(),
-            P.data_ptr(), S1.data_ptr(), S2.data_ptr(), N.data_ptr(),
-            _stream(dev))
+            _rank_scale(G), gram_s, gram_rows, _half(xt).data_ptr(),
+            ranks.data_ptr(), partial.data_ptr(), P.data_ptr(),
+            S1.data_ptr(), S2.data_ptr(), N.data_ptr(), _stream(dev))
     launches_spear += 1
     _k.check(status, "spear (K5)", lib)
     return P, S1, S2, N
@@ -527,8 +536,7 @@ def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     lib = _k.library("fused_ab", _bind_ab)
     C, R = xt.shape
     dev = xt.device
-    stat_s, stat_rows, gram_s, gram_rows = splits(
-        C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows())
+    stat_s, stat_rows, gram_s, gram_rows = _lib_splits(C, R, lib)
     sums = torch.empty((C, 8), dtype=_F32, device=dev)
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
@@ -564,8 +572,21 @@ def _cpu_only(xt, what: str) -> None:
         raise ValueError(f"no {what} path for device {xt.device}")
 
 
+_halves: Dict[torch.device, torch.Tensor] = {}
+
+
 def _half(xt: torch.Tensor) -> torch.Tensor:
-    return torch.full((xt.shape[0],), 0.5, dtype=_F32, device=xt.device)
+    """One 0.5 a column of ``xt``: the shift of d = rank - 0.5.  On a CUDA
+    device a view of one vector a device, copied from the host once, so
+    no batch launches a fill."""
+    if not xt.is_cuda:
+        return torch.full((xt.shape[0],), 0.5, dtype=_F32)
+    half = _halves.get(xt.device)
+    if half is None:
+        half = torch.full((MAX_FUSED_COLS_WIDE,), 0.5,
+                          dtype=_F32).to(xt.device)
+        _halves[xt.device] = half
+    return half[:xt.shape[0]]
 
 
 def update(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
@@ -587,8 +608,8 @@ def update(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
 def spearman_update(co: Dict[str, torch.Tensor], xt: torch.Tensor,
                     row_valid: torch.Tensor, grid: torch.Tensor):
     """Fold one batch of grid ranks into a corr state whose shift is 0.5
-    (ranks lie in [0, 1]), in one read: K5 for a CUDA tensor, the plain
-    version for a CPU tensor.  At most ``MAX_FUSED_COLS`` columns; wider
+    (ranks lie in [0, 1]): K5 for a CUDA tensor, the plain version for a
+    CPU tensor.  At most ``MAX_FUSED_COLS`` columns; wider
     tables take :func:`rank_transform` + :func:`spearman_update_wide`."""
     _check_grid(xt, row_valid, grid)
     _narrow_only(xt.shape[0], "spearman_update")

@@ -241,8 +241,8 @@ class Runner:
     def step_spearman_grid(self, state: State, db: DeviceBatch,
                            grid: torch.Tensor) -> State:
         """Fold one batch into the Spearman state against ``grid``, the
-        (n_num, G) CDF grid on the device: one read (K5) up to 512
-        columns, else ranks (K6) then their Gram (K3)."""
+        (n_num, G) CDF grid on the device: K5 (its ranks, then their
+        Gram) up to 512 columns, else ranks (K6) then their Gram (K3)."""
         return self._fold_spearman(state, db.xt, db.row_valid, grid)
 
     def scan_spearman_grid(self, state: State, sb: StackedBatch,
