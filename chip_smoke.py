@@ -5,6 +5,7 @@ Run from the repository root:
 
     python3 chip_smoke.py                  # the full check on the card
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
+    python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 Phases, each fatal on failure:
@@ -14,7 +15,13 @@ Phases, each fatal on failure:
    process per source, all started together) and print the build time;
 3. each kernel against its plain PyTorch version on the same inputs on the
    card (exact counts/min/max/pair counts, bit-identical ranks, moments at
-   rtol 5e-4, rho at atol 5e-4): K1 and K2 at the bench shape's widths, K3
+   rtol 5e-4, rho at atol 5e-4): K1 at the bench shape's widths; K2 at
+   37, 200, 512 and 2,048 columns x 1, 10, 128 and 8,192 bins, at the
+   ``LAYOUTS`` and again with bounds pass A never gives (the scale K2
+   forms itself), on a batch whose every value lands in one bin and on a
+   re-bin of three of 200 columns, counts exact, its MAD numerator bit for
+   bit its order model (``mad_order``) and within rtol 5e-4 of the plain
+   version, the re-bin's the full width's bits; K3
    at 513, 1024 and 2048 columns with and without ``skip_stats``, K5 at
    37, 200 and 512 columns for grids of 16, 100 and 256 points, K6 beside
    each, and K5 bit for bit K6 then K3 with ``skip_stats`` over its ranks
@@ -23,7 +30,10 @@ Phases, each fatal on failure:
    each kernel at the main path's shapes (K1, K2, K5: 200 float32 columns
    x 65,536 rows; K3, K6: 2,048 columns x 65,536 rows, K3 also at 1,024)
    beside its bound, its plain version's time and one library route's
-   time (K6: two ``torch.searchsorted`` and ``torch.where``, checked
+   time (K2 also its device time alone, from a CUDA graph of 20 calls, at
+   10, 128 and 8,192 bins, 2,048 columns and on the one-bin batch, and
+   the ``torch.bincount`` route, checked against K2's counts first; K6:
+   two ``torch.searchsorted`` and ``torch.where``, checked
    against K6's bits first; K5: that, then the Gram-only
    ``torch.matmul``); K4 at 37, 200 and 512 columns for 1, 10, 100 and
    8192 bins on provisional bounds narrower than the data, bit for bit
@@ -204,6 +214,37 @@ def time_ms(fn, torch, device, warmup=3, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, torch, reps=20, replays=5, warmup=3) -> float:
+    """Device milliseconds per call: ``reps`` calls of ``fn`` captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events.  The
+    host's work per call (argument checks, allocation, the enqueue) stays
+    out of the figure, which :func:`time_ms` measures where the host is
+    slower than the device.  The warm-up runs on the capture stream, so
+    what a first call allocates is not captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def bound(nbytes: float, ops: float, flops: float = F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over ``flops`` (the float32 rate unless given)."""
@@ -344,54 +385,303 @@ def check_pass_a(torch, device, label, kernel_fn, plain_fn, shapes,
     return worst_abs, worst
 
 
-def check_k2(torch, device, kernel_fn, C, R, bins_list, seed=7):
-    """K2 against histogram_plain.  Returns (the largest absolute error of
-    K2's sum |x - mean| output; the largest MAD error scaled by
-    max(|ref|, 1))."""
+def mad_order(torch, xt, rvt, mean, split_cols=None):
+    """K2's sum |x - mean| per column in its order of float32 additions
+    (``tests/test_torch_hist_order.py`` models it in numpy): on the
+    partition ``hist.splits(split_cols or C, R)``, thread t of a split's
+    block sums its rows r0 + t + 256 k in order, the block's tree
+    ``red[t] += red[t + stride]`` (stride 128 .. 1), then the partials
+    in split order from 0.  Padding adds +0.0, which leaves every sum
+    (>= 0) as it is."""
+    from tpuprof_torch.kernels import hist
+    C, R = xt.shape
+    n_s, rows = hist.splits(split_cols or C, R)
+    T = hist._THREADS
+    k = -(-rows // T)
+    v = torch.where(rvt[None, :] & torch.isfinite(xt),
+                    (xt - mean[:, None]).abs(), 0.0)
+    v = torch.nn.functional.pad(v, (0, n_s * rows - R)).view(C, n_s, rows)
+    v = torch.nn.functional.pad(v, (0, k * T - rows)).view(C, n_s, k, T)
+    red = torch.zeros((C, n_s, T), dtype=torch.float32, device=xt.device)
+    for j in range(k):
+        red += v[:, :, j]
+    stride = T // 2
+    while stride:
+        red[..., :stride] += red[..., stride:2 * stride]
+        stride //= 2
+    acc = torch.zeros((C,), dtype=torch.float32, device=xt.device)
+    for s in range(n_s):
+        acc += red[:, s, 0]
+    return acc
+
+
+def hostile_bounds(lo, hi, mean):
+    """Bounds beyond what pass A gives, on columns 3-7 (if there): a width
+    that overflows to inf (scale 0), a negative width (clamped to 1e-30),
+    NaN bounds (clamp_min keeps the NaN: every value in bin 0), a
+    denormal width (1e-39, clamped to 1e-30) and infinite bounds
+    (inf - inf: a NaN scale).  K2 forms the scale from lo and hi itself."""
+    lo, hi = lo.copy(), hi.copy()
+    for c, (l, h) in zip(range(3, len(lo)),
+                         ((-3e38, 3e38), (60.0, 40.0), (np.nan, np.nan),
+                          (0.0, 1e-39), (np.inf, np.inf))):
+        lo[c], hi[c] = l, h
+    return lo, hi, mean
+
+
+def check_k2(torch, device, kernel_fn, cases, rehearsal, seed=7):
+    """K2 against histogram_plain at each (C, R, offset, bins) of
+    ``cases`` (``offset``: x and row_valid as :func:`on_device` offsets
+    them), on the adversarial batch with values on the bin edges, then on
+    it with :func:`hostile_bounds`: counts exact, the MAD numerator within
+    rtol 5e-4 and, on the card, bit for bit :func:`mad_order`; a rerun
+    gives the same bits.  Then a batch whose every value lands in one bin
+    and a re-bin of three of 200 columns (``index_select``, ``split_cols``
+    200), whose MAD must be the full width's bits.  Returns (the largest
+    absolute error of K2's sum |x - mean| output against the plain
+    version; the largest MAD error scaled by max(|ref|, 1))."""
     from tpuprof_torch.kernels import hist
     rng = np.random.default_rng(seed)
     worst_abs = worst = 0.0
-    for nbins in bins_list:
-        x, rv = adversarial_batch(C, R, seed + nbins)
-        x, lo, hi, mean = hist_bounds(x, rv, nbins, rng)
-        t = [torch.from_numpy(a).to(device) for a in (x, rv, lo, hi, mean)]
-        cnt, dev = kernel_fn(*t, nbins)
+    def held(t, nbins, at, split_cols=None, want_dev=None):
+        nonlocal worst_abs, worst
+        cnt, dev = kernel_fn(*t, nbins, split_cols=split_cols)
         rc, rd = hist.histogram_plain(*t, nbins)
-        require(torch.equal(cnt, rc), f"K2 counts differ at bins={nbins}")
+        require(torch.equal(cnt, rc), f"K2 {at}: counts differ")
         n = t[1][None, :] & torch.isfinite(t[0])
         nf = n.sum(1).clamp_min(1).double()
         mad_g = (dev.double() / nf).cpu().numpy()
         mad_r = (rd.double() / nf).cpu().numpy()
         require(np.allclose(mad_g, mad_r, rtol=RTOL_MOM, atol=0),
-                f"K2 MAD outside rtol {RTOL_MOM} at bins={nbins}")
+                f"K2 {at}: MAD outside rtol {RTOL_MOM}")
         worst_abs = max(worst_abs, max_abs_diff(torch, dev, rd))
         worst = max(worst, float(np.max(np.abs(mad_g - mad_r)
                                         / np.maximum(np.abs(mad_r), 1.0))))
-        for kernel in hist.KERNELS:
-            c2, _ = hist.histogram_batch(*t, nbins, kernel=kernel)
-            require(torch.equal(c2, rc),
-                    f"K2 kernel={kernel} counts differ at bins={nbins}")
-        print(f"K2 {C}x{R} bins={nbins}: counts exact, MAD within "
-              "tolerance", flush=True)
+        if not rehearsal:
+            model = mad_order(torch, t[0], t[1], t[4], split_cols)
+            require(torch.equal(dev.view(torch.int32),
+                                model.view(torch.int32)),
+                    f"K2 {at}: MAD not bit for bit its order model")
+            again = kernel_fn(*t, nbins, split_cols=split_cols)
+            require(torch.equal(cnt, again[0]) and torch.equal(
+                dev.view(torch.int32), again[1].view(torch.int32)),
+                f"K2 {at}: rerun changed bits")
+        if want_dev is not None:
+            require(torch.equal(dev.view(torch.int32),
+                                want_dev.view(torch.int32)),
+                    f"K2 {at}: not the full width's MAD bits")
+        return cnt, dev
+
+    for k, (C, R, offset, bins_list) in enumerate(cases):
+        x0, rv = adversarial_batch(C, R, seed + k)
+        for nbins in bins_list:
+            x, lo, hi, mean = hist_bounds(x0, rv, nbins, rng)
+            for hostile in (False, True):
+                b = hostile_bounds(lo, hi, mean) if hostile else (lo, hi,
+                                                                  mean)
+                t = [on_device(torch, device, a, offset and j < 2)
+                     for j, a in enumerate((x, rv) + b)]
+                at = f"{C}x{R} bins={nbins}" + (" offset" if offset else "") \
+                    + (" hostile bounds" if hostile else "")
+                held(t, nbins, at)
+                for kernel in hist.KERNELS:
+                    c2, _ = hist.histogram_batch(*t, nbins, kernel=kernel)
+                    require(torch.equal(c2, hist.histogram_plain(
+                        *t, nbins)[0]), f"K2 {at} kernel={kernel}: counts "
+                        "differ")
+                del t
+            print(f"K2 {C}x{R} bins={nbins}" + (" offset" if offset else "")
+                  + ": counts exact, MAD within tolerance"
+                  + ("" if rehearsal else " and bit for bit its order "
+                     "model, rerun identical")
+                  + "; again with hostile bounds", flush=True)
+        del x0, x
+
+    # at the second case's shape: the main path's 200 columns on the card
+    C, R = cases[min(1, len(cases) - 1)][:2]
+    x, rv = adversarial_batch(C, R, seed + 50)
+    x, lo, hi, mean = hist_bounds(x, rv, 10, rng)
+    t = [torch.from_numpy(a).to(device) for a in (x, rv, lo, hi, mean)]
+    one_hi = (t[2] + (t[3] - t[2]) * 10 * 1.01).contiguous()
+    cnt, _ = held([t[0], t[1], t[2], one_hi, t[4]], 10,
+                  f"{C}x{R} one bin")
+    require(bool((cnt[:, 1:] == 0).all()), "the one-bin batch spans bins")
+    _, full = held(t, 10, f"{C}x{R} full width")
+    lanes = torch.tensor([0, 5, C - 1], device=device)
+    sub = [t[0].index_select(0, lanes), t[1]] + [
+        v.index_select(0, lanes) for v in t[2:]]
+    held(sub, 10, f"3 of {C} columns, split_cols={C}", split_cols=C,
+         want_dev=full.index_select(0, lanes))
+    print(f"K2 one-bin batch at {C}x{R}: counts exact; re-bin of 3 of {C} "
+          "columns: the full width's MAD bits", flush=True)
     return worst_abs, worst
+
+
+def hist_library(torch, xt, rvt, lo, hi, mean, nbins):
+    """The closest PyTorch route to K2, several calls: each finite value's
+    bin floor((x - lo) * scale) (NaN to bin 0, clamped to [0, nbins - 1],
+    offset by its column's nbins), masked values to one extra bin, one
+    ``torch.bincount`` over C * nbins + 1, and the masked
+    sum |x - mean|.  The port never calls it."""
+    from tpuprof_torch.kernels import hist
+    C = xt.shape[0]
+    scale = hist.bin_scale(lo, hi, nbins)
+    fin = rvt[None, :] & torch.isfinite(xt)
+    b = torch.nan_to_num(((xt - lo[:, None]) * scale[:, None]).floor_(),
+                         nan=0.0).clamp_(0, nbins - 1).long()
+    b += torch.arange(C, device=xt.device)[:, None] * nbins
+    b = torch.where(fin, b, C * nbins)
+    counts = torch.bincount(b.view(-1), minlength=C * nbins + 1)
+    dev = torch.where(fin, (xt - mean[:, None]).abs(), 0.0).sum(1)
+    return counts[:C * nbins].view(C, nbins).int(), dev
+
+
+def clean_batch(torch, device, C, R, seed=5):
+    """The timed batch: N(50, 10) float32, every row valid, pass-A bounds
+    (min, max, mean) of each column."""
+    x = np.random.default_rng(seed).normal(50.0, 10.0, (C, R)).astype(
+        np.float32)
+    xt = torch.from_numpy(x).to(device)
+    rvt = torch.ones(R, dtype=torch.bool, device=device)
+    lo, hi = xt.amin(1).contiguous(), xt.amax(1).contiguous()
+    return xt, rvt, lo, hi, xt.mean(1).contiguous()
+
+
+def k2_times(torch, device, k2, C=200, R=65536, CW=2048, nbins=10,
+             out=None):
+    """K2's times on clean batches: the wrapper call as :func:`time_ms`
+    takes it (``ms``), device time alone from a CUDA graph of wrapper
+    calls (``device_ms``), that at 128 and 8,192 bins, at ``CW`` columns,
+    and on a batch whose every value lands in one bin (``hi`` moved out
+    to lo + nbins x the range: all of bin 0), and the library route's
+    time, its counts checked equal to K2's first.  Fills and returns
+    ``out``.  On the CPU rehearsal every figure is :func:`time_ms`'s."""
+    out = {} if out is None else out
+    xt, rvt, lo, hi, mean = clean_batch(torch, device, C, R)
+    out["ms"] = time_ms(lambda: k2(xt, rvt, lo, hi, mean, nbins), torch,
+                        device)
+
+    def dev_ms(*a):
+        if device.type != "cuda":
+            return time_ms(lambda: k2(*a), torch, device)
+        return graph_ms(lambda: k2(*a), torch)
+
+    out["device_ms"] = dev_ms(xt, rvt, lo, hi, mean, nbins)
+    one_hi = (lo + (hi - lo) * nbins * 1.01).contiguous()
+    one = k2(xt, rvt, lo, one_hi, mean, nbins)[0]
+    require(bool((one[:, 1:] == 0).all()), "the one-bin batch spans bins")
+    out["device_ms_one_bin"] = dev_ms(xt, rvt, lo, one_hi, mean, nbins)
+    for nb in (128, 8192):
+        out[f"device_ms_{nb}_bins"] = dev_ms(xt, rvt, lo, hi, mean, nb)
+    lib = hist_library(torch, xt, rvt, lo, hi, mean, nbins)
+    got = k2(xt, rvt, lo, hi, mean, nbins)
+    require(torch.equal(lib[0], got[0]),
+            "the bincount route's counts differ from K2's")
+    require(np.allclose(lib[1].cpu().numpy(), got[1].cpu().numpy(),
+                        rtol=RTOL_MOM, atol=0),
+            f"the bincount route's MAD numerator is outside rtol {RTOL_MOM}")
+    # bincount reads its largest index back to the host: no graph
+    out["library_ms"] = time_ms(
+        lambda: hist_library(torch, xt, rvt, lo, hi, mean, nbins), torch,
+        device)
+    del xt, lib, got
+    xw, rvw, low, hiw, meanw = clean_batch(torch, device, CW, R, seed=6)
+    out[f"device_ms_{CW}_cols"] = dev_ms(xw, rvw, low, hiw, meanw, nbins)
+    return out
+
+
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "ATOMG", "RED", "BAR")
+
+
+def sass_counts(text: str) -> dict:
+    """{kernel function: {opcode: count, "LDG_between_ATOMS": n}} of a
+    ``cuobjdump -sass`` listing: the memory and barrier opcodes, and the
+    most global loads in program order with no shared atomic between
+    them (an unrolled row loop's loads in flight ahead of its bin
+    increments, with the block's few scalar loads where they lead)."""
+    out, fn, run = {}, None, 0
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn, run = line.split("Function : ")[1].strip(), 0
+            out[fn] = dict.fromkeys(SASS_OPS + ("LDG_between_ATOMS",), 0)
+            continue
+        if fn is None or "*/" not in line:
+            continue
+        words = line.split("*/")[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        op = words[0].split(".")[0] if words else ""
+        if op in SASS_OPS:
+            out[fn][op] += 1
+        run = 0 if op == "ATOMS" else run + (op == "LDG")
+        out[fn]["LDG_between_ATOMS"] = max(out[fn]["LDG_between_ATOMS"],
+                                           run)
+    return out
+
+
+def k2_probe(torch, device) -> None:
+    """``--k2-probe``: K2 alone, to compare checkouts in one call (each
+    run with its own copy of this script, or this copy placed beside
+    another checkout's package).  Prints its times (:func:`k2_times`),
+    K4's wrapper and device time at 200 x 65,536 with 10 bins, the device
+    time of each kernel that 20 K2 wrapper calls launch, from
+    ``torch.profiler``, and the SASS counts of its library
+    (:func:`sass_counts`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpuprof_torch import _build, kernels
+    from tpuprof_torch.kernels import fused, hist
+    times = k2_times(torch, device, hist.histogram_cuda)
+    print(f"K2 times: {json.dumps(times)}", flush=True)
+    xt, rvt, lo, hi, mean = clean_batch(torch, device, 200, 65536)
+    shift = mean.clone()
+
+    def k4():
+        return fused.tiles_ab_cuda(xt, rvt, shift, lo, hi, mean, 10)
+    print("K4 times: " + json.dumps(
+        {"ms": time_ms(k4, torch, device), "device_ms": graph_ms(k4, torch)}),
+        flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            hist.histogram_cuda(xt, rvt, lo, hi, mean, 10)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if us > 0:
+            print(f"profiler: {ev.key[:70]} x{ev.count} "
+                  f"{us / ev.count:.2f} us each", flush=True)
+    so = _build.library_path(kernels.SOURCES["hist_b"], kernels._command())
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    for fn, counts in sass_counts(sass).items():
+        print(f"sass {fn}: {json.dumps(counts)}", flush=True)
 
 
 def phase_kernels(torch, device, rehearsal: bool):
     from tpuprof_torch.kernels import fused, hist
     if rehearsal:
-        k1, k2 = fused.tiles_plain, hist.histogram_plain
+        k1 = fused.tiles_plain
+
+        def k2(*a, split_cols=None):
+            """The plain version, whose sums do not depend on split_cols"""
+            return hist.histogram_plain(*a)
         shapes, C, R = [(5, 300), (13, 700)], 13, 700
+        k2_cols, k2_bins, CW = (5, 13, 40), (1, 10, 128), 40
         layouts = REHEARSAL_LAYOUTS
     else:
         k1, k2 = fused.tiles_cuda, hist.histogram_cuda
         R = 65536
         shapes, C = [(37, R), (200, R), (512, R)], 200
+        k2_cols, k2_bins, CW = (37, 200, 512, 2048), (1, 10, 128, 8192), 2048
         layouts = LAYOUTS
     shapes = [(c, r, False) for c, r in shapes] + [
         (C, r, offset) for r, offset in layouts]
     err1, scaled1 = check_pass_a(torch, device, "K1", k1, fused.tiles_plain,
                                  shapes)
-    err2, scaled2 = check_k2(torch, device, k2, C, R, (10, 128))
+    err2, scaled2 = check_k2(
+        torch, device, k2,
+        [(c, R, False, k2_bins) for c in k2_cols]
+        + [(C, r, offset, (10,)) for r, offset in layouts], rehearsal)
 
     # determinism: K1 twice on one input gives the same bits
     x, rv = adversarial_batch(C, R, 99)
@@ -421,13 +711,15 @@ def phase_kernels(torch, device, rehearsal: bool):
                  reps=5)
     ops = gram_operands(torch, xt, rvt, shift)
     lib1 = time_ms(lambda: gram_products(*ops), torch, device)
-    t2 = time_ms(lambda: k2(xt, rvt, lo, hi, mean, nbins), torch, device)
+    k2t = k2_times(torch, device, k2, C, R, CW, nbins)
     p2 = time_ms(lambda: hist.histogram_plain(xt, rvt, lo, hi, mean, nbins),
                  torch, device, reps=5)
     b1, by1, b1r, b1f = gram_bounds(
         C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4, C, R)
     b2, by2 = bound(C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
                     8 * C * R)
+    b2w, _ = bound(CW * R * 4 + R + 3 * CW * 4 + CW * nbins * 4 + CW * 4,
+                   8 * CW * R)
     rows = [
         {"name": "fused_a", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/fused_a.cu",
@@ -439,11 +731,18 @@ def phase_kernels(torch, device, rehearsal: bool):
          "source": "tpuprof_torch/kernels/csrc/hist_b.cu",
          "replaces": "tpuprof/kernels/pallas_hist.py:202",
          "shape": f"{C}x{R} bins={nbins}", "max_abs_err": err2,
-         "max_scaled_err": scaled2, "ms": t2, "plain_ms": p2,
-         "bound_ms": b2, "bound_by": by2, "library_ms": None},
+         "max_scaled_err": scaled2, "ms": k2t.pop("ms"), "plain_ms": p2,
+         "bound_ms": b2, "bound_by": by2,
+         "library_ms": k2t.pop("library_ms"), **k2t,
+         f"bound_ms_{CW}_cols": b2w},
     ]
     for r in rows:
         print_row(r)
+    print(f"hist_b: ms is the wrapper call as the host issues it (CUDA "
+          f"events over 20 calls); device time from a CUDA graph of 20 "
+          f"calls: {json.dumps(k2t)} (bound at {CW} columns {b2w:.4f} ms); "
+          "library_ms: torch.bincount over C*nbins+1 after floor, "
+          "nan_to_num, clamp and where, and the masked abs sum", flush=True)
     print("K1 library_ms covers the Gram only: torch.matmul of already "
           "materialized d, m, d^2", flush=True)
     return rows
@@ -1292,6 +1591,9 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks and timings")
+    ap.add_argument("--k2-probe", action="store_true",
+                    help="stop after the build and K2's SASS counts and "
+                    "times (k2_probe)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1323,6 +1625,9 @@ def main(argv=None) -> int:
                 or "spill" in ln),
                 flush=True)
     del tpuprof_torch
+    if args.k2_probe and not args.cpu_rehearsal:
+        k2_probe(torch, device)
+        return 0
 
     def timed(phase, *a):
         """``phase(*a)``, printing its seconds (the script has a time

@@ -4,8 +4,8 @@
 // Replaces tpuprof/kernels/fused.py::_fused_ab_tiles (Pallas body
 // _kernel_ab).  For one batch xt (C, R) float32, row-major so each column
 // is contiguous, row_valid (R,) bytes, a per-column centering shift and
-// provisional per-column pass-B inputs lo, scale (float32
-// nbins / max(hi - lo, 1e-30), rounded by the caller) and mean, it
+// provisional per-column pass-B bounds lo, hi and mean (the scale formed
+// from lo and hi as K2 forms it, hist.cuh bin_scale), it
 // computes in one read of the batch what K1 (fused_a.cu) and then K2
 // (hist_b.cu) compute from two:
 //
@@ -62,7 +62,7 @@ stats_hist_partial(const float* __restrict__ xt,
                    const uint8_t* __restrict__ rv,
                    const float* __restrict__ shift,
                    const float* __restrict__ lo,
-                   const float* __restrict__ scale,
+                   const float* __restrict__ hi,
                    const float* __restrict__ mean, int64_t R, int nbins,
                    int64_t rows_per_split, int splits,
                    float* __restrict__ psums, int* __restrict__ pcounts,
@@ -76,7 +76,7 @@ stats_hist_partial(const float* __restrict__ xt,
   const float* col = xt + (int64_t)c * R;
   const float sh = shift[c];
   const float l = lo[c];
-  const float sc = scale[c];
+  const float sc = tpt::bin_scale(l, hi[c], nbins);
   const float mu = mean[c];
   const float top = (float)(nbins - 1);
   const int64_t r0 = (int64_t)s * rows_per_split;
@@ -105,7 +105,7 @@ extern "C" int tpt_fused_ab_max_bins() { return tpt::HIST_MAX_BINS; }
 // (C*stat_splits f32), partial (gram_splits*4*C*C f32).
 extern "C" int tpt_fused_ab(const float* xt, const uint8_t* row_valid,
                             const float* shift, const float* lo,
-                            const float* scale, const float* mean, int C,
+                            const float* hi, const float* mean, int C,
                             int64_t R, int nbins, int stat_splits,
                             int64_t stat_rows, int gram_splits,
                             int64_t gram_rows, float* psums, int* pcounts,
@@ -116,7 +116,7 @@ extern "C" int tpt_fused_ab(const float* xt, const uint8_t* row_valid,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   stats_hist_partial<<<dim3(C, stat_splits), tpt::STATS_THREADS,
                        nbins * sizeof(int), st>>>(
-      xt, row_valid, shift, lo, scale, mean, R, nbins, stat_rows,
+      xt, row_valid, shift, lo, hi, mean, R, nbins, stat_rows,
       stat_splits, psums, pcounts, hcounts, pdev);
   tpt::stats_fold<<<(C + 127) / 128, 128, 0, st>>>(psums, pcounts, C,
                                                     stat_splits, sums,

@@ -2,6 +2,9 @@
 // single-pass kernel K4 (fused_ab.cu), so both count every value into the
 // same bin and fold the same MAD numerator bit for bit:
 //
+// * bin_scale: float32 nbins / max(hi - lo, 1e-30), the reference's
+//   recipe as tpuprof_torch/kernels/hist.py ``bin_scale`` rounds it,
+//   formed by each block from lo and hi (no launches of its own);
 // * hist_add: one valid, finite value into its bin of the block's
 //   shared-memory int32 histogram (integer atomics: exact in any order)
 //   and into the thread's sum |x - mean|;
@@ -12,14 +15,19 @@
 //   bits).
 //
 // A value lands in bin clip(floor(t), 0, nbins - 1) with
-// t = (x - lo) * scale and scale = nbins / max(hi - lo, 1e-30) rounded to
-// float32 by the caller, exactly as the reference's histogram_tiles
+// t = (x - lo) * scale, exactly as the reference's histogram_tiles
 // computes it.  t is formed as written, a subtraction then a multiplication
 // (__fsub_rn / __fmul_rn: no fused multiply-add can apply), so every value
 // gets the reference's t bit for bit.  For an integer b,
 // floor(t) >= b  <=>  t >= b, so these per-bin counts equal the cumulative
-// body's differenced counts for every input; a NaN t (only from
-// (x - lo) = inf times scale = 0) lands in bin 0, as it does there.
+// body's differenced counts for every input; a NaN t (from
+// (x - lo) = inf times scale = 0, or a NaN scale) lands in bin 0, as it
+// does there.
+//
+// The shared atomicAdd compiles to ATOMS.POPC.INC, which adds a warp's
+// increments of one address as one: a warp whose values share one bin (a
+// constant column) costs what one whose values spread does (measured on
+// an H100, PERF.md's K2 findings).
 
 #pragma once
 
@@ -31,6 +39,14 @@ namespace tpt {
 
 constexpr int HIST_THREADS = 256;
 constexpr int HIST_MAX_BINS = 8192;   // the shared-memory histogram's bound
+
+// hist.py bin_scale: one IEEE subtraction, torch.clamp_min (which keeps a
+// NaN, where fmaxf would not), one IEEE division.
+__device__ __forceinline__ float bin_scale(float lo, float hi, int nbins) {
+  float width = __fsub_rn(hi, lo);
+  if (!isnan(width)) width = fmaxf(width, 1e-30f);
+  return __fdiv_rn((float)nbins, width);
+}
 
 __device__ __forceinline__ void hist_add(float x, float lo, float scale,
                                          float mean, float top,

@@ -544,7 +544,6 @@ def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     absdev = torch.empty((C,), dtype=_F32, device=dev)
     if C == 0:
         return sums, counts, P, S1, S2, N, hcounts, absdev
-    scale = khist.bin_scale(lo, hi, nbins).contiguous()
     psums = torch.empty((C * stat_s * 8,), dtype=_F32, device=dev)
     pcounts = torch.empty((C * stat_s * 4,), dtype=_I32, device=dev)
     pdev = torch.empty((C * stat_s,), dtype=_F32, device=dev)
@@ -552,7 +551,7 @@ def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     with torch.cuda.device(dev):
         status = lib.tpt_fused_ab(
             xt.data_ptr(), row_valid.data_ptr(), shift.data_ptr(),
-            lo.data_ptr(), scale.data_ptr(), mean.data_ptr(), C, R, nbins,
+            lo.data_ptr(), hi.data_ptr(), mean.data_ptr(), C, R, nbins,
             stat_s, stat_rows, gram_s, gram_rows, psums.data_ptr(),
             pcounts.data_ptr(), pdev.data_ptr(), partial.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), P.data_ptr(),

@@ -12,10 +12,10 @@ per-column pass-A bounds ``lo``/``hi``/``mean``, and returns
 
 A finite value lands in ``clip(floor((x - lo) * scale), 0, nbins - 1)``
 with ``scale = nbins / max(hi - lo, 1e-30)`` in float32 — the reference's
-recipe, computed here, outside either version.  Both ``pass_b_kernel``
-formulations of the reference give these same counts by construction
-(``floor(t) >= b  <=>  t >= b``), so one kernel serves both.  ``launches``
-counts K2 launches.
+recipe, :func:`bin_scale` here, which K2 repeats in its launch.  Both
+``pass_b_kernel`` formulations of the reference give these same counts by
+construction (``floor(t) >= b  <=>  t >= b``), so one kernel serves both.
+``launches`` counts K2 launches.
 """
 
 from __future__ import annotations
@@ -105,7 +105,8 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
                    lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
                    nbins: int, split_cols: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 on the current stream; same outputs as
+    """Launch K2 on the current stream (its blocks form the scale
+    :func:`bin_scale` computes, bit for bit); same outputs as
     :func:`histogram_plain`.  The rows split as a batch of ``split_cols``
     columns does (default: ``xt``'s own): a re-bin of a few of a table's
     columns passes the table's width, so each column's MAD folds in the
@@ -116,7 +117,6 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     lib = _k.library("hist_b", _bind)
     C, R = xt.shape
     dev = xt.device
-    scale = bin_scale(lo, hi, nbins).contiguous()
     counts = torch.zeros((C, nbins), dtype=torch.int32, device=dev)
     absdev = torch.empty((C,), dtype=torch.float32, device=dev)
     if C == 0:
@@ -127,7 +127,7 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.tpt_hist_b(
             xt.data_ptr(), row_valid.data_ptr(), lo.data_ptr(),
-            scale.data_ptr(), mean.data_ptr(), C, R, nbins, n_s, rows,
+            hi.data_ptr(), mean.data_ptr(), C, R, nbins, n_s, rows,
             counts.data_ptr(), pdev.data_ptr(), absdev.data_ptr(), stream)
     launches += 1
     _k.check(status, "hist_b (K2)", lib)
