@@ -66,8 +66,28 @@ Phases, each fatal on failure:
    (K3 for pass A and the rank Gram, K2, K6).  Each is held against
    ``describe(..., device="cpu")`` on a cut of its rows (262,144, two-pass
    and fused; the whole mixed frame; 65,536; 8,192 in one batch of its
-   size), Spearman included;
-5. one JSON line of per-kernel numbers, the card's name and power limit,
+   size), Spearman included; each run prints the host seconds of its
+   phases (``stats["_phases"]``: ``scan_a``, ``merge``, ``scan_b``);
+5. the command line on the card: the 200-column table at 1,048,576 rows
+   written as a Parquet directory of 4 files with row groups of 65,536,
+   profiled by ``tpuprof_torch.cli.main(["profile", ...])`` in process
+   with ``--stats-json`` and ``--artifact`` (K1 16 and K2 16 launches;
+   the stats equal ``describe(df)`` of the same frame except
+   ``memorysize``, which measures the Arrow layout; the HTML is
+   ``to_standalone_html`` of its stats), then ``--profile-passes fused
+   --seed-edges`` that artifact (K4 only, every lane a hit,
+   ``stats_to_json`` equal to the two-pass one); the 1,000,000-row mixed
+   frame and a drifted copy (``fare_amount`` moved by one standard
+   deviation, the share of one-passenger trips raised to about 1/2) as
+   Parquet files with string columns, each profiled by a child ``python
+   -m tpuprof_torch profile`` (exit 0, the rows/s line, neither ``jax``
+   nor ``tpuprof`` among its imports), the first held against
+   ``describe(path, device="cpu")``; then ``python -m tpuprof_torch diff``
+   of the two artifacts: the two changed columns at drift, the rest ok,
+   and exit 1 with ``--fail-on-drift``.  Each run prints its wall time,
+   rows/s and phase seconds, and the in-process runs their ``render``
+   seconds;
+6. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -1390,6 +1410,14 @@ def exported(stats) -> str:
     return json.dumps(stats_to_json(stats), sort_keys=True)
 
 
+def phases_text(stats) -> str:
+    """The host seconds of a profile's phases (``stats["_phases"]``)."""
+    phases = stats.get("_phases") or {}
+    return "phases: " + ", ".join(
+        f"{k} {phases[k]:.4f} s" for k in ("scan_a", "merge", "scan_b")
+        if k in phases)
+
+
 def phase_main_path(torch, rehearsal: bool, card: str):
     """Returns {kernel: launches in the run that is its main path}."""
     import atexit
@@ -1450,7 +1478,8 @@ def phase_main_path(torch, rehearsal: bool, card: str):
         shown = ", ".join(f"{k} {v}" for k, v in counts.items())
         print(f"{label}: {len(df)} rows x {df.shape[1]} cols in "
               f"{secs:.3f} s = {len(df) / secs:.0f} rows/s on {card}; "
-              f"hash path {hash_path}; launches: {shown}", flush=True)
+              f"hash path {hash_path}; launches: {shown}; "
+              f"{phases_text(stats)}", flush=True)
         return stats, counts, secs
 
     def against_cpu(df, label, **kw):
@@ -1585,6 +1614,276 @@ def phase_main_path(torch, rehearsal: bool, card: str):
             "rank": main_w["rank"], "fused_ab": main_fab["fused_ab"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the command line on the card
+# ---------------------------------------------------------------------------
+
+# the last stderr line of a successful ``profile``
+PROFILE_LINE = r"^tpuprof_torch: ([\d,]+) rows x (\d+) cols -> (.+) in " \
+    r"[\d.]+s \(([\d,]+) rows/s\)$"
+# the report footer's scan line (``report/render.py::_perf_line``)
+FOOTER = r"([\d,]+) rows/s · ((?:\w+ [\d.]+s(?: · )?)+)"
+
+
+def without_layout(stats) -> dict:
+    """The export with ``memorysize`` dropped from the table and every
+    column: the one field that measures the Arrow layout (a Parquet read's
+    validity bitmaps and row-group dictionaries) and not the values."""
+    from tpuprof_torch.report.export import stats_to_json
+    doc = json.loads(json.dumps(stats_to_json(stats)))
+    for section in (doc, doc["display"]):
+        section["table"].pop("memorysize")
+        for var in section["variables"].values():
+            var.pop("memorysize")
+    return doc
+
+
+def from_artifact(path: str):
+    """An artifact as the parts of a stats dict ``compare_stats`` reads:
+    the exported columns (null as NaN), the sketches' histograms and the
+    correlation matrices."""
+    import pandas as pd
+    from tpuprof_torch.artifact import read_artifact
+    art = read_artifact(path)
+    hists = art.sketches["histograms"]
+    variables = {}
+    for name, v in art.stats["variables"].items():
+        v = {k: np.nan if x is None else x for k, x in v.items()}
+        h = hists.get(name)
+        v["histogram"] = None if h is None else (np.array(h["counts"]),
+                                                 np.array(h["edges"]))
+        variables[name] = v
+    correlations = {}
+    for method, e in art.stats["correlations"].items():
+        m = pd.DataFrame([[e["matrix"][r][c] for c in e["columns"]]
+                          for r in e["columns"]], index=e["columns"],
+                         columns=e["columns"], dtype=float)
+        if e["approx"]:         # as the stats dict: set only when True
+            m.attrs["approx"] = True
+        correlations[method] = m
+    return {"variables": variables, "correlations": correlations}
+
+
+def child(argv, timeout=600):
+    """``python -X importtime -m tpuprof_torch ARGV`` from the checkout:
+    (exit code, its stderr lines but the import times, the top-level
+    names of every module it imported, seconds)."""
+    import re
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "tpuprof_torch", *argv], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    lines = out.stderr.splitlines()
+    mods = {re.split(r"\s*\|\s*", ln)[-1].strip().split(".")[0]
+            for ln in lines if ln.startswith("import time:")}
+    rest = [ln for ln in lines if not ln.startswith("import time:")]
+    return out.returncode, rest, mods, secs
+
+
+def footer_phases(html_path: str) -> str:
+    """The phases a child's report shows in its footer (to 0.01 s: the
+    child's stats dict does not outlive it)."""
+    import re
+    with open(html_path, encoding="utf-8") as fh:
+        m = re.search(FOOTER, fh.read())
+    require(m is not None, f"{html_path}: no scan line in the footer")
+    return f"footer {m.group(1)} rows/s, {m.group(2)}"
+
+
+def drifted_frame(df):
+    """``fare_amount`` shifted by one standard deviation, and the share of
+    one-passenger trips raised from about 1/6 to 1/2 (an integer-coded
+    category: the drift engine reads a string column only through its
+    top-k set, distinct count and missing share)."""
+    out = df.copy()
+    out["fare_amount"] = out["fare_amount"] + out["fare_amount"].std()
+    rng = np.random.default_rng(43)
+    out.loc[rng.random(len(out)) < 0.4, "passenger_count"] = 1
+    return out
+
+
+def phase_cli(torch, rehearsal: bool, card: str) -> None:
+    """``profile`` in process on a Parquet directory of the headline table
+    (two-pass, then fused warm from its artifact), then ``python -m
+    tpuprof_torch profile`` and ``diff`` as child processes on a mixed
+    Parquet file and a drifted copy of it."""
+    import atexit
+    import re
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import tpuprof_torch
+    from tpuprof_torch import cli
+    from tpuprof_torch.obs.spans import get_phase_report
+    from tpuprof_torch.report import render
+    from tpuprof_torch.runtime import singlepass
+
+    if rehearsal:
+        n_head, batch, n_mixed = 4096, 256, 3000
+        dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
+    else:
+        n_head, batch, n_mixed = 1_048_576, 65_536, 1_000_000
+        dev, dev_kw = [], {}
+    cols, files = 200, 4
+    n_batches = n_head // batch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    atexit.register(shutil.rmtree, tmp, True)
+
+    wide = wide_frame(n_head, cols, seed=6)
+    head_dir = f"{tmp}/headline"
+    os.makedirs(head_dir)
+    t0 = time.perf_counter()
+    table = pa.Table.from_pandas(wide, preserve_index=False)
+    per = n_head // files
+    for i in range(files):
+        pq.write_table(table.slice(i * per, per),
+                       f"{head_dir}/part{i}.parquet", row_group_size=batch)
+    del table
+    print(f"cli: wrote {n_head} x {cols} float32 as {files} Parquet files, "
+          f"row groups of {batch}, in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    seen = {}
+    real_page = render.to_standalone_html
+
+    def capture(stats, config, **kw):
+        seen["stats"], seen["config"] = stats, config
+        return real_page(stats, config, **kw)
+
+    def profile(label, argv, exactly):
+        """``cli.main(["profile", ...])`` with every launch count set to 0
+        just before and read just after; ``exactly`` = ((kernel,
+        launches), ...) the run must show (on the card).  Returns (stats,
+        the HTML, seconds)."""
+        stem = f"{tmp}/{label.replace(' ', '_')}"
+        html, js = f"{stem}.html", f"{stem}.json"
+        seen.clear()
+        zero_counts()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["profile", *argv, "-o", html, "--stats-json", js,
+                       "--batch-rows", str(batch), *dev])
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        render_s = get_phase_report(reset=True).get("render")
+        require(rc == 0, f"{label}: profile exited {rc}")
+        stats = seen["stats"]
+        if not rehearsal:
+            for name, n in exactly:
+                require(counts[name] == n, f"{label}: {name} launched "
+                        f"{counts[name]} times, expected {n}")
+        with open(html, encoding="utf-8") as fh:
+            require(fh.read() == real_page(stats, seen["config"]),
+                    f"{label}: the HTML is not to_standalone_html of its "
+                    "stats")
+        with open(js) as fh:
+            require(json.load(fh) == json.loads(exported(stats)),
+                    f"{label}: --stats-json is not the stats' export")
+        n = stats["table"]["n"]
+        shown = ", ".join(f"{k} {v}" for k, v in counts.items())
+        print(f"{label}: {n} rows x {stats['table']['nvar']} cols in "
+              f"{secs:.3f} s = {n / secs:.0f} rows/s on {card}; "
+              f"launches: {shown}; {phases_text(stats)}; render "
+              f"{render_s:.4f} s", flush=True)
+        return stats
+
+    render.to_standalone_html = capture
+    try:
+        art = f"{tmp}/headline.artifact.json"
+        two = profile("cli headline", [head_dir, "--artifact", art],
+                      (("fused_a", n_batches), ("hist_b", n_batches),
+                       ("fused_ab", 0), ("fused_wide", 0)))
+        h0, m0, r0 = (singlepass.edge_hits, singlepass.edge_misses,
+                      singlepass.rebins)
+        warm = profile("cli headline fused warm",
+                       [head_dir, "--profile-passes", "fused",
+                        "--seed-edges", art],
+                       (("fused_ab", n_batches), ("fused_a", 0),
+                        ("hist_b", 0), ("fused_wide", 0)))
+    finally:
+        render.to_standalone_html = real_page
+    hits = singlepass.edge_hits - h0
+    require(hits == cols and singlepass.edge_misses == m0
+            and singlepass.rebins == r0,
+            f"cli fused warm: {hits} of {cols} lanes hit")
+    require(exported(warm) == exported(two),
+            "cli fused warm: stats_to_json differs from two-pass")
+    print(f"cli fused warm: all {hits} lanes hit, no re-bin, "
+          "stats_to_json equal to the two-pass profile's", flush=True)
+    t0 = time.perf_counter()
+    on_df = tpuprof_torch.describe(wide, batch_rows=batch, **dev_kw)
+    secs = time.perf_counter() - t0
+    require(without_layout(two) == without_layout(on_df),
+            "cli headline: the Parquet profile differs from describe(df) "
+            "beyond memorysize")
+    print(f"cli headline: equal to describe(df) of the same frame "
+          f"({secs:.3f} s, {phases_text(on_df)}) except memorysize "
+          f"(Parquet {two['table']['memorysize']:.0f} B, DataFrame "
+          f"{on_df['table']['memorysize']:.0f} B)", flush=True)
+    del wide, two, warm, on_df
+
+    mixed = mixed_frame(n_mixed, seed=42)
+    paths = {"a1": f"{tmp}/mixed.parquet", "a2": f"{tmp}/drifted.parquet"}
+    t0 = time.perf_counter()
+    for key, df in (("a1", mixed), ("a2", drifted_frame(mixed))):
+        pq.write_table(pa.Table.from_pandas(df, preserve_index=False),
+                       paths[key])
+    del mixed
+    print(f"cli: wrote the {n_mixed}-row mixed frame and its drifted copy "
+          f"as Parquet in {time.perf_counter() - t0:.3f} s", flush=True)
+    for key, path in paths.items():
+        html, art = f"{tmp}/{key}.html", f"{tmp}/{key}.json"
+        rc, err, mods, secs = child(["profile", path, "-o", html,
+                                     "--artifact", art, *dev])
+        require(rc == 0, f"python -m tpuprof_torch profile {key}: exit "
+                f"{rc}: {err[-5:]}")
+        require(len(err) == 1 and re.match(PROFILE_LINE, err[0]),
+                f"profile {key}: stderr {err[-5:]}")
+        bad = sorted(mods & {"jax", "jaxlib", "tpuprof"})
+        require(not bad and "tpuprof_torch" in mods,
+                f"profile {key}: the child loaded {bad}")
+        print(f"python -m tpuprof_torch profile {key}: exit 0 in "
+              f"{secs:.3f} s (process included) on {card}; no jax, no "
+              f"tpuprof module; {err[0]}; {footer_phases(html)}",
+              flush=True)
+    t0 = time.perf_counter()
+    on_cpu = tpuprof_torch.describe(paths["a1"], device="cpu",
+                                    batch_rows=batch)
+    compare_stats(from_artifact(f"{tmp}/a1.json"), on_cpu, "cli mixed")
+    print(f"cli mixed: the child's artifact matches describe(path, "
+          f"device='cpu') ({time.perf_counter() - t0:.3f} s)", flush=True)
+
+    changed = {"fare_amount", "passenger_count"}
+    dj = f"{tmp}/drift.json"
+    for extra, want in (([], 0), (["--fail-on-drift"], 1)):
+        rc, err, mods, secs = child(["diff", f"{tmp}/a1.json",
+                                     f"{tmp}/a2.json", "-o",
+                                     f"{tmp}/drift.html", "--json", dj,
+                                     *extra])
+        require(rc == want, f"diff {extra}: exit {rc}, expected {want}: "
+                f"{err[-5:]}")
+        require(not mods & {"jax", "jaxlib", "tpuprof"},
+                "diff: the child loaded jax or tpuprof")
+        print(f"python -m tpuprof_torch diff {' '.join(extra)}: exit {rc} "
+              f"in {secs:.3f} s; {err[-1]}", flush=True)
+    with open(dj) as fh:
+        status = {c: e["status"] for c, e in json.load(fh)["columns"].items()}
+    drifting = {c for c, st in status.items() if st == "drift"}
+    require(drifting == changed and all(
+        st == "ok" for c, st in status.items() if c not in changed),
+        f"diff: statuses {status}")
+    print(f"diff: {sorted(drifting)} at drift, the other "
+          f"{len(status) - len(drifting)} columns ok", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1650,6 +1949,7 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(COUNTERS)
     if not args.kernels_only:
         launches = timed(phase_main_path, torch, args.cpu_rehearsal, card)
+        timed(phase_cli, torch, args.cpu_rehearsal, card)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["matched"] = True         # phase 3 exits before here otherwise

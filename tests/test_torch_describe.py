@@ -125,7 +125,7 @@ def test_pearson_within_atol(both):
                                atol=RHO_ATOL, equal_nan=True)
 
 
-def test_rejected_variables_and_messages_equal(fixture_df, both):
+def test_rejected_variables_and_messages_equal(fixture_df, both, tmp_path):
     port, ref = both
     report = tpuprof_torch.ProfileReport(fixture_df, device="cpu",
                                          batch_rows=512)
@@ -135,10 +135,12 @@ def test_rejected_variables_and_messages_equal(fixture_df, both):
     assert [(m.kind, m.column) for m in port["messages"]] == \
         [(m.kind, m.column) for m in ref["messages"]]
     assert repr(report) == "<tpuprof_torch.ProfileReport n=2000 nvar=9>"
-    with pytest.raises(NotImplementedError):
-        report.html
-    with pytest.raises(NotImplementedError):
-        report.to_file(os.devnull)
+    # the report renders: the fragment, and the standalone page
+    assert 'id="var-tip_amount"' in report.html
+    out = tmp_path / "report.html"
+    report.to_file(str(out))
+    page = out.read_text(encoding="utf-8")
+    assert page.startswith("<!DOCTYPE html>") and report.html in page
 
 
 def test_adversarial_numeric_table_matches_reference():
@@ -238,7 +240,7 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("artifact_path", "/nonexistent/a.json"), ("stream_flush_rows", 1000),
+    ("checkpoint_keep", 3), ("stream_flush_rows", 1000),
     ("checkpoint_path", "/nonexistent/ck"), ("elastic", True),
     ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
     ("nested", "opaque"), ("parity", True)])

@@ -1,13 +1,16 @@
 """tpuprof_torch — the PyTorch/CUDA port of tpuprof.
 
-``describe(df)`` / ``ProfileReport(df)`` profile a pandas DataFrame or a
-pyarrow Table with the two-pass scan (pass A and pass B each run kernels
-written by hand for NVIDIA Hopper, ``kernels/csrc``) or, with
-``profile_passes="fused"``, in one read of every batch on seeded bin edges
-(``runtime/singlepass.py``), on the first CUDA device unless the caller
-passes ``device="cpu"``.  ``tpuprof_torch.artifact`` writes and reads
-stats-only ``tpuprof-stats-v1`` artifacts.  The JAX package
-``tpuprof`` is the reference; this package imports nothing from it.
+``describe(source)`` / ``ProfileReport(source)`` profile a pandas
+DataFrame, a pyarrow Table or Dataset, or a Parquet file or directory with
+the two-pass scan (pass A and pass B each run kernels written by hand for
+NVIDIA Hopper, ``kernels/csrc``) or, with ``profile_passes="fused"``, in
+one read of every batch on seeded bin edges (``runtime/singlepass.py``), on
+the first CUDA device unless the caller passes ``device="cpu"``;
+``ProfileReport.to_file`` writes the HTML report.
+``tpuprof_torch.artifact`` writes, reads and compares stats-only
+``tpuprof-stats-v1`` artifacts, and ``python -m tpuprof_torch`` runs the
+``profile`` and ``diff`` verbs.  The JAX package ``tpuprof`` is the
+reference; this package imports nothing from it.
 """
 
 from tpuprof_torch.api import ProfileReport, describe

@@ -1,7 +1,16 @@
 """Stats-only ``tpuprof-stats-v1`` artifacts: :func:`write_artifact` and
-:func:`read_artifact` (``tpuprof_torch/artifact/store.py``)."""
+:func:`read_artifact` (``store.py``), and the drift between two of them:
+:func:`compute_drift` (``drift.py``) and its HTML page,
+:func:`drift_to_html` (``render.py``)."""
 
+from tpuprof_torch.artifact.drift import (DRIFT_SCHEMA_ID, DriftThresholds,
+                                          compute_drift, ks_statistic,
+                                          psi_statistic)
+from tpuprof_torch.artifact.render import drift_to_html
 from tpuprof_torch.artifact.store import (Artifact, build_sketches,
                                           read_artifact, write_artifact)
 
-__all__ = ["Artifact", "build_sketches", "read_artifact", "write_artifact"]
+__all__ = ["Artifact", "DRIFT_SCHEMA_ID", "DriftThresholds",
+           "build_sketches", "compute_drift", "drift_to_html",
+           "ks_statistic", "psi_statistic", "read_artifact",
+           "write_artifact"]

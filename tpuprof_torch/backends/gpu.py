@@ -48,6 +48,7 @@ from tpuprof_torch.kernels import moments as kmoments
 from tpuprof_torch.kernels import unique as kunique
 from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
+from tpuprof_torch.obs.spans import get_phase_report, span
 from tpuprof_torch.runtime import singlepass
 from tpuprof_torch.runtime.runner import Runner
 
@@ -197,6 +198,9 @@ class GPUStatsBackend:
         self._device = device
 
     def collect(self, source: Any, config: ProfilerConfig) -> Dict[str, Any]:
+        # this profile's phase seconds ride its own stats dict: drop what
+        # an earlier profile left
+        get_phase_report(reset=True)
         ingest = ArrowIngest(source, config.batch_rows,
                              columns=config.columns)
         plan = ingest.plan
@@ -263,36 +267,39 @@ class GPUStatsBackend:
             else:
                 state = runner.step_a(state, db)
 
-        for hb in batches:
+        with span("scan_a"):
+            for hb in batches:
+                if state is None:
+                    state = runner.init_pass_a(estimate_shift(hb))
+                    if fused_scan:
+                        sp_edges = singlepass.sketch_edges(hb.x, hb.nrows,
+                                                           into=sp_seeds)
+                        state_h = runner.init_pass_b()
+                        edges_d = tuple(runner.put_replicated(a) for a in (
+                            sp_edges.lo, sp_edges.hi, sp_edges.mean))
+                # host folds run while the device works on earlier groups
+                sampler.update(hb.x, hb.nrows)
+                if host_hll is not None:
+                    host_hll.update(hb.hll, hb.nrows)
+                hostagg.update(hb)
+                pending.append(hb)
+                if len(pending) >= scan_s:
+                    flush_group(pending, staged_a, one_a)
+            flush_group(pending, staged_a, one_a)
             if state is None:
-                state = runner.init_pass_a(estimate_shift(hb))
-                if fused_scan:
-                    sp_edges = singlepass.sketch_edges(hb.x, hb.nrows,
-                                                       into=sp_seeds)
-                    state_h = runner.init_pass_b()
-                    edges_d = tuple(runner.put_replicated(a) for a in (
-                        sp_edges.lo, sp_edges.hi, sp_edges.mean))
-            # host folds run while the device works on earlier groups
-            sampler.update(hb.x, hb.nrows)
-            if host_hll is not None:
-                host_hll.update(hb.hll, hb.nrows)
-            hostagg.update(hb)
-            pending.append(hb)
-            if len(pending) >= scan_s:
-                flush_group(pending, staged_a, one_a)
-        flush_group(pending, staged_a, one_a)
-        if state is None:
-            state = runner.init_pass_a()
+                state = runner.init_pass_a()
 
         run_pass_b = config.exact_passes and ingest.rescannable \
             and plan.n_num > 0 and hostagg.n_rows > 0
         # the exact pass-B inputs, computed on the device (no host round
         # trip before pass B): what K2 bins with, what a fused profile's
         # provisional edges are held to, and what the artifact seeds carry
-        bounds_d = runner.bounds_b_device(state) if plan.n_num > 0 else None
-        exact = singlepass.exact_triple(bounds_d) \
-            if bounds_d is not None else None
-        res_a = runner.finalize_a(state)
+        with span("merge"):
+            bounds_d = runner.bounds_b_device(state) \
+                if plan.n_num > 0 else None
+            exact = singlepass.exact_triple(bounds_d) \
+                if bounds_d is not None else None
+            res_a = runner.finalize_a(state)
         momf = kmoments.finalize(res_a["mom"])
         rho_all = kcorr.finalize(res_a["corr"])
         probes = list(config.quantile_probes)
@@ -387,16 +394,18 @@ class GPUStatsBackend:
                                                             grid_d)
 
             pending_b: List[HostBatch] = []
-            for hb in prefetch_prepared(ingest, pad, config.hll_precision,
-                                        depth=depth, hashes=False,
-                                        workers=workers):
-                recounter.update(hb)
-                pending_b.append(hb)
-                if len(pending_b) >= scan_s:
-                    flush_group(pending_b, staged_b, one_b)
-            flush_group(pending_b, staged_b, one_b)
-            res_b = runner.finalize_b(state_b) if state_b is not None \
-                else None
+            with span("scan_b"):
+                for hb in prefetch_prepared(ingest, pad,
+                                            config.hll_precision,
+                                            depth=depth, hashes=False,
+                                            workers=workers):
+                    recounter.update(hb)
+                    pending_b.append(hb)
+                    if len(pending_b) >= scan_s:
+                        flush_group(pending_b, staged_b, one_b)
+                flush_group(pending_b, staged_b, one_b)
+                res_b = runner.finalize_b(state_b) \
+                    if state_b is not None else None
             if rebin is not None:
                 # hit lanes keep their fused counts, missed lanes take the
                 # re-bin: two-pass's result, lane for lane
@@ -417,10 +426,12 @@ class GPUStatsBackend:
                 and hostagg.n_rows > 0:
             # no numeric columns: only the top-k recount needs a rescan
             recounter = Recounter(hostagg)
-            for hb in prefetch_prepared(ingest, pad, config.hll_precision,
-                                        depth=depth, hashes=False,
-                                        workers=workers):
-                recounter.update(hb)
+            with span("scan_b"):
+                for hb in prefetch_prepared(ingest, pad,
+                                            config.hll_precision,
+                                            depth=depth, hashes=False,
+                                            workers=workers):
+                    recounter.update(hb)
         if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
                 and plan.n_num > 1:
             # no rank pass (exact_passes=False): estimate from the K-row
@@ -436,6 +447,8 @@ class GPUStatsBackend:
             # the pass-B bounds a later fused profile of this source seeds
             # its edges from (artifacts seal them); private, never exported
             stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
+        # private, never exported; the report footer reads it
+        stats["_phases"] = get_phase_report(reset=True)
         return stats
 
 

@@ -40,7 +40,6 @@ _LATER = {
     "mesh_devices": _FLEET,
     "stream_flush_rows": _CHECKPOINT,
     "compile_cache_dir": _SERVE,
-    "artifact_path": _CHECKPOINT,
     "checkpoint_path": _CHECKPOINT,
     "checkpoint_every_batches": _CHECKPOINT,
     "checkpoint_keep": _CHECKPOINT,
@@ -133,6 +132,10 @@ class ProfilerConfig:
     seed_edges: Optional[str] = None        # artifact seeding a fused
                                             # profile's bin edges
     quantile_probes: Sequence[float] = (0.05, 0.25, 0.5, 0.75, 0.95)
+    artifact_path: Optional[str] = None     # the artifact the CLI writes
+                                            # after a profile (inert in
+                                            # the library, as in the
+                                            # reference)
 
     # ---- reference fields a later slice ports (see _LATER) ----------------
     nested: str = "stringify"
@@ -146,7 +149,6 @@ class ProfilerConfig:
     mesh_devices: Optional[int] = None
     stream_flush_rows: Optional[int] = None
     compile_cache_dir: Optional[str] = None
-    artifact_path: Optional[str] = None
     checkpoint_path: Optional[str] = None
     checkpoint_every_batches: int = 64
     checkpoint_keep: Optional[int] = None

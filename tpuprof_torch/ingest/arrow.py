@@ -1,8 +1,9 @@
 """Arrow -> device-batch preparation, the host side of the scan.
 
-Counterpart of ``tpuprof/ingest/arrow.py`` for in-memory sources (a pandas
-DataFrame or a pyarrow Table).  Per record batch it produces fixed-shape
-numpy planes the device step consumes:
+Counterpart of ``tpuprof/ingest/arrow.py`` for a pandas DataFrame, a
+pyarrow Table, a ``pyarrow.dataset.Dataset`` or the path of a Parquet file
+or directory.  Per record batch it produces fixed-shape numpy planes the
+device step consumes:
 
 * ``x``         (G, n_num) float32, Fortran order (so ``x.T`` is a
   C-contiguous (cols, rows) view) — numeric and boolean lanes, NaN missing;
@@ -17,8 +18,11 @@ otherwise), so distinct counts and top-k keys agree with it.
 
 Batches are prepared on a small thread pool and delivered in stream order
 (:func:`prefetch_prepared`); every order-sensitive fold happens in the
-consumer.  Parquet paths, datasets, fragments, nested columns and
-multi-process sharding are later slices.
+consumer.  A dataset streams through its scanner: batches end at row-group
+and file edges, so short batches come mid-stream, and Parquet string
+columns arrive dictionary-encoded with one dictionary a row group.  The
+reference's retry after an ``OSError``, fragment striping across processes,
+nested columns and the plain-string row-hash path are later slices.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import pandas as pd
 import pyarrow as pa
 import pyarrow.compute as pc
+import pyarrow.dataset as pads
 
 from tpuprof_torch import native, schema
 from tpuprof_torch.errors import InputError
@@ -329,9 +334,40 @@ def validate_projection(columns: Sequence[str],
     return list(columns)
 
 
+def _open_path_dataset(path: str) -> pads.Dataset:
+    """Open a file path as a dataset, asking the Parquet reader for string
+    columns dictionary-encoded straight from their dictionary pages, so
+    prepare hashes a dictionary a row group instead of building one a batch
+    (reference: ``_open_path_dataset``).  Other formats open as they are."""
+    ds = pads.dataset(path)
+    if not isinstance(getattr(ds, "format", None), pads.ParquetFileFormat):
+        return ds
+    str_cols = [f.name for f in ds.schema
+                if pa.types.is_string(f.type)
+                or pa.types.is_large_string(f.type)]
+    if not str_cols:
+        return ds
+    fmt = pads.ParquetFileFormat(
+        read_options=pads.ParquetReadOptions(dictionary_columns=str_cols))
+    # the first discovery's file list, not a second listing; discover
+    # again where the rebuilt schema loses columns (hive partition fields
+    # live in the paths)
+    files = getattr(ds, "files", None)
+    fs = getattr(ds, "filesystem", None)
+    if files and fs is not None:
+        try:
+            ds2 = pads.dataset(files, filesystem=fs, format=fmt)
+            if ds2.schema.names == ds.schema.names:
+                return ds2
+        except (pa.ArrowInvalid, OSError):
+            pass
+    return pads.dataset(path, format=fmt)
+
+
 class ArrowIngest:
-    """An in-memory source (pandas DataFrame or pyarrow Table/RecordBatch)
-    as a repeatable stream of fixed-size record batches."""
+    """A source as a repeatable stream of record batches of at most
+    ``batch_rows`` rows: in-memory tables in fixed windows, datasets
+    through their scanner with the projection pushed into it."""
 
     def __init__(self, source: Any, batch_rows: int,
                  columns: Optional[Sequence[str]] = None):
@@ -347,24 +383,44 @@ class ArrowIngest:
             table = source
         elif isinstance(source, pa.RecordBatch):
             table = pa.Table.from_batches([source])
-        elif isinstance(source, str):
-            raise NotImplementedError(
-                "Parquet paths are a later slice of the PyTorch port; pass "
-                "a pandas DataFrame or a pyarrow Table")
+        elif isinstance(source, (pads.Dataset, str)):
+            table = None
         else:
-            raise TypeError(f"cannot ingest {type(source)!r}; expected a "
-                            "pandas DataFrame or a pyarrow Table")
-        if columns is not None:
-            table = table.select(validate_projection(columns,
-                                                     table.schema.names))
-        self._table = table
-        self.plan = ColumnPlan.from_schema(table.schema)
+            raise TypeError(
+                f"cannot ingest {type(source)!r}; expected a pandas "
+                "DataFrame, a pyarrow Table or Dataset, or a Parquet path")
+        self._table: Optional[pa.Table] = table
+        self._dataset: Optional[pads.Dataset] = None
+        # a dataset reads only the projected columns: an excluded nested
+        # column costs no I/O and no plan entry
+        self._columns: Optional[List[str]] = None
+        if table is not None:
+            if columns is not None:
+                table = self._table = table.select(
+                    validate_projection(columns, table.schema.names))
+            arrow_schema = table.schema
+        else:
+            self._dataset = source if isinstance(source, pads.Dataset) \
+                else _open_path_dataset(source)
+            arrow_schema = self._dataset.schema
+            if columns is not None:
+                self._columns = validate_projection(columns,
+                                                    arrow_schema.names)
+                arrow_schema = pa.schema([arrow_schema.field(c)
+                                          for c in self._columns])
+        self.plan = ColumnPlan.from_schema(arrow_schema)
         self.rescannable = True
         self.dict_cache = _DictionaryCache()
 
     def raw_batches(self) -> Iterator[pa.RecordBatch]:
-        """Fixed-size windows of ``batch_rows`` rows, chunks combined per
-        window (a window never splits at a column-chunk boundary)."""
+        """Batches of at most ``batch_rows`` rows.  A table streams in
+        fixed windows, chunks combined per window (a window never splits at
+        a column-chunk boundary); a dataset in its scanner's batches, which
+        also end at row-group and file edges."""
+        if self._dataset is not None:
+            yield from self._dataset.to_batches(batch_size=self.batch_rows,
+                                                columns=self._columns)
+            return
         tbl, pos = self._table, 0
         while pos < tbl.num_rows:
             window = tbl.slice(pos, self.batch_rows).combine_chunks()
@@ -372,4 +428,7 @@ class ArrowIngest:
             pos += self.batch_rows
 
     def sample(self, n_rows: int) -> pd.DataFrame:
+        if self._dataset is not None:
+            return self._dataset.head(n_rows,
+                                      columns=self._columns).to_pandas()
         return self._table.slice(0, n_rows).to_pandas()

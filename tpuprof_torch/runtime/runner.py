@@ -40,9 +40,9 @@ def resolve_device(device: Union[str, torch.device, None] = None
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "tpuprof_torch runs on a CUDA device by default and none "
-                "is available; pass device='cpu' to run the plain PyTorch "
-                "versions of its kernels on the CPU")
+                "no CUDA device: tpuprof_torch runs on cuda:0 by default "
+                "and none is available; pass device='cpu' to run the "
+                "plain PyTorch versions of its kernels on the CPU")
         return torch.device("cuda:0")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
