@@ -6,6 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py                  # the full check on the card
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
+    python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 Phases, each fatal on failure:
@@ -87,7 +88,25 @@ Phases, each fatal on failure:
    and exit 1 with ``--fail-on-drift``.  Each run prints its wall time,
    rows/s and phase seconds, and the in-process runs their ``render``
    seconds;
-6. one JSON line of per-kernel numbers, the card's name and power limit,
+6. the rest of host ingest on one frame made from ``--seed``: the
+   headline's 200 float32 columns plus ``tags`` list<string>, ``meta``
+   struct<a: int64, b: string>, ``uid`` (about one distinct value a
+   row) and ``city``, 1,048,576 rows in 16 batches.  ``describe`` of it
+   in memory at ``prep_workers`` 1, default and 8 (K1 16, K2 16; the
+   three ``stats_to_json`` equal; which of the dictionary and row-hash
+   paths each string column took, batch by batch); the command line on
+   it as a Parquet directory with ``--nested stringify`` (two-pass, equal
+   to ``describe`` but for ``memorysize``; then fused warm from its
+   artifact, K4 16 alone, equal to two-pass) and ``--nested opaque``
+   (``tags`` and ``meta`` count, missing and memory only); then, with
+   ``nested="opaque"``, the ingest guard through the port's fault sites:
+   two transient prepare faults retried (equal to the clean run), one
+   poison batch quarantined (one manifest entry, one ``quarantine_log``
+   line, ``n`` one batch short, the degraded banner), the same with no
+   budget raising, and a 3 s ``device_wait`` under a 1 s
+   ``drain_timeout_s`` raising ``WatchdogTimeout``; every run prints its
+   wall and phase seconds;
+7. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -1706,6 +1725,59 @@ def drifted_frame(df):
     return out
 
 
+def cli_profile(torch, rehearsal: bool, card: str, stem: str, argv,
+                exactly=()):
+    """``cli.main(["profile", *argv])`` with every launch count set to 0
+    just before and read just after, writing ``stem``.html and ``--stats-json``
+    ``stem``.json, both checked against its stats; ``exactly`` =
+    ((kernel, launches), ...) the run must show (on the card).  Returns the
+    stats."""
+    from tpuprof_torch import cli
+    from tpuprof_torch.obs.spans import get_phase_report
+    from tpuprof_torch.report import render
+
+    label = os.path.basename(stem).replace("_", " ")
+    html, js = f"{stem}.html", f"{stem}.json"
+    seen = {}
+    real_page = render.to_standalone_html
+
+    def capture(stats, config, **kw):
+        seen["stats"], seen["config"] = stats, config
+        return real_page(stats, config, **kw)
+
+    render.to_standalone_html = capture
+    try:
+        zero_counts()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["profile", *argv, "-o", html, "--stats-json", js])
+        secs = time.perf_counter() - t0
+    finally:
+        render.to_standalone_html = real_page
+    counts = read_counts()
+    render_s = get_phase_report(reset=True).get("render")
+    require(rc == 0, f"{label}: profile exited {rc}")
+    stats = seen["stats"]
+    if not rehearsal:
+        for name, n in exactly:
+            require(counts[name] == n, f"{label}: {name} launched "
+                    f"{counts[name]} times, expected {n}")
+    with open(html, encoding="utf-8") as fh:
+        require(fh.read() == real_page(stats, seen["config"]),
+                f"{label}: the HTML is not to_standalone_html of its stats")
+    with open(js) as fh:
+        require(json.load(fh) == json.loads(exported(stats)),
+                f"{label}: --stats-json is not the stats' export")
+    n = stats["table"]["n"]
+    shown = ", ".join(f"{k} {v}" for k, v in counts.items())
+    print(f"{label}: {n} rows x {stats['table']['nvar']} cols in "
+          f"{secs:.3f} s = {n / secs:.0f} rows/s on {card}; "
+          f"launches: {shown}; {phases_text(stats)}; render "
+          f"{render_s:.4f} s", flush=True)
+    return stats
+
+
 def phase_cli(torch, rehearsal: bool, card: str) -> None:
     """``profile`` in process on a Parquet directory of the headline table
     (two-pass, then fused warm from its artifact), then ``python -m
@@ -1720,9 +1792,6 @@ def phase_cli(torch, rehearsal: bool, card: str) -> None:
     import pyarrow.parquet as pq
 
     import tpuprof_torch
-    from tpuprof_torch import cli
-    from tpuprof_torch.obs.spans import get_phase_report
-    from tpuprof_torch.report import render
     from tpuprof_torch.runtime import singlepass
 
     if rehearsal:
@@ -1750,66 +1819,23 @@ def phase_cli(torch, rehearsal: bool, card: str) -> None:
           f"row groups of {batch}, in {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    seen = {}
-    real_page = render.to_standalone_html
-
-    def capture(stats, config, **kw):
-        seen["stats"], seen["config"] = stats, config
-        return real_page(stats, config, **kw)
-
     def profile(label, argv, exactly):
-        """``cli.main(["profile", ...])`` with every launch count set to 0
-        just before and read just after; ``exactly`` = ((kernel,
-        launches), ...) the run must show (on the card).  Returns (stats,
-        the HTML, seconds)."""
-        stem = f"{tmp}/{label.replace(' ', '_')}"
-        html, js = f"{stem}.html", f"{stem}.json"
-        seen.clear()
-        zero_counts()
-        if not rehearsal:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli.main(["profile", *argv, "-o", html, "--stats-json", js,
-                       "--batch-rows", str(batch), *dev])
-        secs = time.perf_counter() - t0
-        counts = read_counts()
-        render_s = get_phase_report(reset=True).get("render")
-        require(rc == 0, f"{label}: profile exited {rc}")
-        stats = seen["stats"]
-        if not rehearsal:
-            for name, n in exactly:
-                require(counts[name] == n, f"{label}: {name} launched "
-                        f"{counts[name]} times, expected {n}")
-        with open(html, encoding="utf-8") as fh:
-            require(fh.read() == real_page(stats, seen["config"]),
-                    f"{label}: the HTML is not to_standalone_html of its "
-                    "stats")
-        with open(js) as fh:
-            require(json.load(fh) == json.loads(exported(stats)),
-                    f"{label}: --stats-json is not the stats' export")
-        n = stats["table"]["n"]
-        shown = ", ".join(f"{k} {v}" for k, v in counts.items())
-        print(f"{label}: {n} rows x {stats['table']['nvar']} cols in "
-              f"{secs:.3f} s = {n / secs:.0f} rows/s on {card}; "
-              f"launches: {shown}; {phases_text(stats)}; render "
-              f"{render_s:.4f} s", flush=True)
-        return stats
+        return cli_profile(torch, rehearsal, card,
+                           f"{tmp}/{label.replace(' ', '_')}",
+                           [*argv, "--batch-rows", str(batch), *dev],
+                           exactly)
 
-    render.to_standalone_html = capture
-    try:
-        art = f"{tmp}/headline.artifact.json"
-        two = profile("cli headline", [head_dir, "--artifact", art],
-                      (("fused_a", n_batches), ("hist_b", n_batches),
-                       ("fused_ab", 0), ("fused_wide", 0)))
-        h0, m0, r0 = (singlepass.edge_hits, singlepass.edge_misses,
-                      singlepass.rebins)
-        warm = profile("cli headline fused warm",
-                       [head_dir, "--profile-passes", "fused",
-                        "--seed-edges", art],
-                       (("fused_ab", n_batches), ("fused_a", 0),
-                        ("hist_b", 0), ("fused_wide", 0)))
-    finally:
-        render.to_standalone_html = real_page
+    art = f"{tmp}/headline.artifact.json"
+    two = profile("cli headline", [head_dir, "--artifact", art],
+                  (("fused_a", n_batches), ("hist_b", n_batches),
+                   ("fused_ab", 0), ("fused_wide", 0)))
+    h0, m0, r0 = (singlepass.edge_hits, singlepass.edge_misses,
+                  singlepass.rebins)
+    warm = profile("cli headline fused warm",
+                   [head_dir, "--profile-passes", "fused",
+                    "--seed-edges", art],
+                   (("fused_ab", n_batches), ("fused_a", 0),
+                    ("hist_b", 0), ("fused_wide", 0)))
     hits = singlepass.edge_hits - h0
     require(hits == cols and singlepass.edge_misses == m0
             and singlepass.rebins == r0,
@@ -1884,6 +1910,252 @@ def phase_cli(torch, rehearsal: bool, card: str) -> None:
           f"{len(status) - len(drifting)} columns ok", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the rest of host ingest
+# ---------------------------------------------------------------------------
+
+CITIES = ("ams", "ber", "cph", "dub", "hel", "lis", "osl", "vie")
+
+
+def ingest_table(rows: int, cols: int, seed: int):
+    """The headline's float32 columns (``wide_frame``) and four more:
+    ``tags`` list<string> of 0-4 words of a 50-word vocabulary, ``meta``
+    struct<a: int64, b: string>, ``uid`` (about one distinct value a row)
+    and ``city`` (8 values); a tenth of ``tags`` and a twelfth of ``meta``
+    null."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    rng = np.random.default_rng(seed)
+    table = pa.Table.from_pandas(wide_frame(rows, cols, seed),
+                                 preserve_index=False)
+    vocab = pa.array([f"word{i:02d}" for i in range(50)])
+    lens = rng.integers(0, 5, rows)
+    null_tags = rng.random(rows) < 0.1
+    lens[null_tags] = 0         # Parquet writes only empty null lists
+    offsets = np.zeros(rows + 1, dtype=np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    tags = pa.ListArray.from_arrays(
+        pa.array(offsets), vocab.take(pa.array(
+            rng.integers(0, 50, int(offsets[-1])))),
+        mask=pa.array(null_tags))
+    meta = pa.StructArray.from_arrays(
+        [pa.array(rng.integers(0, 20, rows)),
+         vocab.take(pa.array(rng.integers(0, 50, rows)))],
+        names=["a", "b"], mask=pa.array(rng.random(rows) < 1 / 12))
+    uid = pc.cast(pa.array(rng.integers(0, 10 ** 12, rows)), pa.string())
+    city = pa.array(np.array(CITIES)[rng.integers(0, len(CITIES), rows)])
+    for name, arr in (("tags", tags), ("meta", meta), ("uid", uid),
+                      ("city", city)):
+        table = table.append_column(name, arr)
+    return table
+
+
+def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
+    """The ingest slice on the card: nested columns, the prep pools, the
+    row-hash path and the ingest guard, on one frame in memory and as a
+    Parquet directory."""
+    import atexit
+    import collections
+    import shutil
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    import tpuprof_torch
+    from tpuprof_torch import native
+    from tpuprof_torch.config import resolve_prepare_workers
+    from tpuprof_torch.errors import WatchdogTimeout
+    from tpuprof_torch.ingest import arrow as ingest_arrow
+    from tpuprof_torch.report.render import to_standalone_html
+    from tpuprof_torch.runtime import singlepass
+    from tpuprof_torch.testing import faults
+
+    if rehearsal:
+        # batches above ROWHASH_MIN_DISTINCT rows: the row-hash path runs
+        rows, batch, cols = 4 * 20_000, 20_000, 8
+        dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
+    else:
+        rows, batch, cols = 1_048_576, 65_536, 200
+        dev, dev_kw = [], {}
+        require(native.available(), "the native hash library did not "
+                "build: the row-hash path needs it")
+    n_batches = rows // batch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ingest-")
+    atexit.register(shutil.rmtree, tmp, True)
+    t0 = time.perf_counter()
+    table = ingest_table(rows, cols, seed)
+    print(f"ingest: made {rows} rows x {table.num_columns} cols (seed "
+          f"{seed}) in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # which path each string column took, batch by batch, in pass A
+    paths = collections.Counter()
+    real_prepare = ingest_arrow.prepare_batch
+
+    def counting(rb, plan, *a, **kw):
+        hb = real_prepare(rb, plan, *a, **kw)
+        if hb.cat_hashes is not None:
+            for spec in plan.by_role("cat"):
+                path = "opaque" if spec.opaque else "row-hash" \
+                    if spec.name in hb.cat_hashed else "dictionary"
+                paths[spec.name, path] += 1
+        return hb
+
+    walls = {}
+
+    def run(label, exactly=(), **kw):
+        """describe the table with every launch count set to 0 just before
+        and read just after; returns the stats."""
+        zero_counts()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tpuprof_torch.describe(table, batch_rows=batch, **dev_kw,
+                                       **kw)
+        walls[label] = secs = time.perf_counter() - t0
+        counts = read_counts()
+        if not rehearsal:
+            for name, n in exactly:
+                require(counts[name] == n, f"{label}: {name} launched "
+                        f"{counts[name]} times, expected {n}")
+        shown = ", ".join(f"{k} {v}" for k, v in counts.items())
+        n = stats["table"]["n"]
+        print(f"{label}: {n} rows x {stats['table']['nvar']} cols in "
+              f"{secs:.3f} s = {n / secs:.0f} rows/s on {card}; launches: "
+              f"{shown}; {phases_text(stats)}", flush=True)
+        return stats
+
+    # 6.1 in memory: the prep pools at three widths, the row-hash path
+    two_pass = (("fused_a", n_batches), ("hist_b", n_batches),
+                ("fused_ab", 0))
+    ingest_arrow.prepare_batch = counting
+    try:
+        serial = run("ingest prep_workers=1", two_pass, prep_workers=1)
+        took = dict(paths)
+        base = run("ingest prep_workers default", two_pass)
+        wide = run("ingest prep_workers=8", two_pass, prep_workers=8)
+    finally:
+        ingest_arrow.prepare_batch = real_prepare
+    require(exported(serial) == exported(base) == exported(wide),
+            "ingest: the profile differs between prep widths")
+    print("ingest: stats_to_json equal at prep_workers 1, default and 8",
+          flush=True)
+    for name in ("tags", "meta", "uid", "city"):
+        shown = ", ".join(f"{p} {took[name, p]}"
+                          for p in ("dictionary", "row-hash")
+                          if (name, p) in took)
+        print(f"ingest: {name} took, of {n_batches} batches: {shown}",
+              flush=True)
+    # a batch takes the row-hash path once an earlier batch's distinct
+    # count is known: the prepares in flight with the first one cannot
+    in_flight = resolve_prepare_workers(None)
+    require(1 <= took.get(("uid", "dictionary"), 0) <= in_flight
+            and took.get(("uid", "row-hash"), 0) >= n_batches - in_flight,
+            "ingest: uid did not leave the dictionary path after its "
+            "first batches")
+    require(took.get(("city", "dictionary")) == n_batches,
+            "ingest: city left the dictionary path")
+    for name in ("tags", "meta"):
+        v = base["variables"][name]
+        require(v["type"] == "CAT" and v["distinct_count"] > 1
+                and name in base["freq"], f"ingest: {name} not profiled "
+                "through its str() form")
+
+    # 6.2 the Parquet directory through the command line
+    pdir = f"{tmp}/ingest"
+    os.makedirs(pdir)
+    per = rows // 4
+    for i in range(4):
+        pq.write_table(table.slice(i * per, per), f"{pdir}/part{i}.parquet",
+                       row_group_size=batch)
+    art = f"{tmp}/ingest.artifact.json"
+    flags = ["--batch-rows", str(batch), *dev]
+    two = cli_profile(torch, rehearsal, card, f"{tmp}/cli_ingest",
+                      [pdir, "--nested", "stringify", "--artifact", art,
+                       *flags], two_pass)
+    require(without_layout(two) == without_layout(base),
+            "cli ingest: the Parquet profile differs from describe(table) "
+            "beyond memorysize")
+    print("cli ingest: equal to describe(table) except memorysize",
+          flush=True)
+    h0, m0 = singlepass.edge_hits, singlepass.edge_misses
+    warm = cli_profile(torch, rehearsal, card,
+                       f"{tmp}/cli_ingest_fused_warm",
+                       [pdir, "--profile-passes", "fused", "--seed-edges",
+                        art, *flags],
+                       (("fused_ab", n_batches), ("fused_a", 0),
+                        ("hist_b", 0)))
+    require(singlepass.edge_hits - h0 == cols
+            and singlepass.edge_misses == m0,
+            "cli ingest fused warm: not every lane hit")
+    require(exported(warm) == exported(two),
+            "cli ingest fused warm: stats_to_json differs from two-pass")
+    print(f"cli ingest fused warm: all {cols} lanes hit, stats_to_json "
+          "equal to two-pass", flush=True)
+    opaque = cli_profile(torch, rehearsal, card, f"{tmp}/cli_ingest_opaque",
+                         [pdir, "--nested", "opaque", *flags], two_pass)
+    for name in ("tags", "meta"):
+        v, w = opaque["variables"][name], two["variables"][name]
+        require(v["distinct_count"] is None and v["mode"] is None
+                and v["freq"] == 0 and name not in opaque["freq"]
+                and (v["count"], v["n_missing"], v["memorysize"])
+                == (w["count"], w["n_missing"], w["memorysize"]),
+                f"cli ingest opaque: {name} is not count/missing/memory "
+                "only")
+    print("cli ingest opaque: tags and meta carry count, missing and "
+          "memory only", flush=True)
+
+    # 6.3 the ingest guard at the same size (nested="opaque": the fault
+    # paths do not need the str() loop)
+    clean = run("guard clean", two_pass, nested="opaque")
+    run("guard clean prep_workers=1", nested="opaque", prep_workers=1)
+    try:
+        faults.configure("prep:2@3")
+        got = run("guard transient x2", nested="opaque", ingest_retries=2)
+        require(faults.injected("prep") == 2 and "_quarantine" not in got
+                and exported(got) == exported(clean),
+                "guard: two retried transients changed the profile")
+        print("guard: 2 transient prepare faults retried, profile equal to "
+              "the clean run", flush=True)
+        log = f"{tmp}/quarantine.jsonl"
+        faults.configure("prep:fatal@3")
+        got = run("guard poison", nested="opaque", max_quarantined=1,
+                  quarantine_log=log)
+        entries = got.get("_quarantine") or []
+        with open(log) as fh:
+            logged = [json.loads(ln) for ln in fh]
+        require(len(entries) == 1 and logged == entries
+                and got["table"]["n"] == rows - batch
+                and "Degraded run" in to_standalone_html(
+                    got, tpuprof_torch.ProfilerConfig()),
+                f"guard: poison batch: {entries}, n {got['table']['n']}")
+        print(f"guard: one poison batch quarantined ({entries[0]}), n "
+              f"{got['table']['n']}, degraded banner, one log line",
+              flush=True)
+        faults.configure("prep:fatal@3")
+        try:
+            run("guard poison, no budget", nested="opaque")
+            fail("guard: a poison batch with max_quarantined=0 did not "
+                 "raise")
+        except RuntimeError as exc:
+            require("injected fatal" in str(exc), f"guard: {exc}")
+        print("guard: with max_quarantined=0 the poison batch fails the "
+              "profile", flush=True)
+        faults.configure("device_wait:sleep=3")
+        t0 = time.perf_counter()
+        try:
+            run("guard drain", nested="opaque", drain_timeout_s=1.0)
+            fail("guard: a 3 s drain under a 1 s watchdog did not raise")
+        except WatchdogTimeout as exc:
+            require(exc.site == "device_wait"
+                    and exc.heartbeat["rows"] == rows, f"guard: {exc}")
+            print(f"guard: WatchdogTimeout after "
+                  f"{time.perf_counter() - t0:.3f} s: {exc}", flush=True)
+    finally:
+        faults.reset()
+    print("ingest walls on " + card + ": " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1893,6 +2165,10 @@ def main(argv=None) -> int:
     ap.add_argument("--k2-probe", action="store_true",
                     help="stop after the build and K2's SASS counts and "
                     "times (k2_probe)")
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="after the build run phase 6 (phase_ingest) only")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 6's frame")
     args = ap.parse_args(argv)
 
     import torch
@@ -1937,6 +2213,9 @@ def main(argv=None) -> int:
               flush=True)
         return out
 
+    if args.ingest_only:
+        timed(phase_ingest, torch, args.cpu_rehearsal, card, args.seed)
+        return 0
     rows = timed(phase_kernels, torch, device, args.cpu_rehearsal)
     rows += timed(phase_kernels_wide_and_rank, torch, device,
                   args.cpu_rehearsal)
@@ -1950,6 +2229,7 @@ def main(argv=None) -> int:
     if not args.kernels_only:
         launches = timed(phase_main_path, torch, args.cpu_rehearsal, card)
         timed(phase_cli, torch, args.cpu_rehearsal, card)
+        timed(phase_ingest, torch, args.cpu_rehearsal, card, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["matched"] = True         # phase 3 exits before here otherwise

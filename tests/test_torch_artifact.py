@@ -22,6 +22,7 @@ from tpuprof_torch.artifact import (build_sketches, read_artifact,
                                     write_artifact)
 from tpuprof_torch.errors import CorruptArtifactError
 from tpuprof_torch.report.export import SCHEMA_ID, stats_to_json
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 BATCH = 512
 FLOAT_RTOL = {"std": 1e-3, "variance": 2e-3, "mad": 1e-3, "skewness": 2e-2,

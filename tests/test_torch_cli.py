@@ -34,6 +34,7 @@ from tpuprof_torch import cli
 from tpuprof_torch.artifact import read_artifact
 from tpuprof_torch.report import render
 from tpuprof_torch.report.export import stats_to_json
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = "512"
@@ -164,6 +165,14 @@ def test_profile_writes_report_stats_json_and_artifact(data, tmp_path,
      {"hll_precision": 6, "scan_batches": 2, "prepare_workers": 2,
       "pass_b_kernel": "legacy", "profile_passes": "fused"},
      lambda d, a: d["variables"]["trip_distance"]["distinct_approx"]),
+    (["--prep-workers", "3", "--nested", "opaque", "--ingest-retries", "0",
+      "--retry-backoff", "0", "--max-quarantined", "2", "--quarantine-log",
+      "never-written.jsonl", "--drain-timeout", "60"],
+     {"prep_workers": 3, "nested": "opaque", "ingest_retries": 0,
+      "retry_backoff_s": 0.0, "max_quarantined": 2,
+      "quarantine_log": "never-written.jsonl", "drain_timeout_s": 60.0},
+     lambda d, a: "quarantine" not in d
+     and not os.path.exists("never-written.jsonl")),
 ])
 def test_profile_flags_reach_the_profile(data, tmp_path, capsys, flags,
                                          fields, check):
@@ -225,7 +234,7 @@ def test_flags_mirror_the_reference(verb):
 
 
 @pytest.mark.parametrize("case", ["unknown_column", "missing_path",
-                                  "bad_config", "nested_column",
+                                  "bad_config", "bad_guard_config",
                                   "bad_device"])
 def test_input_errors_exit_2(data, tmp_path, capsys, case):
     html = str(tmp_path / "r.html")
@@ -236,20 +245,79 @@ def test_input_errors_exit_2(data, tmp_path, capsys, case):
         argv[0] = str(tmp_path / "absent.parquet")
     elif case == "bad_config":
         argv += ["--bins", "0"]
-    elif case == "nested_column":
-        table = pa.table({"x": [1.0, 2.0], "tags": [[1], [2, 3]]})
-        argv[0] = str(tmp_path / "nested.parquet")
-        pq.write_table(table, argv[0])
+    elif case == "bad_guard_config":
+        argv += ["--max-quarantined", "-1"]
     else:
         argv[4] = "warp9"
     rc, err = _profile(capsys, *argv)
     assert rc == 2 and len(err) == 1
     assert err[0].startswith("tpuprof_torch: error: ")
     assert not os.path.exists(html)
-    if case == "nested_column":
-        # --columns is the way past it
-        rc, _ = _profile(capsys, *argv, "--columns", "x")
-        assert rc == 0
+
+
+def _stats_json(main, argv, tmp_path, tag):
+    sj = str(tmp_path / f"{tag}.json")
+    assert main(["profile", *argv, "-o", str(tmp_path / f"{tag}.html"),
+                 "--batch-rows", BATCH, "--stats-json", sj]) == 0
+    with open(sj) as fh:
+        return json.load(fh)
+
+
+def test_nested_flag_changes_the_output_as_the_reference(tmp_path, capsys):
+    rng = np.random.default_rng(3)
+    n = 1500
+    table = pa.table({
+        "x": rng.normal(size=n),
+        "tags": pa.array([None if i % 6 == 0 else [int(i % 5)] * (i % 3)
+                          for i in range(n)], type=pa.list_(pa.int64()))})
+    path = str(tmp_path / "nested.parquet")
+    pq.write_table(table, path)
+    for policy in ("stringify", "opaque"):
+        mine = _stats_json(cli.main, [path, "--device", "cpu", "--nested",
+                                      policy], tmp_path, f"p-{policy}")
+        ref = _stats_json(ref_cli.main, [path, "--backend", "tpu",
+                                         "--nested", policy,
+                                         "--no-compile-cache"],
+                          tmp_path, f"r-{policy}")
+        capsys.readouterr()
+        for fld in ("type", "count", "n_missing", "distinct_count",
+                    "memorysize"):
+            assert mine["variables"]["tags"][fld] == \
+                ref["variables"]["tags"][fld], (policy, fld)
+        assert mine["freq"].get("tags") == ref["freq"].get("tags")
+        assert (mine["variables"]["tags"]["distinct_count"] is None) == \
+            (policy == "opaque")
+
+
+def test_max_quarantined_flag_changes_the_output_as_the_reference(
+        data, tmp_path, capsys, monkeypatch):
+    from tpuprof.testing import faults as ref_faults
+    from tpuprof_torch.testing import faults
+    monkeypatch.setattr(faults, "_plan", None)
+    monkeypatch.setattr(ref_faults, "_plan", None)
+    docs = {}
+    for name, main, extra, mod in (
+            ("port", cli.main, ["--device", "cpu"], faults),
+            ("ref", ref_cli.main, ["--backend", "tpu", "--no-compile-cache"],
+             ref_faults)):
+        mod.configure("prep:fatal@2")
+        with pytest.raises(RuntimeError, match="injected fatal"):
+            main(["profile", data["base"], "-o", str(tmp_path / "x.html"),
+                  "--batch-rows", BATCH, "--prepare-workers", "1", *extra])
+        mod.configure("prep:fatal@2")
+        docs[name] = _stats_json(
+            main, [data["base"], "--max-quarantined", "1",
+                   "--prepare-workers", "1", *extra], tmp_path, name)
+        mod.reset()
+    capsys.readouterr()
+    mine, ref = docs["port"], docs["ref"]
+    # the second batch of the first 700-row group: its last 188 rows
+    assert [(e["site"], e["cursor"], e["rows"]) for e in mine["quarantine"]] \
+        == [(e["site"], e["cursor"], e["rows"]) for e in ref["quarantine"]] \
+        == [("prep", 2, 700 - int(BATCH))]
+    assert mine["table"]["n"] == ref["table"]["n"] == 3000 - 188
+    html = (tmp_path / "port.html").read_text(encoding="utf-8")
+    assert "Degraded run" in html
 
 
 def test_without_cuda_profile_fails_and_reads_nothing(data, tmp_path,

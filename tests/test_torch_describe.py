@@ -23,6 +23,7 @@ from tpuprof import schema as ref_schema
 from tpuprof.backends.tpu import TPUStatsBackend
 from tpuprof_torch import schema
 from tpuprof_torch.config import ProfilerConfig
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -243,12 +244,31 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
     ("checkpoint_keep", 3), ("stream_flush_rows", 1000),
     ("checkpoint_path", "/nonexistent/ck"), ("elastic", True),
     ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
-    ("nested", "opaque"), ("parity", True)])
+    ("mesh_devices", 2), ("parity", True)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         ProfilerConfig.from_kwargs(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("nested", "opaque"), ("prep_workers", 3), ("ingest_retries", 0),
+    ("retry_backoff_s", 0.0), ("max_quarantined", 2),
+    ("quarantine_log", "quarantine.jsonl"), ("drain_timeout_s", 60.0)])
+def test_ported_ingest_fields_run(fixture_df, both, tmp_path, field, value):
+    """The fields the ingest slice ports run at a non-default value; on a
+    source without nested columns or faults each leaves the result as the
+    default gives it, and no quarantine log is written."""
+    from tpuprof_torch.report.export import stats_to_json
+    if field == "quarantine_log":
+        value = str(tmp_path / value)
+    port, _ = both
+    got = tpuprof_torch.describe(fixture_df, device="cpu", batch_rows=512,
+                                 **{field: value})
+    assert "_quarantine" not in got
+    assert stats_to_json(got) == stats_to_json(port)
+    assert not os.path.exists(tmp_path / "quarantine.jsonl")
 
 
 def test_config_fields_mirror_reference():

@@ -25,6 +25,7 @@ from tpuprof.report import svg as ref_svg
 from tpuprof_torch import ProfileReport, ProfilerConfig
 from tpuprof_torch.artifact.render import drift_to_html
 from tpuprof_torch.report import formatters, render, svg
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 
 @pytest.fixture

@@ -32,6 +32,7 @@ from tpuprof_torch.kernels import corr, fused, hist, moments
 from tpuprof_torch.report.export import stats_to_json
 from tpuprof_torch.runtime import runner as port_runner
 from tpuprof_torch.runtime import singlepass
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 ROWS = 3000
 BATCH = 512

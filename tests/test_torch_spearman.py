@@ -28,6 +28,7 @@ from tpuprof_torch.backends.gpu import spearman_grid
 from tpuprof_torch.config import MAX_SPEAR_GRID, ProfilerConfig
 from tpuprof_torch.ingest.sample import RowSampler
 from tpuprof_torch.kernels import corr, fused
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 RHO_ATOL = 5e-4
 GRID_VS_EXACT = 0.02        # the reference's own (tests/test_fused.py)

@@ -32,6 +32,7 @@ from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.runtime.runner import (Runner, state_from_numpy,
                                           state_to_numpy)
 from tpuprof_torch.config import ProfilerConfig
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 MOM_EXACT = ("n", "n_zeros", "n_inf", "n_missing", "min", "max", "fmin",
              "fmax")

@@ -29,6 +29,7 @@ from tpuprof.kernels import fused as ref_fused
 from tpuprof.kernels import moments as ref_moments
 from tpuprof_torch import schema
 from tpuprof_torch.kernels import corr, fused, moments
+from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 MOMENT_TOL = [("mean", 1e-4), ("std", 1e-3), ("variance", 2e-3),
               ("sum", 1e-4), ("mad", 1e-3), ("skewness", 2e-2),

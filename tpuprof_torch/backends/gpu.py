@@ -21,6 +21,12 @@ The result equals the two-pass profile's exactly.
 Division of labour: the device folds every numeric statistic; the host
 decodes strings, hashes, keeps the frequent values, dates and first rows.
 Numeric values are profiled in float32.
+
+The ingest guard (``runtime/guard.py``) wraps both passes: a transient
+prepare error retries, and with ``max_quarantined`` set a batch whose
+prepare keeps failing or whose pass-A fold raises is skipped and reported
+(``stats["_quarantine"]``), in pass B too, so it counts in neither pass.
+Each copy of a device state to the host runs under ``drain_timeout_s``.
 """
 
 from __future__ import annotations
@@ -31,13 +37,19 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
 import torch
 
 from tpuprof_torch import native, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
+                                  resolve_ingest_retries,
+                                  resolve_max_quarantined,
                                   resolve_prepare_workers,
                                   resolve_profile_passes,
-                                  resolve_unique_budget)
+                                  resolve_quarantine_log,
+                                  resolve_retry_backoff,
+                                  resolve_unique_budget,
+                                  resolve_watchdog_timeout)
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
                                         prefetch_prepared)
 from tpuprof_torch.ingest.sample import RowSampler
@@ -49,8 +61,9 @@ from tpuprof_torch.kernels import unique as kunique
 from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
 from tpuprof_torch.obs.spans import get_phase_report, span
-from tpuprof_torch.runtime import singlepass
+from tpuprof_torch.runtime import guard, singlepass
 from tpuprof_torch.runtime.runner import Runner
+from tpuprof_torch.testing import faults
 
 logger = logging.getLogger("tpuprof_torch")
 
@@ -97,8 +110,10 @@ class HostAgg:
             for s in plan.by_role("cat")}
         # exact "duplicate seen" flags keep the reference's exact UNIQUE
         # classification for columns whose Misra-Gries summary overflows
+        # opaque nested columns have no hash stream: nothing to track
         self.unique = UniqueTracker(
-            (s.name for s in plan.by_role("cat")), config.unique_track_rows,
+            (s.name for s in plan.by_role("cat") if not s.opaque),
+            config.unique_track_rows,
             resolve_unique_budget(config.unique_track_total_rows))
         self.cat_null: Dict[str, int] = {s.name: 0
                                          for s in plan.by_role("cat")}
@@ -138,6 +153,28 @@ class HostAgg:
             if first:
                 self.first_values[name] = [
                     dvals[c] if c >= 0 else None for c in codes[:5]]
+        for name, payload in (hb.cat_hashed or {}).items():
+            # the row-hash path: values materialize only for Misra-Gries
+            # survivors and the first report rows
+            uniq, cnts, first_row, row_hashes, valid, arr = payload
+            self.cat_null[name] += 0 if valid is None \
+                else int(hb.nrows - valid.sum())
+            if uniq.size:
+                def resolver(src, arr=arr, first_row=first_row):
+                    taken = arr.take(pa.array(first_row[src]))
+                    return np.asarray(taken.to_pandas(), dtype=object)
+                self.mg[name].update_hashed(uniq, cnts, resolver)
+                if self.unique.active(name):
+                    # the dictionary path's native value hashes: a column's
+                    # stream may mix the two paths
+                    self.unique.update(
+                        name,
+                        row_hashes if valid is None else row_hashes[valid],
+                        hash_kind="native")
+            if first:
+                self.first_values[name] = arr[:5].to_pylist()
+        for name, nulls in (hb.opaque_nulls or {}).items():
+            self.cat_null[name] += int(nulls)
         for name, (ints, valid) in hb.date_ints.items():
             ints, valid = ints[: hb.nrows], valid[: hb.nrows]
             self.date_null[name] += int((~valid).sum())
@@ -202,7 +239,7 @@ class GPUStatsBackend:
         # an earlier profile left
         get_phase_report(reset=True)
         ingest = ArrowIngest(source, config.batch_rows,
-                             columns=config.columns)
+                             columns=config.columns, nested=config.nested)
         plan = ingest.plan
         if not plan.specs:
             return _empty_stats(config)
@@ -219,7 +256,34 @@ class GPUStatsBackend:
         sp_seeds = singlepass.resolve_seeds(config, plan) \
             if fused_scan else None
 
+        # the ingest guard: transient prepare errors retry; with a budget,
+        # a batch that keeps failing (or whose fold raises) is skipped and
+        # reported; the device drain runs under a deadline when one is set.
+        # The defaults fail fast, as before
+        quarantine = guard.Quarantine(
+            resolve_max_quarantined(config.max_quarantined),
+            log_path=resolve_quarantine_log(config.quarantine_log))
+        batch_guard = guard.BatchGuard(
+            resolve_ingest_retries(config.ingest_retries),
+            resolve_retry_backoff(config.retry_backoff_s),
+            capture=quarantine.enabled)
+        drain_timeout = resolve_watchdog_timeout(config.drain_timeout_s,
+                                                 "TPUPROF_DRAIN_TIMEOUT_S")
+        skipped = set()         # stream positions pass A quarantined
+
         hostagg = HostAgg(plan, config)
+
+        def drained(finalize, st):
+            """``finalize(st)``, the copy of a device state to the host,
+            which waits on the card, under the drain watchdog."""
+            def wait():
+                faults.hit("device_wait")
+                return finalize(st)
+            return guard.watched(wait, drain_timeout, site="device_wait",
+                                 heartbeat=lambda: {
+                                     "rows": int(hostagg.n_rows),
+                                     "skipped": len(skipped)})
+
         sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
                              seed=config.seed)
         # HLL registers fold on the host when the native library builds;
@@ -246,7 +310,9 @@ class GPUStatsBackend:
         sp_edges = None         # ... and the provisional edges it bins on
         edges_d = None
         batches = prefetch_prepared(ingest, pad, config.hll_precision,
-                                    depth=depth, workers=workers)
+                                    depth=depth, workers=workers,
+                                    prep_workers=config.prep_workers,
+                                    batch_guard=batch_guard)
         pending: List[HostBatch] = []
 
         def staged_a(group):
@@ -268,7 +334,14 @@ class GPUStatsBackend:
                 state = runner.step_a(state, db)
 
         with span("scan_a"):
-            for hb in batches:
+            for key, hb in enumerate(batches):
+                if isinstance(hb, guard.PoisonBatch):
+                    # failed past its retries: skipped in both passes
+                    skipped.add(key)
+                    quarantine.admit(site=hb.site, error=hb.error,
+                                     cursor=key + 1, rows=hb.rows,
+                                     frag_pos=hb.frag_pos)
+                    continue
                 if state is None:
                     state = runner.init_pass_a(estimate_shift(hb))
                     if fused_scan:
@@ -278,10 +351,20 @@ class GPUStatsBackend:
                         edges_d = tuple(runner.put_replicated(a) for a in (
                             sp_edges.lo, sp_edges.hi, sp_edges.mean))
                 # host folds run while the device works on earlier groups
-                sampler.update(hb.x, hb.nrows)
-                if host_hll is not None:
-                    host_hll.update(hb.hll, hb.nrows)
-                hostagg.update(hb)
+                try:
+                    faults.hit("fold", key=key)
+                    sampler.update(hb.x, hb.nrows)
+                    if host_hll is not None:
+                        host_hll.update(hb.hll, hb.nrows)
+                    hostagg.update(hb)
+                except Exception as exc:
+                    if not quarantine.enabled:
+                        raise
+                    # a fold is not idempotent: never retried, skipped
+                    skipped.add(key)
+                    quarantine.admit(site="fold", error=exc,
+                                     cursor=key + 1, rows=hb.nrows)
+                    continue
                 pending.append(hb)
                 if len(pending) >= scan_s:
                     flush_group(pending, staged_a, one_a)
@@ -299,7 +382,7 @@ class GPUStatsBackend:
                 if plan.n_num > 0 else None
             exact = singlepass.exact_triple(bounds_d) \
                 if bounds_d is not None else None
-            res_a = runner.finalize_a(state)
+            res_a = drained(runner.finalize_a, state)
         momf = kmoments.finalize(res_a["mom"])
         rho_all = kcorr.finalize(res_a["corr"])
         probes = list(config.quantile_probes)
@@ -314,7 +397,7 @@ class GPUStatsBackend:
         adopted = None          # fused histograms taken as they are
         exact_lanes = None      # lanes whose histogram/MAD are exact
         if state_h is not None and hostagg.n_rows > 0:
-            res_h = runner.finalize_b(state_h)
+            res_h = drained(runner.finalize_b, state_h)
             hits = singlepass.hit_lanes(sp_edges, exact)
             if run_pass_b:
                 if hits.all() and not hostagg.mg and not config.spearman:
@@ -331,6 +414,21 @@ class GPUStatsBackend:
                 exact_lanes = None if hits.all() else hits
 
         # ---- pass B: exact histograms + MAD + top-k recount ----------------
+        def pass_b_batches():
+            """Pass B's batches without those pass A skipped; a batch that
+            fails here only is quarantined under the same budget."""
+            for hb in prefetch_prepared(
+                    ingest, pad, config.hll_precision, depth=depth,
+                    hashes=False, workers=workers,
+                    prep_workers=config.prep_workers,
+                    batch_guard=batch_guard, skip_keys=frozenset(skipped)):
+                if isinstance(hb, guard.PoisonBatch):
+                    quarantine.admit(site=hb.site + "_pass_b",
+                                     error=hb.error, rows=hb.rows,
+                                     frag_pos=hb.frag_pos)
+                    continue
+                yield hb
+
         hists: Optional[List] = None
         mad: Optional[np.ndarray] = None
         recounter: Optional[Recounter] = None
@@ -395,16 +493,13 @@ class GPUStatsBackend:
 
             pending_b: List[HostBatch] = []
             with span("scan_b"):
-                for hb in prefetch_prepared(ingest, pad,
-                                            config.hll_precision,
-                                            depth=depth, hashes=False,
-                                            workers=workers):
+                for hb in pass_b_batches():
                     recounter.update(hb)
                     pending_b.append(hb)
                     if len(pending_b) >= scan_s:
                         flush_group(pending_b, staged_b, one_b)
                 flush_group(pending_b, staged_b, one_b)
-                res_b = runner.finalize_b(state_b) \
+                res_b = drained(runner.finalize_b, state_b) \
                     if state_b is not None else None
             if rebin is not None:
                 # hit lanes keep their fused counts, missed lanes take the
@@ -418,7 +513,7 @@ class GPUStatsBackend:
                 res_b, momf["fmin"], momf["fmax"], momf["n"], config.bins)
             if spear_state is not None:
                 rho_spear = kcorr.finalize(
-                    runner.finalize_spearman(spear_state))
+                    drained(runner.finalize_spearman, spear_state))
         elif adopted is not None:
             hists, mad = khistogram.finalize(
                 adopted, momf["fmin"], momf["fmax"], momf["n"], config.bins)
@@ -427,10 +522,7 @@ class GPUStatsBackend:
             # no numeric columns: only the top-k recount needs a rescan
             recounter = Recounter(hostagg)
             with span("scan_b"):
-                for hb in prefetch_prepared(ingest, pad,
-                                            config.hll_precision,
-                                            depth=depth, hashes=False,
-                                            workers=workers):
+                for hb in pass_b_batches():
                     recounter.update(hb)
         if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
                 and plan.n_num > 1:
@@ -447,6 +539,10 @@ class GPUStatsBackend:
             # the pass-B bounds a later fused profile of this source seeds
             # its edges from (artifacts seal them); private, never exported
             stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
+        if quarantine.entries:
+            # degraded runs only: a clean run's stats and HTML are as
+            # before the guard existed
+            stats["_quarantine"] = list(quarantine.entries)
         # private, never exported; the report footer reads it
         stats["_phases"] = get_phase_report(reset=True)
         return stats
@@ -498,6 +594,23 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
             distinct = int(round(hll_est[spec.hash_lane]))
             distinct = max(min(distinct, count), 1 if count else 0)
             distinct_approx = count > 0
+        elif spec.opaque:
+            # nested="opaque": count, missing and memory only; with no
+            # value stream the cardinality is unknown (None), not estimated
+            n_missing = hostagg.cat_null[spec.name]
+            count = n - n_missing
+            commons[spec.name] = {
+                "count": count,
+                "n_missing": n_missing,
+                "p_missing": n_missing / n if n else 0.0,
+                "distinct_count": None,
+                "p_unique": None,
+                "is_unique": False,
+                "distinct_approx": True,
+                "memorysize": hostagg.memorysize(spec.name),
+            }
+            kinds[spec.name] = schema.CAT
+            continue
         else:
             n_missing = hostagg.cat_null[spec.name]
             count = n - n_missing
@@ -570,6 +683,11 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
             stats["mode_approx"] = False    # from exact true/false counts
             stats["top"] = stats["mode"]
             stats["freq"] = int(vc.iloc[0]) if common["count"] else 0
+        elif kind == schema.CAT and spec.opaque:
+            # the contract's fields, carrying "unknown"; no freq table
+            stats["mode"] = None
+            stats["top"] = None
+            stats["freq"] = 0
         elif kind == schema.CAT:
             vc = (recounter.value_counts(name)
                   if recounter is not None

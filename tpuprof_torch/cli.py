@@ -7,7 +7,8 @@ stands where the reference has ``--backend``: the profile runs on the first
 CUDA device unless ``--device cpu`` asks for the kernels' plain versions,
 and without a CUDA device it fails instead of running on the CPU.  Input
 errors print one ``tpuprof_torch: error: ...`` line and exit 2; a torn
-artifact exits with its error's code (``errors.exit_code``).
+artifact, a spent quarantine budget and a watchdog timeout print one line
+too and exit with their error's code (``errors.exit_code``: 6, 5, 4).
 """
 
 from __future__ import annotations
@@ -47,6 +48,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches prepared in parallel on the host "
                         "(default: TPUPROF_PREPARE_WORKERS env, else half "
                         "the cores, capped at 4)")
+    p.add_argument("--prep-workers", type=int, default=None, metavar="W",
+                   help="intra-batch prep parallelism: per-column (and "
+                        "per-row-chunk) decode/hash/pack tasks of one "
+                        "batch on W shared threads (default: "
+                        "TPUPROF_PREP_WORKERS env, else 1 while several "
+                        "batches are prepared at once, else all cores, "
+                        "capped at 16; 1 = the serial path, "
+                        "byte-identical output at any width)")
     p.add_argument("--pass-b-kernel", default=None,
                    choices=("cumulative", "legacy"),
                    help="pass-B binning formulation (default: "
@@ -76,7 +85,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--columns", metavar="A,B,C",
                    help="profile only these columns, in this order; "
                         "Parquet reads skip the others entirely (also the "
-                        "way past nested columns).  Unknown names error.")
+                        "way past a slow nested column).  Unknown names "
+                        "error.")
+    p.add_argument("--nested", default="stringify",
+                   choices=["stringify", "opaque"],
+                   help="nested (list/struct/map) column policy: "
+                        "'stringify' profiles the str() form (exact, "
+                        "but a Python loop a row for that column); "
+                        "'opaque' reports count/missing/memory only "
+                        "with no decode at all")
     p.add_argument("--stats-json", metavar="PATH",
                    help="also dump the whole stats dict as "
                         "tpuprof-stats-v1 JSON")
@@ -84,6 +101,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the profile as a CRC-sealed, "
                         "stats-only tpuprof-stats-v1 artifact (what "
                         "`diff` compares and --seed-edges reads)")
+    ft = p.add_argument_group(
+        "fault tolerance", "retry transient prepare failures, skip poison "
+        "batches instead of dying, and bound the device drain with a "
+        "watchdog")
+    ft.add_argument("--ingest-retries", type=int, default=None,
+                    metavar="N",
+                    help="transient per-batch prep failures retried "
+                         "with exponential backoff before escalating "
+                         "(default: TPUPROF_INGEST_RETRIES, else 2)")
+    ft.add_argument("--retry-backoff", type=float, default=None,
+                    metavar="SEC",
+                    help="first retry's sleep; each further attempt "
+                         "doubles it (default: TPUPROF_RETRY_BACKOFF_S, "
+                         "else 0.05; 0 retries back-to-back)")
+    ft.add_argument("--max-quarantined", type=int, default=None,
+                    metavar="N",
+                    help="poison-batch budget: skip (and report) up to "
+                         "N permanently-failing batches instead of "
+                         "dying; the report gains a degraded-run "
+                         "banner (default: TPUPROF_MAX_QUARANTINED, "
+                         "else 0 = fail fast)")
+    ft.add_argument("--quarantine-log", metavar="PATH",
+                    help="also append quarantined-batch records to "
+                         "PATH as JSONL")
+    ft.add_argument("--drain-timeout", type=float, default=None,
+                    metavar="SEC",
+                    help="watchdog deadline on the device drain; "
+                         "expiry exits with a heartbeat snapshot "
+                         "instead of hanging (default: "
+                         "TPUPROF_DRAIN_TIMEOUT_S, else off)")
 
     d = sub.add_parser(
         "diff", help="compare two stats artifacts and report per-column "
@@ -117,7 +164,8 @@ def _error(msg) -> None:
 def cmd_profile(args: argparse.Namespace) -> int:
     from tpuprof_torch.api import ProfileReport
     from tpuprof_torch.config import ProfilerConfig
-    from tpuprof_torch.errors import InputError
+    from tpuprof_torch.errors import (InputError, PoisonBatchError,
+                                      WatchdogTimeout, exit_code)
     from tpuprof_torch.obs.spans import span
     from tpuprof_torch.runtime.runner import resolve_device
 
@@ -137,6 +185,12 @@ def cmd_profile(args: argparse.Namespace) -> int:
             columns=columns, bins=args.bins, corr_reject=args.corr_reject,
             batch_rows=args.batch_rows, scan_batches=args.scan_batches,
             prepare_workers=args.prepare_workers,
+            prep_workers=args.prep_workers, nested=args.nested,
+            ingest_retries=args.ingest_retries,
+            retry_backoff_s=args.retry_backoff,
+            max_quarantined=args.max_quarantined,
+            quarantine_log=args.quarantine_log,
+            drain_timeout_s=args.drain_timeout,
             pass_b_kernel=args.pass_b_kernel,
             profile_passes=args.profile_passes,
             seed_edges=args.seed_edges,
@@ -153,10 +207,14 @@ def cmd_profile(args: argparse.Namespace) -> int:
         report = ProfileReport(args.source, config=config, device=device)
     except (InputError, FileNotFoundError, NotImplementedError) as exc:
         # what the caller asked for cannot be read or profiled (a missing
-        # path, an unknown column, a nested column): one line, not a
-        # traceback; every other failure keeps its traceback
+        # path, an unknown column, a field of a later slice): one line, not
+        # a traceback; every other failure keeps its traceback
         _error(exc)
         return 2
+    except (PoisonBatchError, WatchdogTimeout) as exc:
+        # the ingest guard ran out: one line and its own exit code
+        _error(exc)
+        return exit_code(exc)
     with span("render"):
         report.to_file(args.output)
     if config.artifact_path:

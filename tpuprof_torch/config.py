@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 
 PASS_B_KERNELS = ("cumulative", "legacy")
 PROFILE_PASSES = ("two_pass", "fused")
+NESTED_POLICIES = ("stringify", "opaque")
 
 # the exact-unique tracker's global row budget when none is given (the
 # reference's historical default)
@@ -29,7 +30,6 @@ _TELEMETRY = "telemetry"
 
 # field -> the later slice that ports it
 _LATER = {
-    "nested": "nested columns (Parquet sources)",
     "parity": "exact distinct counting and Spearman",
     "backend": "a CPU oracle backend",
     "unique_partitions": "spilled exact-unique tracking",
@@ -43,11 +43,6 @@ _LATER = {
     "checkpoint_path": _CHECKPOINT,
     "checkpoint_every_batches": _CHECKPOINT,
     "checkpoint_keep": _CHECKPOINT,
-    "ingest_retries": "ingest fault tolerance",
-    "retry_backoff_s": "ingest fault tolerance",
-    "max_quarantined": "ingest fault tolerance",
-    "quarantine_log": "ingest fault tolerance",
-    "drain_timeout_s": "ingest fault tolerance",
     "barrier_timeout_s": _FLEET,
     "elastic": _FLEET,
     "fleet_dir": _FLEET,
@@ -77,7 +72,6 @@ _LATER = {
     "read_cache_entries": _SERVE,
     "read_cache_bytes": _SERVE,
     "artifact_keep": _CHECKPOINT,
-    "prep_workers": "parallel intra-batch ingest",
     "metrics_enabled": _TELEMETRY,
     "metrics_path": _TELEMETRY,
     "metrics_interval": _TELEMETRY,
@@ -137,8 +131,22 @@ class ProfilerConfig:
                                             # the library, as in the
                                             # reference)
 
+    # ---- nested columns, intra-batch prep, the ingest guard --------------
+    nested: str = "stringify"       # "stringify": profile a list/struct/
+                                    # map column through str() of each
+                                    # value; "opaque": count, missing and
+                                    # memory only
+    prep_workers: Optional[int] = None      # leaf tasks of one batch's
+                                            # prepare run at once
+    ingest_retries: Optional[int] = None    # transient prepare failures
+                                            # retried (resolve_*)
+    retry_backoff_s: Optional[float] = None
+    max_quarantined: Optional[int] = None   # poison batches skipped
+                                            # before giving up (0: fail)
+    quarantine_log: Optional[str] = None    # JSONL of skipped batches
+    drain_timeout_s: Optional[float] = None  # watchdog on the device drain
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
-    nested: str = "stringify"
     parity: bool = False
     backend: str = "auto"
     unique_partitions: Optional[int] = None
@@ -152,11 +160,6 @@ class ProfilerConfig:
     checkpoint_path: Optional[str] = None
     checkpoint_every_batches: int = 64
     checkpoint_keep: Optional[int] = None
-    ingest_retries: Optional[int] = None
-    retry_backoff_s: Optional[float] = None
-    max_quarantined: Optional[int] = None
-    quarantine_log: Optional[str] = None
-    drain_timeout_s: Optional[float] = None
     barrier_timeout_s: Optional[float] = None
     elastic: Optional[bool] = None
     fleet_dir: Optional[str] = None
@@ -186,7 +189,6 @@ class ProfilerConfig:
     read_cache_entries: Optional[int] = None
     read_cache_bytes: Optional[int] = None
     artifact_keep: Optional[int] = None
-    prep_workers: Optional[int] = None
     metrics_enabled: Optional[bool] = None
     metrics_path: Optional[str] = None
     metrics_interval: float = 0.0
@@ -225,6 +227,20 @@ class ProfilerConfig:
             raise ValueError("scan_batches must be >= 1")
         if self.prepare_workers is not None and self.prepare_workers < 1:
             raise ValueError("prepare_workers must be >= 1 (or None)")
+        if self.nested not in NESTED_POLICIES:
+            raise ValueError(
+                f"nested={self.nested!r} — use 'stringify' (profile the "
+                "str() form) or 'opaque' (count/missing only)")
+        if self.prep_workers is not None and self.prep_workers < 1:
+            raise ValueError("prep_workers must be >= 1 (or None)")
+        if self.ingest_retries is not None and self.ingest_retries < 0:
+            raise ValueError("ingest_retries must be >= 0 (or None)")
+        if self.retry_backoff_s is not None and self.retry_backoff_s < 0:
+            raise ValueError("retry_backoff_s must be >= 0 (or None)")
+        if self.max_quarantined is not None and self.max_quarantined < 0:
+            raise ValueError("max_quarantined must be >= 0 (or None)")
+        if self.drain_timeout_s is not None and self.drain_timeout_s <= 0:
+            raise ValueError("drain_timeout_s must be > 0 (or None = off)")
         if not 0.0 < self.corr_reject <= 1.0:
             raise ValueError("corr_reject must be in (0, 1]")
         if not 2 <= self.spearman_grid <= 4096:
@@ -289,12 +305,93 @@ def resolve_unique_budget(value=None) -> int:
     return int(value)
 
 
-def resolve_prepare_workers(value: Optional[int] = None) -> int:
-    """Batches prepared concurrently: the config value, else half the cores
-    capped at 4."""
+def _env_int(var: str) -> Optional[int]:
+    env = os.environ.get(var)
+    return int(env) if env not in (None, "") else None
+
+
+def _env_float(var: str) -> Optional[float]:
+    env = os.environ.get(var)
+    return float(env) if env not in (None, "") else None
+
+
+def resolve_prep_workers(value: Optional[int] = None,
+                         batch_workers: int = 1) -> int:
+    """Leaf tasks of one batch's prepare run at once (``ingest/prep.py``):
+    the config value, else ``TPUPROF_PREP_WORKERS``, else
+    ``TPUPROF_DECODE_THREADS`` (the reference's older name), else 1 when
+    ``batch_workers`` prepares already run at once, else every core,
+    capped at 16 (the reference's default).  The leaf tasks of a 65,536-row
+    batch are about as short as their Python around them, so a column pool
+    beside several prepares trades cores for GIL hand-offs: on an 8-core
+    H100 host the reference's default made the 200-column headline's
+    ``scan_a`` 3x longer (PERF.md, "Findings")."""
     if value is not None:
         return max(int(value), 1)
+    for var in ("TPUPROF_PREP_WORKERS", "TPUPROF_DECODE_THREADS"):
+        env = os.environ.get(var)
+        if env:
+            return max(int(env), 1)
+    if batch_workers > 1:
+        return 1
+    return min(os.cpu_count() or 1, 16)
+
+
+def resolve_prepare_workers(value: Optional[int] = None) -> int:
+    """Batches prepared concurrently: the config value, else
+    ``TPUPROF_PREPARE_WORKERS``, else half the cores capped at 4."""
+    if value is not None:
+        return max(int(value), 1)
+    env = os.environ.get("TPUPROF_PREPARE_WORKERS")
+    if env:
+        return max(int(env), 1)
     return max(1, min(4, (os.cpu_count() or 1) // 2))
+
+
+def resolve_ingest_retries(value: Optional[int] = None) -> int:
+    """Retries of a transient prepare failure: the config value, else
+    ``TPUPROF_INGEST_RETRIES``, else 2; 0 escalates the first failure."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_INGEST_RETRIES")
+    return max(env, 0) if env is not None else 2
+
+
+def resolve_retry_backoff(value: Optional[float] = None) -> float:
+    """The first retry's sleep, doubled for each further attempt: the
+    config value, else ``TPUPROF_RETRY_BACKOFF_S``, else 0.05."""
+    if value is not None:
+        return max(float(value), 0.0)
+    env = _env_float("TPUPROF_RETRY_BACKOFF_S")
+    return max(env, 0.0) if env is not None else 0.05
+
+
+def resolve_quarantine_log(value: Optional[str] = None) -> Optional[str]:
+    """The JSONL side log of quarantined batches: the config value, else
+    ``TPUPROF_QUARANTINE_LOG``, else none."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_QUARANTINE_LOG") or None
+
+
+def resolve_max_quarantined(value: Optional[int] = None) -> int:
+    """The poison-batch budget: the config value, else
+    ``TPUPROF_MAX_QUARANTINED``, else 0 (a failing batch fails the
+    profile)."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_MAX_QUARANTINED")
+    return max(env, 0) if env is not None else 0
+
+
+def resolve_watchdog_timeout(value: Optional[float], var: str
+                             ) -> Optional[float]:
+    """A watchdog deadline (``drain_timeout_s``): the config value, else
+    the env var ``var``, else None (the call runs unwatched)."""
+    if value is not None:
+        return float(value) if value > 0 else None
+    env = _env_float(var)
+    return env if env and env > 0 else None
 
 
 def resolve_profile_passes(value: Optional[str] = None) -> str:

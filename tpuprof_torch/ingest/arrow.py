@@ -9,26 +9,43 @@ device step consumes:
   C-contiguous (cols, rows) view) — numeric and boolean lanes, NaN missing;
 * ``row_valid`` (G,) bool — masks the padding rows;
 * ``hll``       (G, n_hash) uint16 — packed HLL observations for every
-  column (``kernels.hll.pack``), 0 = null or padding;
+  column with a hash lane (``kernels.hll.pack``), 0 = null or padding;
 
 plus the host-only side channels: dictionary codes of categorical columns
-(Misra-Gries, recount), int64-nanosecond dates, Arrow buffer sizes.  The
-hashing is the reference's, bit for bit (native C++ when it builds, pandas
-otherwise), so distinct counts and top-k keys agree with it.
+(Misra-Gries, recount), the row-hash aggregation of high-cardinality plain
+strings, int64-nanosecond dates, Arrow buffer sizes and the null counts of
+opaque nested columns.  The hashing is the reference's, bit for bit (native
+C++ when it builds, pandas otherwise), so distinct counts and top-k keys
+agree with it.
 
-Batches are prepared on a small thread pool and delivered in stream order
-(:func:`prefetch_prepared`); every order-sensitive fold happens in the
-consumer.  A dataset streams through its scanner: batches end at row-group
-and file edges, so short batches come mid-stream, and Parquet string
-columns arrive dictionary-encoded with one dictionary a row group.  The
-reference's retry after an ``OSError``, fragment striping across processes,
-nested columns and the plain-string row-hash path are later slices.
+Nested (list, struct, map) columns follow ``config.nested``: "stringify"
+profiles the ``str()`` of each value as a categorical column (a Python
+loop a row, warned once a column); "opaque" records count, missing and
+memory only, from Arrow metadata, with no hash lane.
+
+Parallelism has two tiers, both byte-deterministic.  Within a batch, one
+task a column, plus row-chunk tasks for numeric columns when columns alone
+cannot fill the pool, run on the shared column pool (``ingest/prep.py``;
+by default only while one batch is prepared at a time:
+``config.resolve_prep_workers``); tasks write disjoint slices of
+preallocated planes.  Across batches,
+:func:`prefetch_prepared` keeps up to ``workers`` prepares in flight and
+delivers them in stream order; every order-sensitive fold (sampler,
+Misra-Gries, HLL registers) happens in the consumer.  Each prepare runs
+under the ingest guard (``runtime/guard.py``): transient errors retry, and
+a batch that keeps failing arrives as a ``PoisonBatch`` when quarantine is
+on.  A dataset streams through its scanner; after the scanner's first
+``OSError`` it drops to per-fragment reads with retry, skipping what was
+already delivered.  Fragment striping across processes comes with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
+import logging
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -39,8 +56,26 @@ import pyarrow.compute as pc
 import pyarrow.dataset as pads
 
 from tpuprof_torch import native, schema
+from tpuprof_torch.config import NESTED_POLICIES, resolve_prep_workers
 from tpuprof_torch.errors import InputError
+from tpuprof_torch.ingest import prep
 from tpuprof_torch.kernels import hll as khll
+
+logger = logging.getLogger("tpuprof_torch")
+
+# plain-string columns leave the per-batch dictionary_encode for the native
+# row hash + factorize once their previous batch showed more distinct
+# values than this (the reference's threshold: the row-hash path wins
+# clearly only at ID-like cardinality)
+ROWHASH_MIN_DISTINCT = 16384
+
+# numeric columns split into row-chunk tasks once a batch is tall enough
+# that the split's task overhead is noise
+ROW_CHUNK_ROWS = 16384
+
+# nested columns warned once per column name per process (set.add is
+# GIL-atomic)
+_NESTED_WARNED: set = set()
 
 
 @dataclasses.dataclass
@@ -49,8 +84,10 @@ class ColumnSpec:
     role: str                 # "num" | "date" | "cat"
     base_kind: str            # schema.{NUM,BOOL,DATE,CAT} before refinement
     num_lane: int = -1        # lane in the x plane ("num" role only)
-    hash_lane: int = -1       # lane in the hll plane (every column)
+    hash_lane: int = -1       # lane in the hll plane (-1: opaque)
     arrow_type: Optional[pa.DataType] = None
+    opaque: bool = False      # nested column under nested="opaque": count,
+                              # missing and memory only, never decoded
 
 
 @dataclasses.dataclass
@@ -69,17 +106,21 @@ class ColumnPlan:
         return [s for s in self.specs if s.role == role]
 
     @classmethod
-    def from_schema(cls, arrow_schema: pa.Schema) -> "ColumnPlan":
+    def from_schema(cls, arrow_schema: pa.Schema,
+                    nested: str = "stringify") -> "ColumnPlan":
+        if nested not in NESTED_POLICIES:
+            raise ValueError(f"nested={nested!r} — use one of "
+                             f"{NESTED_POLICIES}")
         specs: List[ColumnSpec] = []
-        num_lane = 0
-        for hash_lane, field in enumerate(arrow_schema):
+        num_lane = hash_lane = 0
+        for field in arrow_schema:
             t = field.type
             inner = t.value_type if isinstance(t, pa.DictionaryType) else t
-            if pa.types.is_nested(inner):
-                raise NotImplementedError(
-                    f"column {field.name!r} holds nested values ({t}): "
-                    "nested columns are a later slice of the PyTorch port "
-                    "(exclude it with columns=...)")
+            if nested == "opaque" and pa.types.is_nested(inner):
+                # no hash lane: nothing of the column ships to the device
+                specs.append(ColumnSpec(field.name, "cat", schema.CAT,
+                                        arrow_type=t, opaque=True))
+                continue
             if pa.types.is_boolean(inner):
                 spec = ColumnSpec(field.name, "num", schema.BOOL,
                                   num_lane=num_lane, arrow_type=t)
@@ -96,6 +137,7 @@ class ColumnPlan:
             else:
                 spec = ColumnSpec(field.name, "cat", schema.CAT, arrow_type=t)
             spec.hash_lane = hash_lane
+            hash_lane += 1
             specs.append(spec)
         return cls(specs)
 
@@ -115,6 +157,14 @@ class HostBatch:
     # batch was prepared without hashes (pass B)
     cat_hashes: Optional[Dict[str, np.ndarray]] = None
     cat_hash_kind: Optional[Dict[str, str]] = None
+    # the plain-string row-hash path (pass A, native library): per-batch
+    # (unique hashes u64, counts i64, a first row of each unique, row
+    # hashes u64, valid bool or None = no nulls, the Arrow array); values
+    # materialize only for what the consumer keeps.  A column prepared
+    # this way has no cat_codes entry in the batch
+    cat_hashed: Optional[Dict[str, Tuple]] = None
+    # null counts of opaque nested columns: their only statistic
+    opaque_nulls: Optional[Dict[str, int]] = None
     hll_precision: int = 11
     col_nbytes: Optional[Dict[str, int]] = None       # Arrow buffer bytes
     col_dict_nbytes: Optional[Dict[str, int]] = None  # shared dictionaries
@@ -152,44 +202,95 @@ def _packed_obs(keys: np.ndarray, valid: np.ndarray,
     return khll.pack(_hash64(keys), valid, precision)
 
 
-def _fill_num(arr: pa.Array, lane: int, x: np.ndarray) -> np.ndarray:
-    """Decode one numeric/bool Arrow column into plane lane ``lane``;
-    returns the decoded values (for hashing) and writes NaN for nulls."""
+def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
+                   hll_packed: np.ndarray, hashes: bool,
+                   hll_precision: int, lo: int) -> None:
+    """Decode one numeric or boolean Arrow slice into plane rows
+    [lo, lo + len(arr)) and, with ``hashes``, its packed HLL lane.  Every
+    operation is elementwise, so any row partition of a column gives
+    byte-identical planes.  Nulls are NaN."""
+    hi = lo + len(arr)
     t = arr.type
-    n = len(arr)
+    lane = spec.num_lane
     if pa.types.is_floating(t) and t.bit_width == 32:
         vals = arr.to_numpy(zero_copy_only=False)    # f32, NaN = null
-        x[:n, lane] = vals
+        x[lo:hi, lane] = vals
+        valid = ~np.isnan(vals)
     elif pa.types.is_floating(t) and t.bit_width == 64 \
             and arr.null_count == 0:
-        vals = arr.to_numpy()
-        x[:n, lane] = vals
+        vals = arr.to_numpy()                        # a zero-copy view
+        x[lo:hi, lane] = vals
+        valid = ~np.isnan(vals)
     elif pa.types.is_floating(t) or pa.types.is_decimal(t):
         vals = arr.cast(pa.float64(), safe=False).to_numpy(
             zero_copy_only=False)
-        x[:n, lane] = vals.astype(np.float32)
+        x[lo:hi, lane] = vals.astype(np.float32)
+        valid = ~np.isnan(vals)
     elif arr.null_count == 0 and not pa.types.is_boolean(t):
         # ints stay int64 so ids above 2^53 hash exactly
         vals = arr.to_numpy().astype(np.int64, copy=False)
-        x[:n, lane] = vals.astype(np.float32)
+        x[lo:hi, lane] = vals.astype(np.float32)
+        valid = np.ones(len(arr), dtype=bool)
     else:                           # bools, and ints carrying nulls
+        valid = (arr.is_valid().to_numpy(zero_copy_only=False)
+                 if arr.null_count else np.ones(len(arr), dtype=bool))
         vals = arr.cast(pa.int64(), safe=False).fill_null(0) \
             .to_numpy(zero_copy_only=False)
         xf = vals.astype(np.float32)
         if arr.null_count:
-            valid = arr.is_valid().to_numpy(zero_copy_only=False)
             xf = np.where(valid, xf, np.nan)
-        x[:n, lane] = xf
-    return vals
+        x[lo:hi, lane] = xf
+    if hashes:
+        hll_packed[lo:hi, spec.hash_lane] = _packed_obs(
+            _num_keys(vals), valid, hll_precision)
 
 
-def _num_valid(arr: pa.Array, vals: np.ndarray) -> np.ndarray:
-    t = arr.type
-    if pa.types.is_floating(t) or pa.types.is_decimal(t):
-        return ~np.isnan(vals.astype(np.float64, copy=False))
-    if arr.null_count:
-        return arr.is_valid().to_numpy(zero_copy_only=False)
-    return np.ones(len(arr), dtype=bool)
+def _stringified(name: str, arr: pa.Array) -> pa.Array:
+    """A nested column's values as the ``str()`` of each (None stays
+    null): no Arrow kernel encodes or casts list, struct and map values,
+    so this is a Python loop a row, warned once a column."""
+    if name not in _NESTED_WARNED:
+        _NESTED_WARNED.add(name)
+        logger.warning(
+            "column %r holds nested values (%s): profiling its str() form "
+            "through a per-row Python loop; expect this column to dominate "
+            "ingest time (nested='opaque' records count and missing only)",
+            name, arr.type)
+    return pa.array([None if v is None else str(v) for v in arr.to_pylist()],
+                    type=pa.string())
+
+
+def _row_hashed(plain: pa.Array, n: int, hll_precision: int):
+    """The row-hash path of one plain-string column: (packed HLL lane,
+    the ``HostBatch.cat_hashed`` payload), or None when the native library
+    cannot hash it.  The row hashes are the dictionary path's value hashes
+    (xxHash64 of the bytes), so both paths give the same plane."""
+    rh = native.hash_string_array(plain)
+    if rh is None:
+        return None
+    if plain.null_count == 0:
+        valid = None                    # all rows valid
+        packed = khll.pack(rh, None, hll_precision)
+        codes, uniq = pd.factorize(rh)
+        base = None
+    else:
+        valid = plain.is_valid().to_numpy(zero_copy_only=False)
+        packed = khll.pack(rh, valid, hll_precision)
+        vi = np.flatnonzero(valid)
+        if vi.size:
+            codes, uniq = pd.factorize(rh[vi])
+            base = vi
+        else:
+            codes = np.zeros(0, dtype=np.int64)
+            uniq = np.zeros(0, dtype=np.uint64)
+            base = None
+    counts = np.bincount(codes, minlength=len(uniq)).astype(np.int64)
+    first_row = np.full(len(uniq), n, dtype=np.int64)
+    np.minimum.at(first_row, codes, np.arange(codes.size))
+    if base is not None:
+        first_row = base[first_row]     # masked positions -> row numbers
+    return packed, (np.asarray(uniq, dtype=np.uint64), counts, first_row,
+                    rh, valid, plain)
 
 
 class _DictionaryCache:
@@ -226,11 +327,18 @@ class _DictionaryCache:
 
 def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                   hll_precision: int = 11, hashes: bool = True,
-                  dict_cache: Optional[_DictionaryCache] = None
-                  ) -> HostBatch:
+                  dict_cache: Optional[_DictionaryCache] = None,
+                  col_stats: Optional[Dict[str, int]] = None,
+                  decode_threads: Optional[int] = None) -> HostBatch:
     """Decode one Arrow record batch into a fixed-shape HostBatch.
-    ``hashes=False`` (pass B) skips hashing and leaves a zero-width
-    packed plane."""
+
+    ``hashes=False`` (pass B) skips hashing and leaves a zero-width packed
+    plane.  ``col_stats`` (owned by the ingest, like ``dict_cache``) holds
+    each column's last per-batch distinct count, which moves plain-string
+    columns onto the row-hash path once they prove high-cardinality.
+    ``decode_threads`` is the number of leaf tasks run at once
+    (``resolve_prep_workers``); the planes are byte-identical at any
+    number."""
     if dict_cache is None:
         dict_cache = _DictionaryCache()
     n = batch.num_rows
@@ -243,23 +351,19 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
     cat_codes: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
     cat_hashes: Dict[str, np.ndarray] = {}
     cat_hash_kind: Dict[str, str] = {}
+    cat_hashed: Dict[str, Tuple] = {}
     date_ints: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    opaque_nulls: Dict[str, int] = {}
     col_nbytes: Dict[str, int] = {}
     col_dict_nbytes: Dict[str, int] = {}
 
-    for i, spec in enumerate(plan.specs):
+    def decode_column(i: int, spec: ColumnSpec) -> None:
         arr = batch.column(i)
-        if isinstance(arr, pa.DictionaryArray):
-            col_nbytes[spec.name] = arr.indices.nbytes
-            col_dict_nbytes[spec.name] = arr.dictionary.nbytes
-        else:
-            col_nbytes[spec.name] = arr.nbytes
         if spec.role == "num":
-            vals = _fill_num(arr, spec.num_lane, x)
-            if hashes:
-                hll_packed[:n, spec.hash_lane] = _packed_obs(
-                    _num_keys(vals), _num_valid(arr, vals), hll_precision)
-        elif spec.role == "date":
+            _fill_num_rows(arr, spec, x, hll_packed, hashes, hll_precision,
+                           0)
+            return
+        if spec.role == "date":
             valid = arr.is_valid().to_numpy(zero_copy_only=False)
             ints = arr.cast(pa.timestamp("ns"), safe=False) \
                       .cast(pa.int64(), safe=False) \
@@ -268,58 +372,154 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                 hll_packed[:n, spec.hash_lane] = _packed_obs(
                     _num_keys(ints), valid, hll_precision)
             date_ints[spec.name] = (ints, valid)
+            return
+        if spec.opaque:
+            # the null count is Arrow metadata; the values never decode
+            opaque_nulls[spec.name] = int(arr.null_count)
+            return
+        if pa.types.is_nested(arr.type):
+            arr = _stringified(spec.name, arr)
+        if hashes and col_stats is not None \
+                and col_stats.get(spec.name, 0) > ROWHASH_MIN_DISTINCT \
+                and not isinstance(arr.type, pa.DictionaryType):
+            # pass B still dictionary-encodes: its recount keys on values
+            got = _row_hashed(arr, n, hll_precision)
+            if got is not None:
+                hll_packed[:n, spec.hash_lane], cat_hashed[spec.name] = got
+                col_stats[spec.name] = len(got[1][0])
+                return
+        if not isinstance(arr.type, pa.DictionaryType):
+            arr = pc.dictionary_encode(arr)
+        if col_stats is not None:
+            col_stats[spec.name] = len(arr.dictionary)
+        valid = arr.is_valid().to_numpy(zero_copy_only=False)
+        codes = arr.indices.fill_null(0).to_numpy(
+            zero_copy_only=False).astype(np.int64)
+        dvals, dh, hkind = dict_cache.views(spec.name, arr.dictionary,
+                                            want_hashes=hashes)
+        if hashes:
+            if dvals.size:
+                packed = native.pack_gather(dh, codes, valid, hll_precision)
+                if packed is None:
+                    packed = khll.pack(dh[codes], valid, hll_precision)
+            else:
+                dh = np.zeros(0, dtype=np.uint64)
+                packed = np.zeros(n, dtype=np.uint16)
+            cat_hashes[spec.name] = dh
+            cat_hash_kind[spec.name] = hkind
+            hll_packed[:n, spec.hash_lane] = packed
+        cat_codes[spec.name] = (np.where(valid, codes, -1), dvals)
+
+    workers = resolve_prep_workers(decode_threads)
+    num_split = 1
+    if workers > 1 and n >= 2 * ROW_CHUNK_ROWS and plan.specs:
+        # about ``workers`` tasks in all, never chunks below ROW_CHUNK_ROWS
+        num_split = min(-(-workers // len(plan.specs)) + 1,
+                        n // ROW_CHUNK_ROWS)
+    tasks = []
+    for i, spec in enumerate(plan.specs):
+        arr = batch.column(i)
+        # byte accounting is O(1) metadata: here, off the pool
+        if isinstance(arr, pa.DictionaryArray):
+            col_nbytes[spec.name] = arr.indices.nbytes
+            col_dict_nbytes[spec.name] = arr.dictionary.nbytes
         else:
-            if not isinstance(arr.type, pa.DictionaryType):
-                arr = pc.dictionary_encode(arr)
-            valid = arr.is_valid().to_numpy(zero_copy_only=False)
-            codes = arr.indices.fill_null(0).to_numpy(
-                zero_copy_only=False).astype(np.int64)
-            dvals, dh, hkind = dict_cache.views(spec.name, arr.dictionary,
-                                                want_hashes=hashes)
-            if hashes:
-                if dvals.size:
-                    packed = native.pack_gather(dh, codes, valid,
-                                                hll_precision)
-                    if packed is None:
-                        packed = khll.pack(dh[codes], valid, hll_precision)
-                else:
-                    dh = np.zeros(0, dtype=np.uint64)
-                    packed = np.zeros(n, dtype=np.uint16)
-                cat_hashes[spec.name] = dh
-                cat_hash_kind[spec.name] = hkind
-                hll_packed[:n, spec.hash_lane] = packed
-            cat_codes[spec.name] = (np.where(valid, codes, -1), dvals)
+            col_nbytes[spec.name] = arr.nbytes
+        if spec.role == "num" and num_split > 1:
+            step = -(-n // num_split)
+            for lo in range(0, n, step):
+                tasks.append(
+                    lambda lo=lo, arr=arr, spec=spec: _fill_num_rows(
+                        arr.slice(lo, step), spec, x, hll_packed, hashes,
+                        hll_precision, lo))
+        else:
+            tasks.append(lambda i=i, spec=spec: decode_column(i, spec))
+    prep.run_tasks(tasks, workers)
 
     return HostBatch(nrows=n, x=x, row_valid=row_valid, hll=hll_packed,
                      cat_codes=cat_codes, date_ints=date_ints,
                      cat_hashes=cat_hashes if hashes else None,
                      cat_hash_kind=cat_hash_kind if hashes else None,
+                     cat_hashed=cat_hashed if hashes else None,
+                     opaque_nulls=opaque_nulls or None,
                      hll_precision=hll_precision, col_nbytes=col_nbytes,
                      col_dict_nbytes=col_dict_nbytes)
 
 
 def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
                       depth: int = 2, hashes: bool = True,
-                      workers: int = 1) -> Iterator[HostBatch]:
-    """Prepared batches in stream order, ``workers`` prepares in flight
-    (Arrow decode and the native hashing release the GIL), at most
-    ``max(depth, workers)`` buffered ahead of the consumer."""
-    ahead = max(depth, workers)
-    with ThreadPoolExecutor(max_workers=workers,
-                            thread_name_prefix="tpuprof-torch-prep") as pool:
-        pending: collections.deque = collections.deque()
+                      workers: int = 1, prep_workers: Optional[int] = None,
+                      batch_guard=None, skip_keys=frozenset()
+                      ) -> Iterator:
+    """Prepared batches in stream order, ``workers`` prepares in flight.
+
+    A reader thread enumerates the raw batches and queues prepare futures
+    in stream order on a bounded queue, so delivery order is the stream's
+    whatever finishes first; errors of the reader and of any prepare
+    re-raise in the consumer, in order.  A consumer that stops early (an
+    error mid-scan, the generator closed) stops the reader.  Each prepare
+    runs under ``batch_guard`` (``runtime/guard.BatchGuard``) keyed on the
+    batch's stream position, so a seeded fault plan fires on the same
+    batches at any worker count; with quarantine on, a batch that keeps
+    failing arrives as a ``PoisonBatch``.  Batches whose position is in
+    ``skip_keys`` (those pass A quarantined) are not read into a prepare
+    and do not arrive."""
+    depth = max(depth, workers)
+    col_threads = resolve_prep_workers(prep_workers, batch_workers=workers)
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    failure: List[BaseException] = []
+    cancelled = threading.Event()
+
+    def _put(item) -> bool:
+        # a bounded put that notices the consumer has gone: the reader
+        # must not block on a full queue forever
+        while not cancelled.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    pool = ThreadPoolExecutor(max_workers=workers,
+                              thread_name_prefix="tpuprof-torch-prep")
+
+    def _prep(rb, key):
+        def _do():
+            return prepare_batch(rb, ingest.plan, pad, hll_precision,
+                                 hashes, ingest.dict_cache,
+                                 ingest.col_stats, col_threads)
+        if batch_guard is None:
+            return _do()
+        return batch_guard.run(_do, site="prep", key=key,
+                               rows=rb.num_rows)
+
+    def reader():
         try:
-            for rb in ingest.raw_batches():
-                pending.append(pool.submit(
-                    prepare_batch, rb, ingest.plan, pad, hll_precision,
-                    hashes, ingest.dict_cache))
-                if len(pending) >= ahead:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
+            for k, rb in enumerate(ingest.raw_batches()):
+                if k in skip_keys:
+                    continue
+                if not _put(pool.submit(_prep, rb, k)):
+                    return
+        except BaseException as exc:          # re-raised consumer-side
+            failure.append(exc)
         finally:
-            for fut in pending:
-                fut.cancel()
+            _put(sentinel)
+
+    threading.Thread(target=reader, daemon=True,
+                     name="tpuprof-torch-prep-reader").start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item.result()     # in order; re-raises prepare errors
+        if failure:
+            raise failure[0]
+    finally:
+        cancelled.set()
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def validate_projection(columns: Sequence[str],
@@ -367,11 +567,15 @@ def _open_path_dataset(path: str) -> pads.Dataset:
 class ArrowIngest:
     """A source as a repeatable stream of record batches of at most
     ``batch_rows`` rows: in-memory tables in fixed windows, datasets
-    through their scanner with the projection pushed into it."""
+    through their scanner with the projection pushed into it.
+    ``max_retries`` bounds the re-reads of one fragment after an
+    ``OSError``."""
 
     def __init__(self, source: Any, batch_rows: int,
-                 columns: Optional[Sequence[str]] = None):
+                 columns: Optional[Sequence[str]] = None,
+                 nested: str = "stringify", max_retries: int = 2):
         self.batch_rows = int(batch_rows)
+        self.max_retries = int(max_retries)
         if isinstance(source, pd.DataFrame):
             if columns is not None:
                 validate_projection(columns, source.columns)
@@ -391,8 +595,8 @@ class ArrowIngest:
                 "DataFrame, a pyarrow Table or Dataset, or a Parquet path")
         self._table: Optional[pa.Table] = table
         self._dataset: Optional[pads.Dataset] = None
-        # a dataset reads only the projected columns: an excluded nested
-        # column costs no I/O and no plan entry
+        # a dataset reads only the projected columns: an excluded column
+        # costs no I/O and no plan entry
         self._columns: Optional[List[str]] = None
         if table is not None:
             if columns is not None:
@@ -408,24 +612,62 @@ class ArrowIngest:
                                                     arrow_schema.names)
                 arrow_schema = pa.schema([arrow_schema.field(c)
                                           for c in self._columns])
-        self.plan = ColumnPlan.from_schema(arrow_schema)
+        self.plan = ColumnPlan.from_schema(arrow_schema, nested=nested)
         self.rescannable = True
         self.dict_cache = _DictionaryCache()
+        # each column's last per-batch distinct count (the row-hash path)
+        self.col_stats: Dict[str, int] = {}
 
     def raw_batches(self) -> Iterator[pa.RecordBatch]:
         """Batches of at most ``batch_rows`` rows.  A table streams in
         fixed windows, chunks combined per window (a window never splits at
         a column-chunk boundary); a dataset in its scanner's batches, which
-        also end at row-group and file edges."""
-        if self._dataset is not None:
-            yield from self._dataset.to_batches(batch_size=self.batch_rows,
-                                                columns=self._columns)
+        also end at row-group and file edges.  After the scanner's first
+        ``OSError`` the rest comes from per-fragment reads with retry,
+        skipping the batches already delivered (batch edges within a
+        fragment are the same either way)."""
+        if self._dataset is None:
+            tbl, pos = self._table, 0
+            while pos < tbl.num_rows:
+                window = tbl.slice(pos, self.batch_rows).combine_chunks()
+                yield from window.to_batches()
+                pos += self.batch_rows
             return
-        tbl, pos = self._table, 0
-        while pos < tbl.num_rows:
-            window = tbl.slice(pos, self.batch_rows).combine_chunks()
-            yield from window.to_batches()
-            pos += self.batch_rows
+        delivered = 0
+        try:
+            for rb in self._dataset.to_batches(batch_size=self.batch_rows,
+                                               columns=self._columns):
+                yield rb
+                delivered += 1
+            return
+        except OSError:
+            pass                # the per-fragment path takes over
+        for seen, (_fi, _bi, rb) in enumerate(
+                self.raw_batches_positioned(), start=1):
+            if seen > delivered:
+                yield rb
+
+    def raw_batches_positioned(self) -> Iterator[Tuple[int, int,
+                                                        pa.RecordBatch]]:
+        """A dataset's batches fragment by fragment as (fragment, batch,
+        record batch).  A fragment whose read raises ``OSError`` is read
+        again, up to ``max_retries`` times, skipping the batches it already
+        gave; then the error stands."""
+        for fi, fragment in enumerate(self._dataset.get_fragments()):
+            delivered = 0
+            for attempt in range(self.max_retries + 1):
+                try:
+                    for bi, rb in enumerate(fragment.to_batches(
+                            batch_size=self.batch_rows,
+                            columns=self._columns)):
+                        if bi < delivered:
+                            continue        # given before the failure
+                        yield fi, bi, rb
+                        delivered = bi + 1
+                    break
+                except OSError:
+                    if attempt == self.max_retries:
+                        raise
 
     def sample(self, n_rows: int) -> pd.DataFrame:
         if self._dataset is not None:

@@ -61,6 +61,16 @@ class MisraGries:
             hashes, counts,
             lambda src: np.asarray(values, dtype=object)[src])
 
+    def update_hashed(self, hashes: np.ndarray, counts: np.ndarray,
+                      resolver) -> None:
+        """Fold pre-aggregated unique (hashes, counts) whose values
+        materialize late: ``resolver(src)`` returns the values at positions
+        ``src`` of ``hashes`` and is called only for new entries that
+        survive the compaction (ingest's row-hash path never builds a
+        dictionary of the batch)."""
+        self._update_core(np.asarray(hashes, dtype=np.uint64),
+                          np.asarray(counts, dtype=np.int64), resolver)
+
     def _update_core(self, hashes: np.ndarray, counts: np.ndarray,
                      resolver) -> None:
         if len(self._index):

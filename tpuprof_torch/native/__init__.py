@@ -171,3 +171,9 @@ def hash_string_dictionary(arr) -> Optional[np.ndarray]:
     lib.tpuprof_hash_bytes(data.ctypes.data, offsets.ctypes.data,
                            out.ctypes.data, len(arr))
     return out
+
+
+# the buffer walk is value-level, not dictionary-specific: it hashes any
+# Arrow string array row by row (null slots hash the empty range; callers
+# mask them).  The plain-string row-hash path of ingest uses this name.
+hash_string_array = hash_string_dictionary

@@ -4,7 +4,8 @@
 Copy of ``tpuprof/report/export.py``: every value in ``table`` and
 ``variables`` in its raw form (floats stay floats, non-finite become null,
 timestamps ISO strings), the human formatting in a parallel ``display``
-section, plus ``freq``, ``correlations``, ``messages`` and ``sample``.
+section, plus ``freq``, ``correlations``, ``messages`` and ``sample``, and
+on a degraded run the manifest of the skipped batches (``quarantine``).
 Private keys of the stats dict (``_bin_seeds``) are never exported.
 """
 
@@ -87,6 +88,12 @@ def stats_to_json(stats: Dict[str, Any]) -> Dict[str, Any]:
             {**m.to_dict(), "value": json_scalar(m.value)}
             for m in stats.get("messages", ())],
     }
+    if stats.get("_quarantine"):
+        # degraded runs only: the skipped-batch manifest rides the export
+        out["quarantine"] = [
+            {k: json_scalar(v) if not isinstance(v, (list, type(None)))
+             else v for k, v in e.items()}
+            for e in stats["_quarantine"]]
     sample = stats.get("sample")
     if sample is None:
         out["sample"] = {"columns": [], "rows": []}

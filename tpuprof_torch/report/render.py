@@ -4,12 +4,11 @@ Copy of ``tpuprof/report/render.py`` over a copy of its templates
 (``tpuprof_torch/report/templates``): for the same stats dict and config
 the port renders the same bytes as the reference, version string aside.
 The footer's scan line reads ``stats["_phases"]``
-(``tpuprof_torch/obs/spans.py``).  The reference's two other footer and
-banner inputs come from parts of it the port does not have yet: the
-pipeline-stats line (``stats["_obs"]``, telemetry) and the quarantine
-banner (``stats["_quarantine"]``, ingest fault tolerance).  The port
-writes neither key, so both render nothing, as the reference's do on a
-run with metrics off and no quarantined batch.
+(``tpuprof_torch/obs/spans.py``) and the degraded-run banner
+``stats["_quarantine"]``, which only a run that skipped batches carries
+(``runtime/guard.py``).  The reference's pipeline-stats line
+(``stats["_obs"]``) waits for the telemetry slice: the port writes no such
+key, so it renders nothing, as the reference's does with metrics off.
 """
 
 from __future__ import annotations
@@ -88,6 +87,23 @@ def _perf_line(stats: Dict[str, Any]) -> str:
     return f"{n / scan:,.0f} rows/s · " + " · ".join(parts)
 
 
+def _quarantine_rows(stats: Dict[str, Any]):
+    """The degraded-run manifest for the banner: one row a skipped batch,
+    formatted here so the template stays plain.  A clean run has no
+    ``_quarantine`` key and renders no banner."""
+    rows = []
+    for e in stats.get("_quarantine") or []:
+        pos = e.get("frag_pos")
+        rows.append({
+            "site": e.get("site", "?"),
+            "cursor": "—" if e.get("cursor") is None else e["cursor"],
+            "rows": "?" if e.get("rows") is None else f"{e['rows']:,}",
+            "pos": f"frag {pos[0]} batch {pos[1]}" if pos else "—",
+            "error": str(e.get("error", ""))[:300],
+        })
+    return rows
+
+
 def to_html(stats: Dict[str, Any], config) -> str:
     """The report fragment (reference: ``ProfileReport.html``)."""
     from tpuprof_torch import __version__
@@ -103,7 +119,7 @@ def to_html(stats: Dict[str, Any], config) -> str:
         version=__version__,
         perf=_perf_line(stats),
         pipeline_stats="",
-        quarantine=[],
+        quarantine=_quarantine_rows(stats),
     )
 
 
