@@ -4,10 +4,15 @@
 Run from the repository root:
 
     python3 chip_smoke.py                  # the full check on the card
+    python3 chip_smoke.py --only limits,durable   # build + phases 7 and 8
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
+
+``--only`` takes any of kernels, main, cli, ingest, limits, durable
+(phases 3 to 8) and k2big (phase 3's check of K2's device-memory body
+alone); ``--kernels-only`` and ``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
 
@@ -22,7 +27,11 @@ Phases, each fatal on failure:
    forms itself), on a batch whose every value lands in one bin and on a
    re-bin of three of 200 columns, counts exact, its MAD numerator bit for
    bit its order model (``mad_order``) and within rtol 5e-4 of the plain
-   version, the re-bin's the full width's bits; K3
+   version, the re-bin's the full width's bits; K2's device-memory body
+   (past 8,192 bins) at 200 x 65,536 with 16,384 and 65,536 bins on the
+   adversarial and a clean batch, counts equal to ``histogram_plain``, the
+   MAD bits the 10-bin shared body's, timed as the shared body is (events,
+   a CUDA graph, the bincount route, its bytes bound); K3
    at 513, 1024 and 2048 columns with and without ``skip_stats``, K5 at
    37, 200 and 512 columns for grids of 16, 100 and 256 points, K6 beside
    each, and K5 bit for bit K6 then K3 with ``skip_stats`` over its ranks
@@ -85,14 +94,15 @@ Phases, each fatal on failure:
    nor ``tpuprof`` among its imports), the first held against
    ``describe(path, device="cpu")``; then ``python -m tpuprof_torch diff``
    of the two artifacts: the two changed columns at drift, the rest ok,
-   and exit 1 with ``--fail-on-drift``.  Each run prints its wall time,
-   rows/s and phase seconds, and the in-process runs their ``render``
-   seconds;
+   and exit 1 with ``--fail-on-drift`` (in process).  Each
+   run prints its wall time, rows/s and phase seconds, and the in-process
+   runs their ``render`` seconds;
 6. the rest of host ingest on one frame made from ``--seed``: the
    headline's 200 float32 columns plus ``tags`` list<string>, ``meta``
    struct<a: int64, b: string>, ``uid`` (about one distinct value a
-   row) and ``city``, 1,048,576 rows in 16 batches.  ``describe`` of it
-   in memory at ``prep_workers`` 1, default and 8 (K1 16, K2 16; the
+   row) and ``city``, 524,288 rows in 8 batches (a depth cut to keep the
+   script inside its time limit).  ``describe`` of it
+   in memory at ``prep_workers`` 1, default and 8 (K1 8, K2 8; the
    three ``stats_to_json`` equal; which of the dictionary and row-hash
    paths each string column took, batch by batch); the command line on
    it as a Parquet directory with ``--nested stringify`` (two-pass, equal
@@ -106,7 +116,29 @@ Phases, each fatal on failure:
    budget raising, and a 3 s ``device_wait`` under a 1 s
    ``drain_timeout_s`` raising ``WatchdogTimeout``; every run prints its
    wall and phase seconds;
-7. one JSON line of per-kernel numbers, the card's name and power limit,
+7. past the kernels' limits: 2,112 float32 columns x 32,768 rows two-pass
+   and with ``spearman=True`` (the XLA twin, K2, the exact rank tier; K1,
+   K3, K5 and K6 launch 0 times) against ``describe(..., device="cpu")``;
+   4,096 x 131,072 (two device batches) two-pass with ``spearman=True`` and
+   fused warm (equal to two-pass), with wall, phase seconds and peak
+   device memory, and the card times of the routes that are not kernels
+   (the twin, its ``torch.matmul`` Gram, the exact tier's
+   ``searchsorted``) on one batch; the headline 200 x 2,097,152 at
+   ``bins=16384`` two-pass and fused warm (K1 then K2, equal), each
+   histogram's bin pairs summing to the 8,192-bin describe's exactly;
+8. durable profiles: a ``StreamingProfiler`` over the headline table in
+   16,384-row micro-batches, two-pass (K1) and fused (K4), checkpointed at
+   1,048,576 rows and written as a fold-state artifact at 1,572,864; a
+   child process (``--resume-child``) restores the checkpoint and
+   ``resume_profiler``-s the artifact, feeds the rest, and both equal the
+   uninterrupted stream's ``stats_to_json``; the stream's counts, min/max
+   and moments equal ``describe``'s; then ``python -m tpuprof_torch
+   profile --checkpoint P --checkpoint-every 4`` on phase 5's Parquet
+   directory: one child killed by ``TPUPROF_FAULTS=fold:1@9``, one that
+   resumes, its artifact's stats equal to phase 5's uninterrupted profile's.
+   It prints the stream's rows/s, each save's seconds and bytes and the
+   resume seconds;
+9. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -170,12 +202,17 @@ def adversarial_batch(C: int, R: int, seed: int):
     """(xt (C, R) f32, row_valid (R,) bool): NaN, +-inf, zeros, denormals,
     a constant and an all-NaN column, invalid tail rows."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(50.0, 10.0, (C, R)).astype(np.float32)
-    x[rng.random((C, R)) < 0.07] = np.nan
-    x[rng.random((C, R)) < 0.01] = np.inf
-    x[rng.random((C, R)) < 0.01] = -np.inf
-    x[rng.random((C, R)) < 0.03] = 0.0
-    x[rng.random((C, R)) < 0.01] = np.float32(1e-40)     # denormal
+    x = rng.standard_normal((C, R), dtype=np.float32)
+    x *= np.float32(10.0)
+    x += np.float32(50.0)
+    # one uniform draw places every special value (float32 draws: the
+    # generation of the larger batches is a visible share of the script)
+    u = rng.random((C, R), dtype=np.float32)
+    x[u < 0.07] = np.nan
+    x[(u >= 0.07) & (u < 0.08)] = np.inf
+    x[(u >= 0.08) & (u < 0.09)] = -np.inf
+    x[(u >= 0.09) & (u < 0.12)] = 0.0
+    x[(u >= 0.12) & (u < 0.13)] = np.float32(1e-40)     # denormal
     if C > 2:
         x[1] = 7.0
         x[2] = np.nan
@@ -629,6 +666,69 @@ def k2_times(torch, device, k2, C=200, R=65536, CW=2048, nbins=10,
     return out
 
 
+def check_k2_global(torch, device, k2, rehearsal: bool):
+    """K2's device-memory body (past 8,192 bins) at 200 x 65,536 with
+    16,384 and 65,536 bins (tiny sizes on the CPU rehearsal): counts
+    equal to ``histogram_plain`` exactly, on the adversarial batch and on a
+    clean one; the MAD numerator bit for bit the 10-bin shared body's on
+    the same batch.  Then its times on the clean batch: the wrapper as the
+    host issues it, device time alone from a CUDA graph, the bincount
+    route (its counts checked equal first) and the bytes bound (each
+    input read once, the (C, nbins) counts and the MAD written once).
+    Returns the fields K2's kernel-line row gains."""
+    from tpuprof_torch.kernels import hist
+    if rehearsal:
+        C, R, bins_list = 5, 700, (hist.SHARED_MAX_BINS + 1, 9000)
+    else:
+        C, R, bins_list = 200, 65536, (16384, 65536)
+    x, rv = adversarial_batch(C, R, 70)
+    x, lo, hi, mean = hist_bounds(x, rv, 10, np.random.default_rng(71))
+    xc, rvc, loc, hic, meanc = clean_batch(torch, device, C, R, seed=72)
+    out = {"global_body_bins": list(bins_list)}
+    for batch_name, t in (
+            ("adversarial", [torch.from_numpy(a).to(device)
+                             for a in (x, rv, lo, hi, mean)]),
+            ("clean", [xc, rvc, loc, hic, meanc])):
+        _, dev10 = k2(*t, 10)
+        for nbins in bins_list:
+            cnt, dev = k2(*t, nbins)
+            want, want_dev = hist.histogram_plain(*t, nbins)
+            require(torch.equal(cnt, want), f"K2 device-memory body "
+                    f"{C}x{R} bins={nbins} {batch_name}: counts differ")
+            if not rehearsal:
+                require(torch.equal(dev.view(torch.int32),
+                                    dev10.view(torch.int32)),
+                        f"K2 device-memory body bins={nbins} "
+                        f"{batch_name}: MAD not the shared body's bits")
+            out["max_abs_err_global"] = max(
+                out.get("max_abs_err_global", 0.0),
+                max_abs_diff(torch, dev, want_dev))
+            print(f"K2 device-memory body {C}x{R} bins={nbins} "
+                  f"{batch_name}: counts equal to histogram_plain"
+                  + ("" if rehearsal else ", MAD bits the 10-bin shared "
+                     "body's"), flush=True)
+    for nbins in bins_list:
+        args = (xc, rvc, loc, hic, meanc, nbins)
+        out[f"ms_{nbins}_bins"] = time_ms(lambda: k2(*args), torch, device)
+        out[f"device_ms_{nbins}_bins"] = graph_ms(
+            lambda: k2(*args), torch) if not rehearsal else \
+            out[f"ms_{nbins}_bins"]
+        lib = hist_library(torch, *args)
+        require(torch.equal(lib[0], k2(*args)[0]), f"the bincount route's "
+                f"counts differ from K2's at {nbins} bins")
+        out[f"library_ms_{nbins}_bins"] = time_ms(
+            lambda: hist_library(torch, *args), torch, device)
+        out[f"plain_ms_{nbins}_bins"] = time_ms(
+            lambda: hist.histogram_plain(*args), torch, device, warmup=1,
+            reps=1)
+        out[f"bound_ms_{nbins}_bins"] = bound(
+            C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
+            8 * C * R)[0]
+    print("K2 device-memory body times: " + json.dumps(
+        {k: v for k, v in out.items() if "ms" in k}), flush=True)
+    return out
+
+
 SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "ATOMG", "RED", "BAR")
 
 
@@ -759,6 +859,7 @@ def phase_kernels(torch, device, rehearsal: bool):
                     8 * C * R)
     b2w, _ = bound(CW * R * 4 + R + 3 * CW * 4 + CW * nbins * 4 + CW * 4,
                    8 * CW * R)
+    k2g = check_k2_global(torch, device, k2, rehearsal)
     rows = [
         {"name": "fused_a", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/fused_a.cu",
@@ -773,7 +874,7 @@ def phase_kernels(torch, device, rehearsal: bool):
          "max_scaled_err": scaled2, "ms": k2t.pop("ms"), "plain_ms": p2,
          "bound_ms": b2, "bound_by": by2,
          "library_ms": k2t.pop("library_ms"), **k2t,
-         f"bound_ms_{CW}_cols": b2w},
+         f"bound_ms_{CW}_cols": b2w, **k2g},
     ]
     for r in rows:
         print_row(r)
@@ -1330,13 +1431,13 @@ def wide_frame(rows: int, cols: int, seed: int, block=None,
     one common normal."""
     import pandas as pd
     rng = np.random.default_rng(seed)
-    base = rng.normal(0.0, 1.0, (rows, 1)).astype(np.float32)
-    data = rng.normal(0.0, 1.0, (rows, cols)).astype(np.float32)
+    base = rng.standard_normal((rows, 1), dtype=np.float32)
+    data = rng.standard_normal((rows, cols), dtype=np.float32)
     data *= np.linspace(1.0, 20.0, cols, dtype=np.float32)[None, :]
     data += np.linspace(-100.0, 100.0, cols, dtype=np.float32)[None, :]
     block = cols // 4 if block is None else block
     data[:, :block] += np.float32(strength) * base     # a correlated block
-    data[rng.random((rows, cols)) < 0.02] = np.nan
+    data[rng.random((rows, cols), dtype=np.float32) < 0.02] = np.nan
     return pd.DataFrame(data, columns=[f"c{i:04d}" for i in range(cols)])
 
 
@@ -1538,7 +1639,7 @@ def phase_main_path(torch, rehearsal: bool, card: str):
 
     n_batches = -(-n_wide // batch)
     a_b = (("fused_a", 1), ("hist_b", 1))
-    wide = wide_frame(n_wide, cols, seed=1)
+    wide = headline_frame(n_wide, cols)     # phases 7 and 8 reuse it
     two_ab, main_ab, t_two = run(wide, f"describe {cols} cols", need=a_b,
                                  exactly=(("fused_ab", 0),),
                                  scan_batches=8, **dev_kw)
@@ -1889,17 +1990,20 @@ def phase_cli(torch, rehearsal: bool, card: str) -> None:
 
     changed = {"fare_amount", "passenger_count"}
     dj = f"{tmp}/drift.json"
-    for extra, want in (([], 0), (["--fail-on-drift"], 1)):
-        rc, err, mods, secs = child(["diff", f"{tmp}/a1.json",
-                                     f"{tmp}/a2.json", "-o",
-                                     f"{tmp}/drift.html", "--json", dj,
-                                     *extra])
-        require(rc == want, f"diff {extra}: exit {rc}, expected {want}: "
-                f"{err[-5:]}")
-        require(not mods & {"jax", "jaxlib", "tpuprof"},
-                "diff: the child loaded jax or tpuprof")
-        print(f"python -m tpuprof_torch diff {' '.join(extra)}: exit {rc} "
-              f"in {secs:.3f} s; {err[-1]}", flush=True)
+    argv = ["diff", f"{tmp}/a1.json", f"{tmp}/a2.json", "-o",
+            f"{tmp}/drift.html", "--json", dj]
+    rc, err, mods, secs = child(argv)
+    require(rc == 0, f"diff: exit {rc}, expected 0: {err[-5:]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "diff: the child loaded jax or tpuprof")
+    print(f"python -m tpuprof_torch diff: exit 0 in {secs:.3f} s; "
+          f"{err[-1]}", flush=True)
+    # --fail-on-drift in process: a second child would only pay the
+    # process start again
+    from tpuprof_torch import cli
+    rc = cli.main([*argv, "--fail-on-drift"])
+    require(rc == 1, f"diff --fail-on-drift: exit {rc}, expected 1")
+    print("tpuprof_torch diff --fail-on-drift: exit 1", flush=True)
     with open(dj) as fh:
         status = {c: e["status"] for c, e in json.load(fh)["columns"].items()}
     drifting = {c for c, st in status.items() if st == "drift"}
@@ -1908,6 +2012,7 @@ def phase_cli(torch, rehearsal: bool, card: str) -> None:
         f"diff: statuses {status}")
     print(f"diff: {sorted(drifting)} at drift, the other "
           f"{len(status) - len(drifting)} columns ok", flush=True)
+    return head_dir, f"{tmp}/headline.artifact.json", batch
 
 
 # ---------------------------------------------------------------------------
@@ -1975,7 +2080,9 @@ def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
         rows, batch, cols = 4 * 20_000, 20_000, 8
         dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
     else:
-        rows, batch, cols = 1_048_576, 65_536, 200
+        # 8 batches: a depth cut to keep the script inside its time limit
+        # with phases 7 and 8
+        rows, batch, cols = 524_288, 65_536, 200
         dev, dev_kw = [], {}
         require(native.available(), "the native hash library did not "
                 "build: the row-hash path needs it")
@@ -2156,20 +2263,485 @@ def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
         f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: past the kernels' limits, durable profiles
+# ---------------------------------------------------------------------------
+
+_HEADLINE = {}
+
+
+def headline_frame(rows: int, cols: int):
+    """The headline table (``wide_frame``, seed 1), made once a process."""
+    key = (rows, cols)
+    if key not in _HEADLINE:
+        _HEADLINE.clear()
+        _HEADLINE[key] = wide_frame(rows, cols, seed=1)
+    return _HEADLINE[key]
+
+
+def counted(torch, rehearsal: bool, card: str, df, label: str,
+            exactly=(), **kw):
+    """``describe(df, **kw)`` with every launch count set to 0 just before
+    and read just after; ``exactly`` = ((kernel, launches), ...) the run
+    must show on the card.  Prints its wall time, rows/s, launches and
+    phase seconds; returns (stats, seconds)."""
+    import tpuprof_torch
+    zero_counts()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = tpuprof_torch.describe(df, **kw)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    if not rehearsal and kw.get("device") != "cpu":
+        for name, n in exactly:
+            require(counts[name] == n, f"{label}: {name} launched "
+                    f"{counts[name]} times, expected {n}")
+    shown = ", ".join(f"{k} {v}" for k, v in counts.items())
+    n = stats["table"]["n"]
+    print(f"{label}: {n} rows x {stats['table']['nvar']} cols in "
+          f"{secs:.3f} s = {n / secs:.0f} rows/s on {card}; launches: "
+          f"{shown}; {phases_text(stats)}", flush=True)
+    return stats, secs
+
+
+def _without_matrices(stats):
+    """``stats`` with empty correlation matrices: what an export of a
+    wide table spends most of its bytes and seconds on."""
+    import pandas as pd
+    return dict(stats, correlations={"pearson": pd.DataFrame()})
+
+
+def _no_kernels_but_k2(n_batches: int):
+    """Past 2,048 columns only K2 launches: the twin and the exact tier
+    are PyTorch calls."""
+    return (("fused_a", 0), ("fused_wide", 0), ("spear", 0), ("rank", 0),
+            ("fused_ab", 0), ("hist_b", n_batches))
+
+
+def phase_limits(torch, rehearsal: bool, card: str) -> None:
+    """2,112 columns against the CPU; 4,096 x 131,072 two-pass with
+    Spearman and fused warm, with peak device memory and the times of the
+    routes that are not kernels; the headline at 16,384 bins, two-pass and
+    fused warm, each histogram held against the 8,192-bin one."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import tpuprof_torch
+    from tpuprof_torch.artifact import write_artifact
+    from tpuprof_torch.kernels import corr, fused, moments
+    from tpuprof_torch.runtime import singlepass
+
+    if rehearsal:
+        c1, n1, c2, n2, batch2 = 2056, 1024, 2060, 2048, 1024
+        cols_h, n_head, batch, big = 20, 4096, 512, 2 * 1024
+        dev_kw = {"device": "cpu"}
+    else:
+        c1, n1, c2, n2, batch2 = 2112, 32_768, 4096, 131_072, 65_536
+        cols_h, n_head, batch, big = 200, 2_097_152, 65_536, 16_384
+        dev_kw = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-limits-")
+    atexit.register(shutil.rmtree, tmp, True)
+
+    # 7.1 past 2,048 columns, held against the port's CPU run
+    w1 = wide_frame(n1, c1, seed=11, block=16, strength=30.0)
+    for extra in ({}, {"spearman": True}):
+        tag = "spearman" if extra else "two-pass"
+        on_card, _ = counted(torch, rehearsal, card, w1,
+                             f"describe {c1} cols {tag}",
+                             _no_kernels_but_k2(1), batch_rows=n1,
+                             **extra, **dev_kw)
+        on_cpu, _ = counted(torch, True, card, w1,
+                            f"describe {c1} cols {tag} (cpu)",
+                            batch_rows=n1, device="cpu", **extra)
+        compare_stats(on_card, on_cpu, f"{c1} cols {tag}")
+        print(f"{c1} cols {tag}: the card's result matches the CPU's",
+              flush=True)
+    del w1, on_card, on_cpu
+
+    # 7.2 4,096 columns in two device batches
+    w2 = wide_frame(n2, c2, seed=12, block=16, strength=30.0)
+    nb2 = -(-n2 // batch2)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    two, secs = counted(torch, rehearsal, card, w2,
+                        f"describe {c2} cols spearman",
+                        _no_kernels_but_k2(nb2), batch_rows=batch2,
+                        spearman=True, **dev_kw)
+    peak = torch.cuda.max_memory_allocated() if not rehearsal else None
+    # the seed artifact without the correlation matrix: at 4,096 columns
+    # its 16.8M entries would be most of the JSON, and the seed reads only
+    # the sketches' bin_seeds
+    art = f"{tmp}/w2.json"
+    write_artifact(art, stats=_without_matrices(two),
+                   config=tpuprof_torch.ProfilerConfig(batch_rows=batch2))
+    h0, m0, r0 = (singlepass.edge_hits, singlepass.edge_misses,
+                  singlepass.rebins)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    warm, secs_w = counted(torch, rehearsal, card, w2,
+                           f"describe {c2} cols fused warm",
+                           _no_kernels_but_k2(nb2), batch_rows=batch2,
+                           profile_passes="fused", seed_edges=art, **dev_kw)
+    peak_w = torch.cuda.max_memory_allocated() if not rehearsal else None
+    require(singlepass.edge_hits - h0 == c2
+            and singlepass.edge_misses == m0 and singlepass.rebins == r0,
+            f"{c2} cols fused warm: not every lane hit")
+    pearson_only = dict(two, correlations={
+        "pearson": two["correlations"]["pearson"]})
+    compare_stats(warm, pearson_only, f"{c2} cols fused warm")
+    require(exported(_without_matrices(warm))
+            == exported(_without_matrices(two)) and np.array_equal(
+                warm["correlations"]["pearson"].to_numpy(),
+                two["correlations"]["pearson"].to_numpy(), equal_nan=True),
+            f"{c2} cols fused warm: differs from two-pass")
+    print(f"{c2} x {n2} on {card}: two-pass with spearman {secs:.3f} s, "
+          f"peak device memory {peak} B; fused warm {secs_w:.3f} s (all "
+          f"{c2} lanes hit, equal to two-pass), peak {peak_w} B",
+          flush=True)
+
+    # the routes past the kernels' columns, one batch at the main path's
+    # shape: the XLA twin, its Gram alone, the exact rank tier
+    x = torch.from_numpy(np.ascontiguousarray(
+        w2.iloc[:batch2].to_numpy(np.float32).T)).to(
+        "cpu" if rehearsal else "cuda:0")
+    del w2, two, warm, pearson_only
+    dev = x.device
+    rv = torch.ones(x.shape[1], dtype=torch.bool, device=dev)
+    mom, co = moments.init(c2, dev), corr.init(c2, dev)
+    sampler_vals = x[:, : min(4096, x.shape[1])]
+    srt = torch.sort(torch.where(torch.isfinite(sampler_vals),
+                                 sampler_vals, float("inf")), dim=1)[0]
+    kept = torch.isfinite(sampler_vals).sum(1, dtype=torch.int32)
+    spear = corr.init(c2, dev)
+    routes = {
+        "shape": f"{c2}x{x.shape[1]}",
+        "update_xla_ms": time_ms(
+            lambda: fused.update_xla(mom, co, x, rv), torch, dev,
+            warmup=1, reps=3),
+        "gram_matmul_ms": time_ms(
+            lambda: corr.update(co, x.T, rv), torch, dev, warmup=1,
+            reps=3),
+        "exact_ranks_ms": time_ms(
+            lambda: fused.exact_ranks(x, rv, srt, kept), torch, dev,
+            warmup=1, reps=3),
+        "spearman_exact_ms": time_ms(
+            lambda: fused.spearman_update_exact(spear, x, rv, srt, kept),
+            torch, dev, warmup=1, reps=3),
+    }
+    routes["gram_f32_bound_ms"] = bound(
+        x.numel() * 4 + x.shape[1] + 4 * c2 * c2 * 4,
+        4 * 2 * c2 * c2 * x.shape[1])[0]
+    print(f"routes past the kernels' columns on {card}: "
+          f"{json.dumps(routes)}", flush=True)
+    del x, mom, co, spear, srt
+
+    # 7.3 the headline at 16,384 bins (K2's device-memory body)
+    head = headline_frame(n_head, cols_h)
+    nbh = -(-n_head // batch)
+    paired = (("fused_a", nbh), ("hist_b", nbh), ("fused_ab", 0),
+              ("fused_wide", 0))
+    t16, _ = counted(torch, rehearsal, card, head,
+                     f"describe {cols_h} cols bins={big}", paired,
+                     batch_rows=batch, bins=big, **dev_kw)
+    art16 = f"{tmp}/h16.json"
+    write_artifact(art16, stats=t16, config=tpuprof_torch.ProfilerConfig(
+        batch_rows=batch, bins=big))
+    h0, m0 = singlepass.edge_hits, singlepass.edge_misses
+    w16, _ = counted(torch, rehearsal, card, head,
+                     f"describe {cols_h} cols bins={big} fused warm",
+                     paired, batch_rows=batch, bins=big,
+                     profile_passes="fused", seed_edges=art16, **dev_kw)
+    require(singlepass.edge_hits - h0 == cols_h
+            and singlepass.edge_misses == m0,
+            f"bins={big} fused warm: not every lane hit")
+    require(exported(w16) == exported(t16),
+            f"bins={big} fused warm: differs from two-pass")
+    t8, _ = counted(torch, rehearsal, card, head,
+                    f"describe {cols_h} cols bins={big // 2}", paired,
+                    batch_rows=batch, bins=big // 2, **dev_kw)
+    held = 0
+    for name, v in t16["variables"].items():
+        h = v.get("histogram")
+        h8 = t8["variables"][name].get("histogram")
+        if h is None or h8 is None:
+            continue
+        pairs = np.asarray(h[0]).reshape(-1, 2).sum(1)
+        require(np.array_equal(pairs, np.asarray(h8[0])),
+                f"bins={big}: {name}'s bin pairs do not sum to the "
+                f"{big // 2}-bin histogram")
+        held += 1
+    require(held > 0, f"bins={big}: no histogram to hold")
+    print(f"bins={big}: fused warm (K1 then K2) equal to two-pass; the "
+          f"bin pairs of all {held} histograms sum to the {big // 2}-bin "
+          "histograms exactly", flush=True)
+
+
+def json_diff(a, b, path=""):
+    """The paths at which two JSON documents differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [p for k in sorted(set(a) | set(b), key=str)
+                for p in json_diff(a.get(k), b.get(k), f"{path}/{k}")]
+    return [] if a == b else [path]
+
+
+def _child_python(args, timeout=900):
+    """``python chip_smoke.py ARGS`` from the checkout: (exit code, stdout
+    lines, stderr lines, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          *args], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    return (out.returncode, out.stdout.splitlines(),
+            out.stderr.splitlines(), time.perf_counter() - t0)
+
+
+def resume_child(spec_path: str) -> int:
+    """``--resume-child SPEC``: in a fresh process, for each stream of
+    the spec restore its checkpoint and feed it the rows after it, then
+    ``resume_profiler`` its fold-state artifact and feed it the rows after
+    that; write each result's ``stats_to_json`` and print one JSON line of
+    timings."""
+    import pyarrow as pa
+
+    import tpuprof_torch
+    from tpuprof_torch.report.export import stats_to_json
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = spec["device"]
+    with pa.memory_map(spec["rest"]) as src:
+        rest = pa.ipc.open_file(src).read_all()
+    base = spec["rest_from"]
+    out = {}
+    for stream in spec["streams"]:
+        config = tpuprof_torch.ProfilerConfig(
+            batch_rows=spec["batch"], profile_passes=stream["passes"])
+        for kind in ("checkpoint", "artifact"):
+            key = f"{stream['passes']}_{kind}"
+            t0 = time.perf_counter()
+            if kind == "checkpoint":
+                prof = tpuprof_torch.StreamingProfiler.restore(
+                    stream["checkpoint"], config=config, device=dev)
+            else:
+                prof = tpuprof_torch.resume_profiler(stream["artifact"],
+                                                     device=dev)
+            out[f"{key}_resume_s"] = time.perf_counter() - t0
+            start = int(prof.hostagg.n_rows)
+            t0 = time.perf_counter()
+            for lo in range(start - base, rest.num_rows, spec["micro"]):
+                prof.update(rest.slice(lo, spec["micro"]))
+            stats = prof.stats()
+            out[f"{key}_rows"] = rest.num_rows + base - start
+            out[f"{key}_feed_s"] = time.perf_counter() - t0
+            with open(stream[f"{kind}_out"], "w") as fh:
+                json.dump(stats_to_json(stats), fh, sort_keys=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """Streams with a checkpoint, a child's restore and a child's
+    ``resume_profiler`` on the headline table, two-pass (K1) and fused
+    (K4); then the ``profile`` verb's checkpoints on a Parquet directory:
+    a child killed by a ``fold`` fault and a child that resumes."""
+    import atexit
+    import re
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import tpuprof_torch
+    from tpuprof_torch.artifact import read_artifact, write_artifact
+    from tpuprof_torch.report.export import stats_to_json
+
+    if rehearsal:
+        cols, n, batch, micro = 20, 4096, 512, 128
+        dev, dev_kw = "cpu", {"device": "cpu"}
+    else:
+        cols, n, batch, micro = 200, 2_097_152, 65_536, 16_384
+        dev, dev_kw = "cuda:0", {}
+    ck_rows, art_rows = n // 2, 3 * n // 4
+    nb = n // batch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-durable-")
+    atexit.register(shutil.rmtree, tmp, True)
+    table = pa.Table.from_pandas(headline_frame(n, cols),
+                                 preserve_index=False)
+    rest = f"{tmp}/rest.arrow"
+    with pa.OSFile(rest, "wb") as sink:
+        with pa.ipc.new_file(sink, table.schema) as writer:
+            writer.write_table(table.slice(ck_rows))
+    exact = ("count", "n_missing", "n_zeros", "n_infinite", "min", "max",
+             "mean", "std", "variance", "sum", "skewness", "kurtosis")
+
+    streams, fulls = [], {}
+    for passes, kernel in (("two_pass", "fused_a"), ("fused", "fused_ab")):
+        config = tpuprof_torch.ProfilerConfig(batch_rows=batch,
+                                              profile_passes=passes)
+        ck, art = f"{tmp}/{passes}.ckpt", f"{tmp}/{passes}.json"
+        zero_counts()
+        prof = tpuprof_torch.StreamingProfiler(table.schema, config=config,
+                                               **dev_kw)
+        saves = 0.0
+        t0 = time.perf_counter()
+        for lo in range(0, n, micro):
+            prof.update(table.slice(lo, micro))
+            if lo + micro == ck_rows:
+                t1 = time.perf_counter()
+                ck_bytes = prof.checkpoint(ck)
+                ck_s = time.perf_counter() - t1
+                saves += ck_s
+            elif lo + micro == art_rows:
+                t1 = time.perf_counter()
+                write_artifact(art, profiler=prof)
+                art_s = time.perf_counter() - t1
+                saves += art_s
+        fulls[passes] = full = prof.stats()
+        feed = time.perf_counter() - t0 - saves
+        counts = read_counts()
+        if not rehearsal:
+            require(counts[kernel] == nb and all(
+                v == 0 for k, v in counts.items() if k != kernel),
+                f"stream {passes}: launches {counts}")
+        print(f"stream {passes}: {n} rows x {cols} cols in {micro}-row "
+              f"micro-batches, {feed:.3f} s of feed and snapshot = "
+              f"{n / feed:.0f} rows/s on {card}; launches: {counts}; "
+              f"checkpoint at {ck_rows} rows {ck_s:.3f} s, {ck_bytes} B; "
+              f"fold-state artifact at {art_rows} rows {art_s:.3f} s, "
+              f"{os.path.getsize(art)} B", flush=True)
+        streams.append({"passes": passes, "checkpoint": ck,
+                        "artifact": art,
+                        "checkpoint_out": f"{tmp}/{passes}.ck.json",
+                        "artifact_out": f"{tmp}/{passes}.art.json"})
+        one, _ = counted(torch, rehearsal, card, headline_frame(n, cols),
+                         f"describe {cols} cols {passes}", batch_rows=batch,
+                         profile_passes=passes, **dev_kw)
+        for name, v in one["variables"].items():
+            mine = full["variables"][name]
+            for fld in exact:
+                # a correlation-rejected column carries no moments
+                require(mine.get(fld) == v.get(fld),
+                        f"stream {passes}: {name}.{fld} {mine.get(fld)} "
+                        f"vs describe's {v.get(fld)}")
+        print(f"stream {passes}: {', '.join(exact)} equal to describe's",
+              flush=True)
+    # one child restores both streams' checkpoints and artifacts
+    spec = {"device": dev, "batch": batch, "micro": micro, "rest": rest,
+            "rest_from": ck_rows, "streams": streams}
+    spec_path = f"{tmp}/resume.spec.json"
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    rc, out, err, secs = _child_python(["--resume-child", spec_path])
+    require(rc == 0, f"stream: the resume child exited {rc}: {err[-8:]}")
+    timings = json.loads(out[-1])
+    for stream in streams:
+        want = json.dumps(stats_to_json(fulls[stream["passes"]]),
+                          sort_keys=True)
+        for kind in ("checkpoint", "artifact"):
+            with open(stream[f"{kind}_out"]) as fh:
+                require(fh.read() == want, f"stream {stream['passes']}: "
+                        f"the child's {kind} resume differs from the "
+                        "uninterrupted stream")
+    print(f"streams: a child ({secs:.3f} s, process included) restored "
+          "each stream's checkpoint and resumed its fold-state artifact; "
+          "all four finished equal to the uninterrupted streams' "
+          f"stats_to_json; seconds: {json.dumps(timings)}", flush=True)
+    del table
+
+    # the profile verb's checkpoints on phase 5's Parquet directory (made
+    # here when phase 5 did not run): a child killed on its 9th fold
+    cdev = ["--device", "cpu"] if rehearsal else []
+    if cli is not None:
+        cli_dir, cli_art, cbatch = cli
+    else:
+        cbatch = batch if not rehearsal else 128     # 16 batches
+        cli_dir = f"{tmp}/cli"
+        os.makedirs(cli_dir)
+        wide = wide_frame(n // 2, cols, seed=6)
+        per = len(wide) // 4
+        t = pa.Table.from_pandas(wide, preserve_index=False)
+        for i in range(4):
+            pq.write_table(t.slice(i * per, per),
+                           f"{cli_dir}/part{i}.parquet",
+                           row_group_size=cbatch)
+        del wide, t
+        cli_art = f"{tmp}/cli_control.json"
+        rc, err, _, _ = child(["profile", cli_dir, "-o", f"{tmp}/c.html",
+                               "--batch-rows", str(cbatch), "--artifact",
+                               cli_art, *cdev])
+        require(rc == 0, f"cli control: exit {rc}: {err[-5:]}")
+    ck = f"{tmp}/cli.ckpt"
+    argv = ["profile", cli_dir, "--batch-rows", str(cbatch),
+            "--checkpoint", ck, "--checkpoint-every", "4", *cdev]
+    os.environ["TPUPROF_FAULTS"] = "fold:1@9"
+    try:
+        rc, err, _, secs = child([*argv, "-o", f"{tmp}/dead.html"])
+    finally:
+        del os.environ["TPUPROF_FAULTS"]
+    require(rc != 0 and any("injected" in ln for ln in err)
+            and os.path.exists(ck), f"cli checkpoint: the faulted child "
+            f"exited {rc}: {err[-3:]}")
+    print(f"cli checkpoint: the child died on its 9th fold (exit {rc}, "
+          f"{secs:.3f} s), {ck} holds {os.path.getsize(ck)} B", flush=True)
+    art = f"{tmp}/cli_resumed.json"
+    rc, err, mods, secs = child([*argv, "-o", f"{tmp}/resumed.html",
+                                 "--artifact", art])
+    require(rc == 0 and re.match(PROFILE_LINE, err[-1]),
+            f"cli checkpoint: the resuming child exited {rc}: {err[-5:]}")
+    require(not os.path.exists(ck), "cli checkpoint: the resumed run left "
+            "its checkpoint")
+    got, want = read_artifact(art).stats, read_artifact(cli_art).stats
+    require(got == want, "cli checkpoint: the resumed profile differs from "
+            f"the uninterrupted one at {json_diff(got, want)[:5]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "cli checkpoint: the child loaded jax or tpuprof")
+    print(f"cli checkpoint: the resuming child exited 0 in {secs:.3f} s; "
+          f"{err[-1]}; {footer_phases(f'{tmp}/resumed.html')}; its "
+          "artifact's stats equal the uninterrupted profile's", flush=True)
+
+
+PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny sizes on the CPU with the plain versions")
+    ap.add_argument("--only", metavar="PHASE[,PHASE]",
+                    help="after the build run only these phases, of "
+                    + ", ".join(PHASES) + " (3 to 8), and k2big (phase "
+                    "3's check of K2's device-memory body alone); the "
+                    "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks and timings")
+                    help="the same as --only kernels")
     ap.add_argument("--k2-probe", action="store_true",
                     help="stop after the build and K2's SASS counts and "
                     "times (k2_probe)")
     ap.add_argument("--ingest-only", action="store_true",
-                    help="after the build run phase 6 (phase_ingest) only")
+                    help="the same as --only ingest")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 6's frame")
+    ap.add_argument("--resume-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.resume_child:
+        # phase 8's child process: restore, feed, write its stats
+        return resume_child(args.resume_child)
+    only = set(PHASES)
+    if args.only:
+        only = {p.strip() for p in args.only.split(",") if p.strip()}
+        unknown = only - set(PHASES) - {"k2big"}
+        if unknown:
+            ap.error(f"unknown phases {sorted(unknown)}; use {PHASES}")
+    if args.kernels_only:
+        only = {"kernels"}
+    if args.ingest_only:
+        only = {"ingest"}
 
     import torch
     if not args.cpu_rehearsal and not torch.cuda.is_available():
@@ -2213,35 +2785,47 @@ def main(argv=None) -> int:
               flush=True)
         return out
 
-    if args.ingest_only:
-        timed(phase_ingest, torch, args.cpu_rehearsal, card, args.seed)
-        return 0
-    rows = timed(phase_kernels, torch, device, args.cpu_rehearsal)
-    rows += timed(phase_kernels_wide_and_rank, torch, device,
-                  args.cpu_rehearsal)
-    rows += timed(phase_kernel_ab, torch, device, args.cpu_rehearsal)
-    f64 = timed(phase_gram_f64, torch, device, args.cpu_rehearsal)
-    for r in rows:
-        if r["name"] in f64:
-            r["f64_scaled_err"], r["f64_plain_scaled_err"] = f64[r["name"]]
+    rehearsal = args.cpu_rehearsal
+    rows = []
+    if "k2big" in only:
+        from tpuprof_torch.kernels import hist
+        k2 = hist.histogram_cuda if not rehearsal else \
+            (lambda *a, split_cols=None: hist.histogram_plain(*a))
+        timed(check_k2_global, torch, device, k2, rehearsal)
+    if "kernels" in only:
+        rows = timed(phase_kernels, torch, device, rehearsal)
+        rows += timed(phase_kernels_wide_and_rank, torch, device, rehearsal)
+        rows += timed(phase_kernel_ab, torch, device, rehearsal)
+        f64 = timed(phase_gram_f64, torch, device, rehearsal)
+        for r in rows:
+            if r["name"] in f64:
+                r["f64_scaled_err"], r["f64_plain_scaled_err"] = \
+                    f64[r["name"]]
     # null when the main path did not run: no count was read
     launches = dict.fromkeys(COUNTERS)
-    if not args.kernels_only:
-        launches = timed(phase_main_path, torch, args.cpu_rehearsal, card)
-        timed(phase_cli, torch, args.cpu_rehearsal, card)
-        timed(phase_ingest, torch, args.cpu_rehearsal, card, args.seed)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["matched"] = True         # phase 3 exits before here otherwise
-    first = ("name", "route", "source", "replaces", "launches")
-    print(json.dumps({"kernels": [
-        {**{k: r[k] for k in first},
-         **{k: v for k, v in r.items() if k not in first}} for r in rows]}))
+    if "main" in only:
+        launches = timed(phase_main_path, torch, rehearsal, card)
+    cli = timed(phase_cli, torch, rehearsal, card) if "cli" in only \
+        else None
+    if "ingest" in only:
+        timed(phase_ingest, torch, rehearsal, card, args.seed)
+    if "limits" in only:
+        timed(phase_limits, torch, rehearsal, card)
+    if "durable" in only:
+        timed(phase_durable, torch, rehearsal, card, cli)
+    if rows:
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+            r["matched"] = True     # phase 3 exits before here otherwise
+        first = ("name", "route", "source", "replaces", "launches")
+        print(json.dumps({"kernels": [
+            {**{k: r[k] for k in first},
+             **{k: v for k, v in r.items() if k not in first}}
+            for r in rows]}))
     print(card)
-    kind = torch.cuda.get_device_name(0) if not args.cpu_rehearsal \
-        else "cpu"
-    count = torch.cuda.device_count() if not args.cpu_rehearsal else 0
-    platform = "gpu" if not args.cpu_rehearsal else "cpu"
+    kind = torch.cuda.get_device_name(0) if not rehearsal else "cpu"
+    count = torch.cuda.device_count() if not rehearsal else 0
+    platform = "gpu" if not rehearsal else "cpu"
     print(json.dumps({"ok": True, "device": {"platform": platform,
                                              "kind": kind,
                                              "count": count}}))

@@ -171,12 +171,18 @@ def test_missing_file_is_file_not_found(tmp_path):
 
 def test_fold_state_artifacts_are_a_later_slice(tmp_path, port_art,
                                                 port_stats):
-    with pytest.raises(NotImplementedError, match="streaming"):
-        write_artifact(str(tmp_path / "s.json"), profiler=object())
-    with pytest.raises(NotImplementedError, match="streaming"):
+    """Fold-state artifacts came with the streaming slice
+    (``test_torch_incremental.py``): a stats-only artifact carries no fold
+    state, and ``write_artifact`` takes exactly one of ``stats=`` and
+    ``profiler=``."""
+    assert not read_artifact(port_art).foldable
+    with pytest.raises(CorruptArtifactError, match="no fold state"):
         read_artifact(port_art).state_payload()
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="exactly one"):
         write_artifact(str(tmp_path / "s.json"))
+    with pytest.raises(ValueError, match="exactly one"):
+        write_artifact(str(tmp_path / "s.json"), stats=port_stats,
+                       profiler=object())
 
 
 def _walk(a, b, path=()):

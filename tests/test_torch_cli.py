@@ -320,6 +320,46 @@ def test_max_quarantined_flag_changes_the_output_as_the_reference(
     assert "Degraded run" in html
 
 
+@pytest.mark.parametrize("keep", ["1", "3"])
+def test_checkpoint_flags_resume_a_crashed_profile(data, tmp_path, capsys,
+                                                   keep):
+    """``--checkpoint``, ``--checkpoint-every`` and ``--checkpoint-keep``:
+    a profile killed by a ``fold`` fault leaves its checkpoint (and with
+    ``--checkpoint-keep 3`` its rotation), the rerun resumes, removes
+    them, and its ``--stats-json`` equals an uninterrupted profile's."""
+    from tpuprof_torch.testing import faults
+    ck = str(tmp_path / "scan.ckpt")
+    flags = ["--checkpoint", ck, "--checkpoint-every", "2",
+             "--checkpoint-keep", keep]
+    base = [data["base"], "--device", "cpu"]
+    control = _stats_json(cli.main, base, tmp_path, "control")
+    faults.configure("fold:1@5")
+    try:
+        with pytest.raises(Exception, match="injected"):
+            cli.main(["profile", *base, *flags, "-o",
+                      str(tmp_path / "x.html"), "--batch-rows", BATCH])
+    finally:
+        faults.reset()
+    assert os.path.exists(ck)
+    assert os.path.exists(ck + ".1") == (keep == "3")
+    resumed = _stats_json(cli.main, [*base, *flags], tmp_path, "resumed")
+    capsys.readouterr()
+    assert resumed == control
+    assert not any(n.startswith("scan.ckpt") for n in os.listdir(tmp_path))
+
+
+def test_unreadable_checkpoint_exits_3(data, tmp_path, capsys):
+    ck = tmp_path / "scan.ckpt"
+    ck.write_bytes(b"junk")
+    html = str(tmp_path / "r.html")
+    rc, err = _profile(capsys, data["base"], "-o", html, "--device", "cpu",
+                       "--checkpoint", str(ck))
+    assert rc == 3 == ref_exit_code(
+        __import__("tpuprof.errors").errors.CorruptCheckpointError("x"))
+    assert len(err) == 1 and "checkpoint" in err[0]
+    assert not os.path.exists(html)
+
+
 def test_without_cuda_profile_fails_and_reads_nothing(data, tmp_path,
                                                       capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

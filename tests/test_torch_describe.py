@@ -241,8 +241,8 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("checkpoint_keep", 3), ("stream_flush_rows", 1000),
-    ("checkpoint_path", "/nonexistent/ck"), ("elastic", True),
+    ("artifact_keep", 3), ("compile_cache_dir", "/nonexistent/cc"),
+    ("unique_partitions", 4), ("elastic", True),
     ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
     ("mesh_devices", 2), ("parity", True)])
 def test_unported_config_fields_raise(field, value):
@@ -279,8 +279,10 @@ def test_config_fields_mirror_reference():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """A describe run in a fresh process loads neither jax nor any module
-    of the reference package."""
+    """A describe run in a fresh process, a checkpointed one, a wide one
+    (the XLA twin and the exact rank tier), a ``StreamingProfiler``
+    checkpointed and restored and a ``resume_profiler`` from a fold-state
+    artifact load neither jax nor any module of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, pandas as pd
@@ -308,7 +310,29 @@ def test_port_imports_no_jax_and_no_reference():
             stats = tpuprof_torch.describe(df, device="cpu", batch_rows=32,
                                            profile_passes="fused",
                                            seed_edges=art)
-        assert stats["table"]["n"] == 100
+            assert stats["table"]["n"] == 100
+            stats = tpuprof_torch.describe(
+                df, device="cpu", batch_rows=32,
+                checkpoint_path=os.path.join(tmp, "scan.ckpt"),
+                checkpoint_every_batches=2)
+            assert stats["table"]["n"] == 100
+            prof = tpuprof_torch.StreamingProfiler.for_example(
+                df, config=tpuprof_torch.ProfilerConfig(batch_rows=32),
+                device="cpu")
+            prof.update(df.iloc[:60])
+            prof.checkpoint(os.path.join(tmp, "s.ckpt"))
+            prof = tpuprof_torch.StreamingProfiler.restore(
+                os.path.join(tmp, "s.ckpt"), device="cpu")
+            prof.update(df.iloc[60:])
+            write_artifact(art, profiler=prof)
+            prof = tpuprof_torch.resume_profiler(art, device="cpu")
+            prof.update(df)
+            assert prof.stats()["table"]["n"] == 200
+        wider = pd.DataFrame(np.random.default_rng(1).normal(size=(20, 2050)),
+                             columns=[f"v{i}" for i in range(2050)])
+        stats = tpuprof_torch.describe(wider, device="cpu", batch_rows=32,
+                                       spearman=True)
+        assert stats["correlations"]["spearman"].shape == (2050, 2050)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpuprof" or m.startswith("tpuprof."))

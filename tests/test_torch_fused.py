@@ -137,7 +137,6 @@ def test_update_rejects_bad_inputs(bad):
         cols = fused.MAX_FUSED_COLS_WIDE + 1
         xt = torch.zeros((cols, rows))
         mom, co = _port_init(cols, np.zeros(cols, dtype=np.float32))
-        err = NotImplementedError
     with pytest.raises(err):
         fused.update(mom, co, xt, rv)
 

@@ -288,7 +288,7 @@ def test_degraded_report_and_export_match_the_reference(monkeypatch):
 
 
 def test_spec_parse_rejects_malformed_and_later_modes():
-    for bad in ("prep", "prep:2.0", "prep:0@1", "fold:truncate@1",
+    for bad in ("prep", "prep:2.0", "prep:0@1", "fold:truncate@0",
                 "host_death:@3"):
         with pytest.raises(ValueError):
             faults.FaultPlan.from_spec(bad)

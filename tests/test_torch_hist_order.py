@@ -175,7 +175,7 @@ def test_one_split_and_an_all_invalid_split():
 
 
 def test_constants_match_the_wrapper():
-    assert (THREADS, MAX_BINS) == (hist._THREADS, hist.MAX_BINS)
+    assert (THREADS, MAX_BINS) == (hist._THREADS, hist.SHARED_MAX_BINS)
 
 
 def test_one_shared_histogram_covers_every_bin_count():

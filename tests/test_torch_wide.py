@@ -9,8 +9,9 @@ scratch; and the whole wide slice, ``describe`` of a frame with more than
 is exact, float32 tolerances for moments and rho) and, with
 ``spearman=True``, against the reference's wide grid tier composed by hand
 (atol 5e-4), its CPU exact tier and pandas (atol 0.02).  Past 2048 numeric
-columns the port raises ``NotImplementedError``.  Tests that need the
-card skip elsewhere."""
+columns the kernels' entry points raise ``ValueError`` and ``describe``
+takes the reference's XLA twin and exact rank tier
+(``test_torch_wide_xla.py``).  Tests that need the card skip elsewhere."""
 
 import jax
 import jax.numpy as jnp
@@ -158,15 +159,21 @@ def test_wide_splits_bound_scratch_and_keep_counts_exact(C, R):
 
 
 def test_more_than_2048_numeric_columns_raise():
+    """Past 2048 columns the kernels' entry points (K3, K6) raise, and
+    ``describe`` runs: on the XLA twin and the exact rank tier."""
     df = pd.DataFrame(np.zeros((4, fused.MAX_FUSED_COLS_WIDE + 1)),
                       columns=[f"c{i}" for i in
                                range(fused.MAX_FUSED_COLS_WIDE + 1)])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpuprof_torch.describe(df, device="cpu")
+    stats = tpuprof_torch.describe(df, device="cpu")
+    assert stats["table"]["n"] == 4
+    assert len(stats["variables"]) == fused.MAX_FUSED_COLS_WIDE + 1
     xt = torch.zeros((fused.MAX_FUSED_COLS_WIDE + 1, 8))
     rv = torch.ones(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="update_xla"):
         fused.rank_transform(xt, rv, torch.zeros((xt.shape[0], 4)))
+    with pytest.raises(ValueError, match="update_xla"):
+        mom, co = {"shift": torch.zeros(xt.shape[0])}, {}
+        fused.update(mom, co, xt, rv)
 
 
 # ---------------------------------------------------------------------------

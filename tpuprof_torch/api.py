@@ -1,4 +1,5 @@
-"""``describe`` and ``ProfileReport`` of the PyTorch port.
+"""``describe`` and ``ProfileReport`` of the PyTorch port, and its
+durable-profile entry points ``StreamingProfiler`` and ``resume_profiler``.
 
 Counterpart of ``tpuprof/api.py``.  Statistics are computed eagerly at
 construction, on the device given (``None`` = the first CUDA device, which
@@ -12,9 +13,11 @@ from __future__ import annotations
 import io
 from typing import Any, Dict, List, Optional
 
+from tpuprof_torch.artifact.incremental import resume_profiler
 from tpuprof_torch.backends.gpu import GPUStatsBackend
 from tpuprof_torch.config import ProfilerConfig
 from tpuprof_torch.runtime.runner import resolve_device
+from tpuprof_torch.runtime.stream import StreamingProfiler
 from tpuprof_torch.schema import (VariablesView, rejected_variables,
                                   validate_stats)
 
@@ -87,3 +90,7 @@ class ProfileReport:
         table = self.description["table"]
         return (f"<tpuprof_torch.ProfileReport n={table['n']} "
                 f"nvar={table['nvar']}>")
+
+
+__all__ = ["ProfileReport", "StreamingProfiler", "describe",
+           "resume_profiler"]

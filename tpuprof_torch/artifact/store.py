@@ -1,7 +1,7 @@
 """Stats artifacts: one profile persisted as one JSON document.
 
-Counterpart of ``tpuprof/artifact/store.py`` for stats-only artifacts, the
-same ``tpuprof-stats-v1`` format, so either package reads the other's:
+Counterpart of ``tpuprof/artifact/store.py``, the same ``tpuprof-stats-v1``
+format, so either package reads the other's stats-only artifacts:
 
 * ``stats`` — :func:`~tpuprof_torch.report.export.stats_to_json`;
 * ``sketches`` — per-column histograms (counts, edges), the ranked top-k
@@ -9,14 +9,22 @@ same ``tpuprof-stats-v1`` format, so either package reads the other's:
   ``[lo, hi, mean]`` pass-B bounds, from which the next
   ``profile_passes="fused"`` profile of the source seeds its bin edges
   (``tpuprof_torch/runtime/singlepass.py``);
+* ``state`` — ``None``, or for ``write_artifact(profiler=...)`` the
+  :class:`~tpuprof_torch.runtime.stream.StreamingProfiler`'s fold state
+  (``export_payload``: the device state as a checkpoint's ``.npz``
+  archive, the host aggregators and the config, pickled, base64), its own
+  CRC32 and length, and the writing package, ``"tpuprof_torch"``;
+  :meth:`Artifact.state_payload` decodes it and
+  ``artifact.incremental.resume_profiler`` folds on from it;
 * ``integrity`` — a CRC32 over the document's canonical serialization.
 
 Writes are atomic (a dot-prefixed temporary file, fsync, rename).  Every
 read failure — truncation, a flipped byte, junk, a foreign or missing
 schema id, a torn payload — raises
 :class:`~tpuprof_torch.errors.CorruptArtifactError`; a missing file raises
-``FileNotFoundError``.  Fold-state artifacts (``write_artifact(profiler=)``,
-``Artifact.state_payload``) belong to the streaming slice of the port.
+``FileNotFoundError``.  A fold state the reference wrote (it names no
+package, and its pickle names ``tpuprof`` classes) is refused with
+``CorruptArtifactError`` before it is unpickled.
 """
 
 from __future__ import annotations
@@ -32,17 +40,16 @@ from typing import Any, Dict, Optional
 
 from tpuprof_torch.errors import CorruptArtifactError
 from tpuprof_torch.report.export import SCHEMA_ID, json_scalar, stats_to_json
+from tpuprof_torch.testing import faults
+
+# the package an embedded fold state names
+PACKAGE = "tpuprof_torch"
 
 # ranked top-k rows per CAT column in the sketches section
 TOPK_SKETCH_ROWS = 50
 
 # the canonical serialization the CRC covers: key-sorted, no whitespace
 _CANON = {"sort_keys": True, "separators": (",", ":")}
-
-_STREAMING = ("fold-state artifacts (write_artifact(profiler=...), "
-              "Artifact.state_payload) are the streaming slice of the "
-              "PyTorch port")
-
 
 @dataclasses.dataclass
 class Artifact:
@@ -55,6 +62,7 @@ class Artifact:
     state_bytes: Optional[bytes] = None
     path: Optional[str] = None
     crc32: Optional[int] = None     # the verified document CRC
+    state_package: Optional[str] = None     # who wrote the fold state
 
     @property
     def foldable(self) -> bool:
@@ -70,7 +78,34 @@ class Artifact:
         return dict(self.meta.get("columns") or {})
 
     def state_payload(self) -> Dict[str, Any]:
-        raise NotImplementedError(_STREAMING)
+        """The fold-state payload (checkpoint-shaped: ``arrays_npz``,
+        ``host_blob``, ``config``, ``cursor``, ``meta``).  Raises
+        :class:`CorruptArtifactError` for a stats-only artifact, for a
+        fold state another package wrote (before unpickling it) and for
+        one that does not decode."""
+        from tpuprof_torch.runtime.checkpoint import safe_loads
+        if self.state_bytes is None:
+            raise CorruptArtifactError(
+                f"artifact {self.path!r} carries no fold state — written "
+                "by a one-shot profile (stats-only); incremental resume "
+                "needs an artifact written from a StreamingProfiler")
+        if self.state_package != PACKAGE:
+            raise CorruptArtifactError(
+                f"artifact {self.path!r} fold state was written by "
+                f"{self.state_package or 'another package'}, not "
+                f"{PACKAGE}; it is not unpickled (it names that package's "
+                "classes)")
+        try:
+            payload = safe_loads(self.state_bytes)
+        except Exception as exc:
+            raise CorruptArtifactError(
+                f"artifact {self.path!r} fold-state payload does not "
+                f"decode ({type(exc).__name__}: {exc})") from exc
+        if not isinstance(payload, dict) or "host_blob" not in payload:
+            raise CorruptArtifactError(
+                f"artifact {self.path!r} fold-state payload decodes to "
+                "an unexpected layout")
+        return payload
 
 
 def _config_meta(config) -> Dict[str, Any]:
@@ -110,16 +145,51 @@ def build_sketches(stats: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _encode_state(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A profiler's ``export_payload`` as the document's ``state`` entry:
+    the device state as one ``.npz`` archive, as a checkpoint holds it, so
+    a resume takes the checkpoint's restore path."""
+    import pickle
+
+    from tpuprof_torch.runtime.checkpoint import encode_state
+    wire = {
+        "arrays_npz": encode_state(payload.get("state")),
+        "host_blob": payload["host_blob"],
+        # resume_profiler rebuilds the writer's geometry from it
+        "config": payload.get("config"),
+        "cursor": int(payload["cursor"]),
+        "meta": payload["meta"],
+    }
+    raw = pickle.dumps(wire, protocol=pickle.HIGHEST_PROTOCOL)
+    return {
+        "encoding": "npz+pickle/base64",
+        "package": PACKAGE,
+        "crc32": zlib.crc32(raw) & 0xFFFFFFFF,
+        "length": len(raw),
+        "payload": base64.b64encode(raw).decode("ascii"),
+    }
+
+
 def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
                    config=None, profiler=None,
                    source: Optional[str] = None) -> Dict[str, Any]:
-    """Write the stats dict ``stats`` (of a profile run with ``config``) as
-    one stats-only ``tpuprof-stats-v1`` artifact at ``path``, atomically.
+    """Write one ``tpuprof-stats-v1`` artifact at ``path``, atomically:
+
+    * ``write_artifact(path, profiler=prof)`` — a snapshot of a
+      :class:`~tpuprof_torch.runtime.stream.StreamingProfiler` (its buffer
+      folds first) with its fold state embedded: ``resume_profiler`` folds
+      on from it;
+    * ``write_artifact(path, stats=stats, config=cfg)`` — a stats dict
+      already computed: stats-only, what ``diff`` compares.
+
     Returns a copy of the document's ``meta`` with its ``crc32``."""
+    if (profiler is None) == (stats is None):
+        raise ValueError("pass exactly one of profiler= or stats=")
+    state_entry = None
     if profiler is not None:
-        raise NotImplementedError(_STREAMING)
-    if stats is None:
-        raise ValueError("write_artifact needs stats=")
+        config = profiler.config
+        state_entry = _encode_state(profiler.export_payload())
+        stats = profiler.stats()
     meta = {
         "format": SCHEMA_ID,
         "tpuprof_version": _version(),
@@ -128,8 +198,8 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
         "columns": {str(name): var["type"]
                     for name, var in stats["variables"].items()},
         "config": _config_meta(config),
-        "foldable": False,
-        "degraded": False,
+        "foldable": state_entry is not None,
+        "degraded": bool(stats.get("_quarantine")),
         "source": source,
     }
     core = {
@@ -137,7 +207,7 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
         "meta": meta,
         "stats": stats_to_json(stats),
         "sketches": build_sketches(stats),
-        "state": None,
+        "state": state_entry,
     }
     doc = dict(core)
     doc["integrity"] = {
@@ -150,7 +220,8 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
                        f".{os.path.basename(path)}.tmp")
     try:
         with open(tmp, "wb") as fh:
-            fh.write(data)
+            faults.hit("artifact_write", key=meta["rows"])
+            fh.write(faults.mangle("artifact_write", data))
             fh.flush()
             os.fsync(fh.fileno())       # data on disk before the rename
     except BaseException:
@@ -201,6 +272,7 @@ def read_artifact(path: str) -> Artifact:
         raise CorruptArtifactError(
             f"artifact {path!r} CRC mismatch — corrupt artifact")
     state_bytes = None
+    state_package = None
     state = doc.get("state")
     if state is not None:
         try:
@@ -216,11 +288,13 @@ def read_artifact(path: str) -> Artifact:
             raise CorruptArtifactError(
                 f"artifact {path!r} fold-state payload fails its CRC — "
                 "torn write")
+        state_package = state.get("package")
     return Artifact(schema=doc["schema"], meta=doc.get("meta") or {},
                     stats=doc.get("stats") or {},
                     sketches=doc.get("sketches") or {},
                     state_bytes=state_bytes, path=path,
-                    crc32=int(integrity["crc32"]))
+                    crc32=int(integrity["crc32"]),
+                    state_package=state_package)
 
 
 def _version() -> str:

@@ -1,22 +1,24 @@
 """GPUStatsBackend — the profile scans on one device.
 
-Counterpart of the single-process, no-checkpoint paths of
-``tpuprof/backends/tpu.py`` (``TPUStatsBackend.collect``) and its helpers.
-Batches stream once through pass A (kernel K1, or K3 past 512 numeric
-columns: moments, min/max, null/zero/inf counts, the pairwise Pearson Gram;
-host: HLL registers, the row sample, Misra-Gries, dates, the exact-unique
-tracker), then, for a rescannable source, once more through pass B (kernel
-K2: exact histograms and MAD on the pass-A bounds; with ``spearman=True``
-the grid-rank Spearman Gram from the same shipped batches, kernel K5, or K6
-then K3 past 512 columns; host: the exact top-k recount).  ``_assemble``
-turns the merged results into the stats dict.
+Counterpart of the single-process paths of ``tpuprof/backends/tpu.py``
+(``TPUStatsBackend.collect``) and its helpers.  Batches stream once
+through pass A (kernel K1, K3 past 512 numeric columns, the reference's
+XLA twin past 2,048: moments, min/max, null/zero/inf counts, the pairwise
+Pearson Gram; host: HLL registers, the row sample, Misra-Gries, dates, the
+exact-unique tracker), then, for a rescannable source, once more through
+pass B (kernel K2, any bin count: exact histograms and MAD on the pass-A
+bounds; with ``spearman=True`` the Spearman Gram from the same shipped
+batches: grid ranks by kernel K5, or K6 then K3 past 512 columns, and past
+2,048 the reference's exact tier; host: the exact top-k recount).
+``_assemble`` turns the merged results into the stats dict.  The tiers
+are the runner's (``runtime/runner.py``).
 
 With ``profile_passes="fused"`` pass A also folds the histograms, on
-provisional edges (kernel K4, or K3 then K2 on the same shipped batch past
-512 columns; ``runtime/singlepass.py``).  Lanes whose edges held keep those
-counts; a second scan runs only to re-bin the missed lanes (K2 on those
-columns), to recount the top-k or to rank for Spearman — or not at all.
-The result equals the two-pass profile's exactly.
+provisional edges (kernel K4, or pass A's route then K2 on the same shipped
+batch past 512 columns or 8,192 bins; ``runtime/singlepass.py``). Lanes
+whose edges held keep those counts; a second scan runs only to re-bin the
+missed lanes (K2 on those columns), to recount the top-k or to rank for
+Spearman — or not at all. The result equals the two-pass profile's exactly.
 
 Division of labour: the device folds every numeric statistic; the host
 decodes strings, hashes, keeps the frequent values, dates and first rows.
@@ -27,12 +29,18 @@ prepare error retries, and with ``max_quarantined`` set a batch whose
 prepare keeps failing or whose pass-A fold raises is skipped and reported
 (``stats["_quarantine"]``), in pass B too, so it counts in neither pass.
 Each copy of a device state to the host runs under ``drain_timeout_s``.
+
+With ``checkpoint_path`` set, pass A saves its fold state every
+``checkpoint_every_batches`` batches (:class:`CollectCheckpoint`), and a
+rerun after a crash resumes from the newest good save.  Staged copies are
+capped at :data:`STAGE_BYTES` of host planes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +50,7 @@ import torch
 
 from tpuprof_torch import native, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
+                                  resolve_checkpoint_keep,
                                   resolve_ingest_retries,
                                   resolve_max_quarantined,
                                   resolve_prepare_workers,
@@ -50,6 +59,7 @@ from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_retry_backoff,
                                   resolve_unique_budget,
                                   resolve_watchdog_timeout)
+from tpuprof_torch.errors import InputError
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
                                         prefetch_prepared)
 from tpuprof_torch.ingest.sample import RowSampler
@@ -58,9 +68,11 @@ from tpuprof_torch.kernels import histogram as khistogram
 from tpuprof_torch.kernels import hll as khll
 from tpuprof_torch.kernels import moments as kmoments
 from tpuprof_torch.kernels import unique as kunique
+from tpuprof_torch.kernels.fused import MAX_FUSED_COLS_WIDE
 from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
 from tpuprof_torch.obs.spans import get_phase_report, span
+from tpuprof_torch.runtime import checkpoint as ckpt
 from tpuprof_torch.runtime import guard, singlepass
 from tpuprof_torch.runtime.runner import Runner
 from tpuprof_torch.testing import faults
@@ -225,6 +237,126 @@ class Recounter:
                          ).sort_values(ascending=False)
 
 
+# the most host bytes one staged group ships in one copy; the prefetch
+# queue holds about as many prepared batches.  A batch of a wide table is
+# large (1.07 GB at 4,096 float32 columns x 65,536 rows), so wide tables
+# stage fewer batches a copy, down to one, and pin no more than that
+STAGE_BYTES = 1 << 30
+
+
+def stage_group(scan_batches: int, rows: int, n_num: int, n_hash: int,
+                with_hll: bool) -> int:
+    """How many batches one staged copy holds: ``scan_batches``, cut so
+    their shipped planes stay within :data:`STAGE_BYTES` (at least 1)."""
+    per = rows * (4 * n_num + (2 * n_hash if with_hll else 0) + 1)
+    return max(1, min(int(scan_batches), STAGE_BYTES // max(per, 1)))
+
+
+class CollectCheckpoint:
+    """Batch-granular resume of the pass-A scan (the reference's
+    ``_CollectCheckpoint``, one process).  Every ``checkpoint_every_batches``
+    delivered batches the device state, the host sketches, the cursor, the
+    (fragment, batch) position of the last consumed batch, the quarantine
+    manifest and the stream positions pass A skipped are saved
+    (``runtime/checkpoint.py``), after a flush of the device, so the cursor
+    is the number of folded batches.  A single-pass scan also saves its
+    histogram state and the provisional edges it bins on.  A rerun with the
+    same path loads the newest good generation and skips the folded prefix
+    without decoding it: whole fragments of a Parquet source, zero-copy
+    slices of a table.  A run that completes removes the chain."""
+
+    def __init__(self, config: ProfilerConfig, plan, runner,
+                 source_fp: str, table_source: bool, fused: bool):
+        self.path = config.checkpoint_path
+        self.every = max(int(config.checkpoint_every_batches), 1)
+        self.keep = resolve_checkpoint_keep(config.checkpoint_keep)
+        self.config = config
+        self.plan = plan
+        self.runner = runner
+        self.source_fp = source_fp
+        self.table_source = table_source
+        self.fused = fused
+        self.last_saved = -1            # cursor of the newest save
+
+    def exists(self) -> bool:
+        return any(os.path.exists(p)
+                   for p in ckpt.candidate_paths(self.path))
+
+    def due(self, cursor: int) -> bool:
+        return cursor % self.every == 0
+
+    def _meta(self) -> Dict[str, Any]:
+        """What a resume must share with the saved prefix: the reference's
+        meta keys, without the fleet's."""
+        c = self.config
+        return {"n_num": self.plan.n_num, "n_hash": self.plan.n_hash,
+                "batch_rows": c.batch_rows,
+                "hll_precision": c.hll_precision,
+                "native_hash": native.available(),
+                "source_fp": self.source_fp,
+                "quantile_sketch_size": c.quantile_sketch_size,
+                "topk_capacity": c.topk_capacity, "seed": c.seed,
+                # a table is enumerated in fixed combined windows
+                "batch_enum": "window-v2" if self.table_source else None,
+                "exact_distinct": False, "nested": c.nested,
+                "profile_passes": "fused" if self.fused else "two_pass"}
+
+    def save(self, state, sampler, hostagg, host_hll, cursor, frag_pos,
+             quarantine, skipped, hist_state=None, edges=None) -> None:
+        blob = {"sampler": sampler, "hostagg": hostagg,
+                "host_hll": host_hll,
+                "frag_pos": tuple(frag_pos) if frag_pos else None,
+                "quarantine": list(quarantine.entries),
+                "skipped": sorted(skipped)}
+        meta = self._meta()
+        meta["has_state"] = state is not None
+        if hist_state is not None:
+            # the histogram fold rides the same archive; a resume bins the
+            # rest of the stream on the same edges
+            state = {"a": state, "hist": hist_state}
+            blob["singlepass_edges"] = edges.as_blob()
+        with span("checkpoint"):
+            ckpt.save(self.path, state, blob, cursor, meta=meta,
+                      keep=self.keep)
+        self.last_saved = cursor
+
+    def load(self):
+        """(state, sampler, hostagg, host_hll, cursor, frag_pos,
+        quarantine entries, skipped positions, histogram state, edges) of
+        the newest good generation, after refusing a run whose batch
+        stream or sketch shapes differ from the saved prefix's."""
+        with span("resume"):
+            payload, _used = ckpt.restore_payload(self.path)
+            meta, mine = payload["meta"], self._meta()
+            for key in mine:
+                if meta.get(key) != mine[key]:
+                    raise InputError(
+                        f"checkpoint {key}={meta.get(key)!r} does not match "
+                        f"this run's {mine[key]!r} — the batch stream or "
+                        "sketch shapes would diverge from the saved prefix")
+            blob = payload["host_blob"]
+            dev = self.runner.device
+            state = hist_state = edges = None
+            if meta.get("has_state"):
+                if "singlepass_edges" in blob:
+                    both = ckpt.materialize(
+                        payload, {"a": self.runner.init_pass_a(),
+                                  "hist": self.runner.init_pass_b()}, dev)
+                    state, hist_state = both["a"], both["hist"]
+                    edges = singlepass.ProvisionalEdges.from_blob(
+                        blob["singlepass_edges"])
+                else:
+                    state = ckpt.materialize(
+                        payload, self.runner.init_pass_a(), dev)
+        self.last_saved = payload["cursor"]
+        return (state, blob["sampler"], blob["hostagg"], blob["host_hll"],
+                payload["cursor"], blob["frag_pos"], blob["quarantine"],
+                set(blob["skipped"]), hist_state, edges)
+
+    def clear(self) -> None:
+        ckpt.clear(self.path)
+
+
 class GPUStatsBackend:
     """Profile an in-memory table on one device, in two passes or, with
     ``profile_passes="fused"``, in one."""
@@ -246,8 +378,6 @@ class GPUStatsBackend:
         runner = Runner(config, plan.n_num, plan.n_hash, self._device)
         pad = runner.rows
         workers = resolve_prepare_workers(config.prepare_workers)
-        scan_s = max(int(config.scan_batches), 1)
-        depth = max(2, min(scan_s, 8))
         # single-pass profiles (runtime/singlepass.py): pass A folds the
         # histograms too, on provisional edges from an artifact or the
         # first batch
@@ -290,13 +420,45 @@ class GPUStatsBackend:
         # otherwise the packed plane ships to the device scatter-max
         host_hll = khll.HostRegisters(plan.n_hash, config.hll_precision) \
             if plan.n_hash > 0 and native.available() else None
+
+        # ---- checkpoint / resume of pass A --------------------------------
+        state = None
+        state_h = None          # the fused scan's histogram state
+        sp_edges = None         # ... and the provisional edges it bins on
+        edges_d = None
+        cursor = 0              # batches consumed from the stream
+        last_frag = None        # (fragment, batch) of the last of them
+        resume = CollectCheckpoint(
+            config, plan, runner, ingest.fingerprint(),
+            table_source=ingest._table is not None, fused=fused_scan) \
+            if config.checkpoint_path else None
+        if resume is not None and resume.exists():
+            (state, sampler, hostagg, host_hll, cursor, last_frag,
+             prior_q, prior_skip, state_h, sp_edges) = resume.load()
+            # a degraded prefix stays degraded, and its skipped batches
+            # stay out of pass B
+            quarantine.seed(prior_q)
+            skipped.update(prior_skip)
+            if sp_edges is not None:
+                edges_d = tuple(runner.put_replicated(a) for a in (
+                    sp_edges.lo, sp_edges.hi, sp_edges.mean))
         with_hll = host_hll is None
+        # staged groups and the prefetch queue, capped in bytes
+        scan_s = stage_group(config.scan_batches, pad, plan.n_num,
+                             plan.n_hash, with_hll)
+        depth = max(2, min(scan_s, 8))
+        if resume is not None and scan_s > 1 and resume.every % scan_s:
+            logger.warning(
+                "checkpoint_every_batches=%d is not a multiple of the "
+                "staged group of %d batches: each checkpoint flushes a "
+                "partial group, which folds batch by batch", resume.every,
+                scan_s)
 
         def flush_group(pending, fold_staged, fold_one):
             """The staged-vs-tail flush policy of both passes: a FULL group
             ships as one stacked copy folded by one scan; a partial group
-            (the tail) folds batch by batch.  Both run the same per-batch
-            kernel calls in the same order."""
+            (the tail, a checkpoint) folds batch by batch.  Both run the
+            same per-batch kernel calls in the same order."""
             if len(pending) == scan_s and scan_s > 1:
                 fold_staged(pending)
             else:
@@ -305,14 +467,14 @@ class GPUStatsBackend:
             pending.clear()
 
         # ---- pass A (with the provisional histograms when fused) ---------
-        state = None
-        state_h = None          # the fused scan's histogram state
-        sp_edges = None         # ... and the provisional edges it bins on
-        edges_d = None
-        batches = prefetch_prepared(ingest, pad, config.hll_precision,
-                                    depth=depth, workers=workers,
-                                    prep_workers=config.prep_workers,
-                                    batch_guard=batch_guard)
+        # a checkpointed scan streams by (fragment, batch) positions, so a
+        # resume opens no fragment the saved prefix covers
+        batches = prefetch_prepared(
+            ingest, pad, config.hll_precision, depth=depth, workers=workers,
+            prep_workers=config.prep_workers, batch_guard=batch_guard,
+            positions=resume is not None,
+            resume_pos=(last_frag[0], last_frag[1] + 1)
+            if last_frag is not None else None)
         pending: List[HostBatch] = []
 
         def staged_a(group):
@@ -333,14 +495,26 @@ class GPUStatsBackend:
             else:
                 state = runner.step_a(state, db)
 
+        def save():
+            """A checkpoint after the device folded every pending batch:
+            the saved cursor is the folded count."""
+            flush_group(pending, staged_a, one_a)
+            resume.save(state, sampler, hostagg, host_hll, cursor,
+                        last_frag, quarantine, skipped, state_h, sp_edges)
+
         with span("scan_a"):
-            for key, hb in enumerate(batches):
+            for hb in batches:
+                key = cursor        # the batch's position in the stream
+                cursor += 1
                 if isinstance(hb, guard.PoisonBatch):
                     # failed past its retries: skipped in both passes
                     skipped.add(key)
+                    last_frag = hb.frag_pos or last_frag
                     quarantine.admit(site=hb.site, error=hb.error,
-                                     cursor=key + 1, rows=hb.rows,
+                                     cursor=cursor, rows=hb.rows,
                                      frag_pos=hb.frag_pos)
+                    if resume is not None and resume.due(cursor):
+                        save()
                     continue
                 if state is None:
                     state = runner.init_pass_a(estimate_shift(hb))
@@ -362,15 +536,24 @@ class GPUStatsBackend:
                         raise
                     # a fold is not idempotent: never retried, skipped
                     skipped.add(key)
+                    last_frag = hb.frag_pos or last_frag
                     quarantine.admit(site="fold", error=exc,
-                                     cursor=key + 1, rows=hb.nrows)
+                                     cursor=cursor, rows=hb.nrows,
+                                     frag_pos=hb.frag_pos)
                     continue
                 pending.append(hb)
-                if len(pending) >= scan_s:
+                last_frag = hb.frag_pos or last_frag
+                if resume is not None and resume.due(cursor):
+                    save()
+                elif len(pending) >= scan_s:
                     flush_group(pending, staged_a, one_a)
             flush_group(pending, staged_a, one_a)
             if state is None:
                 state = runner.init_pass_a()
+        if resume is not None and resume.last_saved != cursor:
+            # pass A complete: a crash in pass B resumes with the whole
+            # stream skipped; cleared once the stats are assembled
+            save()
 
         run_pass_b = config.exact_passes and ingest.rescannable \
             and plan.n_num > 0 and hostagg.n_rows > 0
@@ -452,8 +635,33 @@ class GPUStatsBackend:
             spear_state = None
             if config.spearman:
                 spear_state = runner.init_spearman()
-                grid_d = runner.put_replicated(
-                    spearman_grid(sampler, config.spearman_grid))
+                if runner.spear_grid:
+                    # the grid tier: ranks on the sample's CDF grid (K5,
+                    # or K6 then K3)
+                    spear_in = (runner.put_replicated(
+                        spearman_grid(sampler, config.spearman_grid)),)
+                    spear_one = runner.step_spearman_grid
+                    spear_staged = runner.scan_spearman_grid
+                else:
+                    # past the rank kernels' columns, the reference's
+                    # exact tier: each value's rank in its column's
+                    # sorted sample (+inf pads the unkept slots).  The
+                    # reference warns past 1,000,000 rows; the card's
+                    # time is chip_smoke.py phase 7's (PERF.md)
+                    if hostagg.n_rows > 1_000_000:
+                        logger.warning(
+                            "spearman: %d numeric columns exceed the rank "
+                            "kernels' %d, so %d rows rank on the exact "
+                            "tier (searchsorted, then a float32 Gram): "
+                            "198 ms a 65,536-row batch of 4,096 columns "
+                            "on an NVIDIA H100 80GB HBM3 at 700 W",
+                            plan.n_num, MAX_FUSED_COLS_WIDE,
+                            hostagg.n_rows)
+                    srt, kept = sampler.sorted_padded()
+                    spear_in = (runner.put_replicated(srt),
+                                runner.put_replicated(kept, np.int32))
+                    spear_one = runner.step_spearman
+                    spear_staged = runner.scan_spearman
             # ship only the missed columns when nothing else reads the
             # batch; with Spearman on the whole plane ships for the rank
             # kernels and the re-bin takes its columns from it on the
@@ -476,8 +684,7 @@ class GPUStatsBackend:
                     state_b = runner.scan_b(state_b, sb, lo_d, hi_d, mean_d,
                                             None if subset else lanes_d)
                 if spear_state is not None:
-                    spear_state = runner.scan_spearman_grid(spear_state, sb,
-                                                            grid_d)
+                    spear_state = spear_staged(spear_state, sb, *spear_in)
 
             def one_b(hb):
                 nonlocal state_b, spear_state
@@ -488,8 +695,7 @@ class GPUStatsBackend:
                     state_b = runner.step_b(state_b, db, lo_d, hi_d, mean_d,
                                             None if subset else lanes_d)
                 if spear_state is not None:
-                    spear_state = runner.step_spearman_grid(spear_state, db,
-                                                            grid_d)
+                    spear_state = spear_one(spear_state, db, *spear_in)
 
             pending_b: List[HostBatch] = []
             with span("scan_b"):
@@ -543,6 +749,8 @@ class GPUStatsBackend:
             # degraded runs only: a clean run's stats and HTML are as
             # before the guard existed
             stats["_quarantine"] = list(quarantine.entries)
+        if resume is not None:
+            resume.clear()          # the profile completed
         # private, never exported; the report footer reads it
         stats["_phases"] = get_phase_report(reset=True)
         return stats

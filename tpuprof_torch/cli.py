@@ -7,8 +7,11 @@ stands where the reference has ``--backend``: the profile runs on the first
 CUDA device unless ``--device cpu`` asks for the kernels' plain versions,
 and without a CUDA device it fails instead of running on the CPU.  Input
 errors print one ``tpuprof_torch: error: ...`` line and exit 2; a torn
-artifact, a spent quarantine budget and a watchdog timeout print one line
-too and exit with their error's code (``errors.exit_code``: 6, 5, 4).
+artifact, an unreadable checkpoint, a spent quarantine budget and a
+watchdog timeout print one line too and exit with their error's code
+(``errors.exit_code``: 6, 3, 5, 4).  ``--checkpoint PATH`` saves the
+scan every ``--checkpoint-every`` batches and resumes from PATH when it
+exists.
 """
 
 from __future__ import annotations
@@ -101,10 +104,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the profile as a CRC-sealed, "
                         "stats-only tpuprof-stats-v1 artifact (what "
                         "`diff` compares and --seed-edges reads)")
+    p.add_argument("--checkpoint", metavar="PATH",
+                   help="persist the scan every N batches and resume "
+                        "from PATH after a crash")
+    p.add_argument("--checkpoint-every", type=int, default=64,
+                   metavar="N", help="batches between checkpoints")
     ft = p.add_argument_group(
         "fault tolerance", "retry transient prepare failures, skip poison "
-        "batches instead of dying, and bound the device drain with a "
-        "watchdog")
+        "batches instead of dying, keep fallback checkpoint generations, "
+        "and bound the device drain with a watchdog")
+    ft.add_argument("--checkpoint-keep", type=int, default=None,
+                    metavar="N",
+                    help="checkpoint generations retained (PATH + "
+                         "PATH.1 ...); a resume walks back past a "
+                         "corrupt head to the newest good one "
+                         "(default: TPUPROF_CHECKPOINT_KEEP, else 2)")
     ft.add_argument("--ingest-retries", type=int, default=None,
                     metavar="N",
                     help="transient per-batch prep failures retried "
@@ -164,8 +178,9 @@ def _error(msg) -> None:
 def cmd_profile(args: argparse.Namespace) -> int:
     from tpuprof_torch.api import ProfileReport
     from tpuprof_torch.config import ProfilerConfig
-    from tpuprof_torch.errors import (InputError, PoisonBatchError,
-                                      WatchdogTimeout, exit_code)
+    from tpuprof_torch.errors import (CorruptCheckpointError, InputError,
+                                      PoisonBatchError, WatchdogTimeout,
+                                      exit_code)
     from tpuprof_torch.obs.spans import span
     from tpuprof_torch.runtime.runner import resolve_device
 
@@ -197,7 +212,10 @@ def cmd_profile(args: argparse.Namespace) -> int:
             quantile_sketch_size=args.sketch_size,
             hll_precision=args.hll_precision,
             exact_passes=not args.single_pass,
-            spearman=args.spearman, artifact_path=args.artifact)
+            spearman=args.spearman, artifact_path=args.artifact,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every_batches=args.checkpoint_every,
+            checkpoint_keep=args.checkpoint_keep)
     except ValueError as exc:
         _error(exc)
         return 2
@@ -211,8 +229,10 @@ def cmd_profile(args: argparse.Namespace) -> int:
         # a traceback; every other failure keeps its traceback
         _error(exc)
         return 2
-    except (PoisonBatchError, WatchdogTimeout) as exc:
-        # the ingest guard ran out: one line and its own exit code
+    except (PoisonBatchError, WatchdogTimeout,
+            CorruptCheckpointError) as exc:
+        # the ingest guard ran out, or no checkpoint generation is
+        # readable: one line and its own exit code
         _error(exc)
         return exit_code(exc)
     with span("render"):

@@ -23,7 +23,6 @@ NESTED_POLICIES = ("stringify", "opaque")
 # reference's historical default)
 UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
 
-_CHECKPOINT = "checkpoint/streaming/artifacts"
 _FLEET = "multi-GPU and fleet"
 _SERVE = "serve"
 _TELEMETRY = "telemetry"
@@ -38,11 +37,7 @@ _LATER = {
     "spill_dir_auto": "spilled exact-unique tracking",
     "exact_distinct": "exact distinct counting",
     "mesh_devices": _FLEET,
-    "stream_flush_rows": _CHECKPOINT,
     "compile_cache_dir": _SERVE,
-    "checkpoint_path": _CHECKPOINT,
-    "checkpoint_every_batches": _CHECKPOINT,
-    "checkpoint_keep": _CHECKPOINT,
     "barrier_timeout_s": _FLEET,
     "elastic": _FLEET,
     "fleet_dir": _FLEET,
@@ -71,7 +66,7 @@ _LATER = {
     "read_cache": _SERVE,
     "read_cache_entries": _SERVE,
     "read_cache_bytes": _SERVE,
-    "artifact_keep": _CHECKPOINT,
+    "artifact_keep": _SERVE,
     "metrics_enabled": _TELEMETRY,
     "metrics_path": _TELEMETRY,
     "metrics_interval": _TELEMETRY,
@@ -146,6 +141,18 @@ class ProfilerConfig:
     quarantine_log: Optional[str] = None    # JSONL of skipped batches
     drain_timeout_s: Optional[float] = None  # watchdog on the device drain
 
+    # ---- durable profiles (runtime/checkpoint.py, runtime/stream.py) -----
+    stream_flush_rows: Optional[int] = None  # a stream folds once this
+                                             # many rows are buffered
+                                             # (None: batch_rows)
+    checkpoint_path: Optional[str] = None   # the scan's fold state is
+                                            # saved here every
+                                            # checkpoint_every_batches
+                                            # batches; a rerun resumes
+    checkpoint_every_batches: int = 64
+    checkpoint_keep: Optional[int] = None   # generations kept (path,
+                                            # path.1, ...; resolve_*)
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
     parity: bool = False
     backend: str = "auto"
@@ -155,11 +162,7 @@ class ProfilerConfig:
     spill_dir_auto: bool = False
     exact_distinct: bool = False
     mesh_devices: Optional[int] = None
-    stream_flush_rows: Optional[int] = None
     compile_cache_dir: Optional[str] = None
-    checkpoint_path: Optional[str] = None
-    checkpoint_every_batches: int = 64
-    checkpoint_keep: Optional[int] = None
     barrier_timeout_s: Optional[float] = None
     elastic: Optional[bool] = None
     fleet_dir: Optional[str] = None
@@ -227,6 +230,10 @@ class ProfilerConfig:
             raise ValueError("scan_batches must be >= 1")
         if self.prepare_workers is not None and self.prepare_workers < 1:
             raise ValueError("prepare_workers must be >= 1 (or None)")
+        if self.stream_flush_rows is not None and self.stream_flush_rows < 1:
+            raise ValueError("stream_flush_rows must be >= 1 (or None)")
+        if self.checkpoint_keep is not None and self.checkpoint_keep < 1:
+            raise ValueError("checkpoint_keep must be >= 1 (or None)")
         if self.nested not in NESTED_POLICIES:
             raise ValueError(
                 f"nested={self.nested!r} — use 'stringify' (profile the "
@@ -382,6 +389,16 @@ def resolve_max_quarantined(value: Optional[int] = None) -> int:
         return max(int(value), 0)
     env = _env_int("TPUPROF_MAX_QUARANTINED")
     return max(env, 0) if env is not None else 0
+
+
+def resolve_checkpoint_keep(value: Optional[int] = None) -> int:
+    """Checkpoint generations kept (the head plus rotated ``path.N``): an
+    explicit value, else ``TPUPROF_CHECKPOINT_KEEP``, else 2 — one
+    fallback generation behind the head (the reference's)."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_CHECKPOINT_KEEP")
+    return max(env, 1) if env is not None else 2
 
 
 def resolve_watchdog_timeout(value: Optional[float], var: str

@@ -1,7 +1,9 @@
 """Errors the port raises (counterpart of the subset of ``tpuprof/errors.py``
 that this package uses) and the CLI's exit code for each.
 
-The ingest guard (``runtime/guard.py``) adds three, each under the base
+``CorruptCheckpointError`` is what a torn, foreign or garbage checkpoint
+raises (``runtime/checkpoint.py``).  The ingest guard (``runtime/guard.py``)
+adds three, each under the base
 class its call sites raised before, so existing ``except`` clauses hold:
 ``TransientError`` (``OSError``, the retryable class), ``PoisonBatchError``
 (a batch failed past the retry and quarantine budgets; carries the
@@ -19,6 +21,12 @@ class InputError(ValueError):
 class TransientError(OSError):
     """An error worth retrying: the operation is idempotent and the failure
     (an I/O hiccup, an injected fault) is expected to clear."""
+
+
+class CorruptCheckpointError(ValueError):
+    """A checkpoint failed an integrity check (CRC32, truncation, format
+    version, a payload another package wrote, an undecodable payload):
+    never a raw ``EOFError`` or ``UnpicklingError``."""
 
 
 class CorruptArtifactError(ValueError):
@@ -50,8 +58,8 @@ class WatchdogTimeout(TimeoutError):
 
 # the reference's codes (``tpuprof/errors.py`` ``_EXIT_CODES``) for the
 # classes the port has
-_EXIT_CODES = ((CorruptArtifactError, 6), (WatchdogTimeout, 4),
-               (PoisonBatchError, 5), (InputError, 2))
+_EXIT_CODES = ((CorruptCheckpointError, 3), (CorruptArtifactError, 6),
+               (WatchdogTimeout, 4), (PoisonBatchError, 5), (InputError, 2))
 
 
 def exit_code(exc: BaseException) -> int:

@@ -168,6 +168,9 @@ class HostBatch:
     hll_precision: int = 11
     col_nbytes: Optional[Dict[str, int]] = None       # Arrow buffer bytes
     col_dict_nbytes: Optional[Dict[str, int]] = None  # shared dictionaries
+    # (fragment, batch) of a positioned stream: a checkpoint records the
+    # last folded one, so a resume skips whole fragments' reads
+    frag_pos: Optional[Tuple[int, int]] = None
 
 
 def _hash64(keys: np.ndarray) -> np.ndarray:
@@ -449,7 +452,9 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
 def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
                       depth: int = 2, hashes: bool = True,
                       workers: int = 1, prep_workers: Optional[int] = None,
-                      batch_guard=None, skip_keys=frozenset()
+                      batch_guard=None, skip_keys=frozenset(),
+                      positions: bool = False,
+                      resume_pos: Optional[Tuple[int, int]] = None
                       ) -> Iterator:
     """Prepared batches in stream order, ``workers`` prepares in flight.
 
@@ -463,7 +468,14 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     batches at any worker count; with quarantine on, a batch that keeps
     failing arrives as a ``PoisonBatch``.  Batches whose position is in
     ``skip_keys`` (those pass A quarantined) are not read into a prepare
-    and do not arrive."""
+    and do not arrive.
+
+    ``positions=True`` (a checkpointed scan) streams fragment by fragment
+    (``ArrowIngest.raw_batches_positioned``), stamps each batch's
+    ``frag_pos`` and keys the guard on it, as the reference does; with
+    ``resume_pos=(fi, done)`` the first ``fi`` fragments are never opened
+    and fragment ``fi``'s first ``done`` batches are skipped unprepared
+    (zero-copy slices of a table)."""
     depth = max(depth, workers)
     col_threads = resolve_prep_workers(prep_workers, batch_workers=workers)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -485,18 +497,29 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     pool = ThreadPoolExecutor(max_workers=workers,
                               thread_name_prefix="tpuprof-torch-prep")
 
-    def _prep(rb, key):
+    def _prep(rb, key, frag_pos=None):
         def _do():
-            return prepare_batch(rb, ingest.plan, pad, hll_precision,
-                                 hashes, ingest.dict_cache,
-                                 ingest.col_stats, col_threads)
+            hb = prepare_batch(rb, ingest.plan, pad, hll_precision,
+                               hashes, ingest.dict_cache,
+                               ingest.col_stats, col_threads)
+            hb.frag_pos = frag_pos
+            return hb
         if batch_guard is None:
             return _do()
         return batch_guard.run(_do, site="prep", key=key,
-                               rows=rb.num_rows)
+                               rows=rb.num_rows, frag_pos=frag_pos)
 
     def reader():
         try:
+            if positions:
+                start, done = resume_pos or (0, 0)
+                for fi, bi, rb in ingest.raw_batches_positioned(start):
+                    if fi == start and bi < done:
+                        continue
+                    if not _put(pool.submit(_prep, rb, (fi, bi),
+                                            (fi, bi))):
+                        return
+                return
             for k, rb in enumerate(ingest.raw_batches()):
                 if k in skip_keys:
                     continue
@@ -612,6 +635,7 @@ class ArrowIngest:
                                                     arrow_schema.names)
                 arrow_schema = pa.schema([arrow_schema.field(c)
                                           for c in self._columns])
+        self.arrow_schema = arrow_schema
         self.plan = ColumnPlan.from_schema(arrow_schema, nested=nested)
         self.rescannable = True
         self.dict_cache = _DictionaryCache()
@@ -627,11 +651,7 @@ class ArrowIngest:
         skipping the batches already delivered (batch edges within a
         fragment are the same either way)."""
         if self._dataset is None:
-            tbl, pos = self._table, 0
-            while pos < tbl.num_rows:
-                window = tbl.slice(pos, self.batch_rows).combine_chunks()
-                yield from window.to_batches()
-                pos += self.batch_rows
+            yield from self._table_windows()
             return
         delivered = 0
         try:
@@ -647,13 +667,30 @@ class ArrowIngest:
             if seen > delivered:
                 yield rb
 
-    def raw_batches_positioned(self) -> Iterator[Tuple[int, int,
-                                                        pa.RecordBatch]]:
-        """A dataset's batches fragment by fragment as (fragment, batch,
-        record batch).  A fragment whose read raises ``OSError`` is read
-        again, up to ``max_retries`` times, skipping the batches it already
-        gave; then the error stands."""
+    def _table_windows(self) -> Iterator[pa.RecordBatch]:
+        tbl, pos = self._table, 0
+        while pos < tbl.num_rows:
+            window = tbl.slice(pos, self.batch_rows).combine_chunks()
+            yield from window.to_batches()
+            pos += self.batch_rows
+
+    def raw_batches_positioned(self, skip_fragments: int = 0
+                               ) -> Iterator[Tuple[int, int,
+                                                   pa.RecordBatch]]:
+        """The batches fragment by fragment as (fragment, batch, record
+        batch); the first ``skip_fragments`` fragments are never opened.
+        A table is one fragment of :meth:`raw_batches`'s windows (zero-copy
+        slices until a window's chunks combine).  A fragment whose read
+        raises ``OSError`` is read again, up to ``max_retries`` times,
+        skipping the batches it already gave; then the error stands."""
+        if self._dataset is None:
+            if skip_fragments < 1:
+                for bi, rb in enumerate(self._table_windows()):
+                    yield 0, bi, rb
+            return
         for fi, fragment in enumerate(self._dataset.get_fragments()):
+            if fi < skip_fragments:
+                continue
             delivered = 0
             for attempt in range(self.max_retries + 1):
                 try:
@@ -668,6 +705,39 @@ class ArrowIngest:
                 except OSError:
                     if attempt == self.max_retries:
                         raise
+
+    def fingerprint(self) -> str:
+        """The source's identity (the reference's recipe): the projected
+        column names and types (dictionary encoding normalized away), then
+        for a table its row count and the IPC bytes of its first 4,096
+        rows, for a dataset each fragment's path, size and mtime.  A
+        checkpoint carries it, so a resume on other data is refused."""
+        import hashlib
+        import os
+        h = hashlib.sha256()
+        for field in self.arrow_schema:
+            t = field.type
+            if isinstance(t, pa.DictionaryType):
+                t = t.value_type
+            h.update(f"{field.name}:{t}".encode())
+        if self._table is not None:
+            h.update(f"rows={self._table.num_rows}".encode())
+            head = self._table.slice(0, 4096).combine_chunks()
+            sink = pa.BufferOutputStream()
+            with pa.ipc.new_stream(sink, head.schema) as writer:
+                writer.write_table(head)
+            h.update(memoryview(sink.getvalue()))
+        else:
+            for frag in self._dataset.get_fragments():
+                path = getattr(frag, "path", "")
+                try:
+                    stat = os.stat(path) if path else None
+                except OSError:
+                    stat = None
+                size = stat.st_size if stat else 0
+                mtime = int(stat.st_mtime_ns) if stat else 0
+                h.update(f"{path}:{size}:{mtime}".encode())
+        return h.hexdigest()
 
     def sample(self, n_rows: int) -> pd.DataFrame:
         if self._dataset is not None:

@@ -1,12 +1,10 @@
 """Host-side mergeable uniform row sample (bottom-k priority sampling).
 
-Copy of ``tpuprof/ingest/sample.py`` (without ``sorted_padded``, which only
-its exact Spearman tier reads).  Keeping the global top-K of i.i.d.
-uniform row priorities over any
-partition of the stream is a uniform sample without replacement, so the
-merge is exact in distribution and sample quantiles have rank error
-O(1/sqrt(K)).  The RNG stream (seed, process, batch) matches the reference,
-so the same batches give the same sample.
+Copy of ``tpuprof/ingest/sample.py``. Keeping the global top-K of i.i.d.
+uniform row priorities over any partition of the stream is a uniform sample
+without replacement, so the merge is exact in distribution and sample
+quantiles have rank error O(1/sqrt(K)). The RNG stream (seed, process,
+batch) matches the reference, so the same batches give the same sample.
 """
 
 from __future__ import annotations
@@ -120,3 +118,12 @@ class RowSampler:
         with np.errstate(invalid="ignore"):
             rho = df.corr(method="spearman").to_numpy()
         return rho
+
+    def sorted_padded(self) -> Tuple[np.ndarray, np.ndarray]:
+        """For the exact Spearman tier (tables wider than the rank
+        kernels take): each column's ascending finite sample, padded with
+        +inf to k, and the kept counts (counterpart of the reference's
+        ``RowSampler.sorted_padded``)."""
+        vals, kept = self.columns()
+        padded = np.where(kept, vals, np.inf).astype(np.float32)
+        return np.sort(padded, axis=1), kept.sum(axis=1).astype(np.int64)

@@ -9,8 +9,10 @@
 //   shared-memory int32 histogram (integer atomics: exact in any order)
 //   and into the thread's sum |x - mean|;
 // * hist_store: the block's fixed-shape tree of those sums to one partial
-//   per (column, row-split), and the block histogram added to the output
-//   with integer atomics;
+//   per (column, row-split) (dev_store), and the block histogram added to
+//   the output with integer atomics;
+// * bin_of / dev_store: the same bin and the same tree for K2's body past
+//   HIST_MAX_BINS, which counts straight into the output (hist_b.cu);
 // * dev_fold: the partials folded in split order (a rerun gives the same
 //   bits).
 //
@@ -38,7 +40,9 @@
 namespace tpt {
 
 constexpr int HIST_THREADS = 256;
-constexpr int HIST_MAX_BINS = 8192;   // the shared-memory histogram's bound
+// the shared-memory histogram's bound: K4's, and K2's shared body's (K2
+// counts more bins in device memory)
+constexpr int HIST_MAX_BINS = 8192;
 
 // hist.py bin_scale: one IEEE subtraction, torch.clamp_min (which keeps a
 // NaN, where fmaxf would not), one IEEE division.
@@ -48,23 +52,27 @@ __device__ __forceinline__ float bin_scale(float lo, float hi, int nbins) {
   return __fdiv_rn((float)nbins, width);
 }
 
+// The bin of one valid, finite value: clip(floor(t), 0, nbins - 1).
+__device__ __forceinline__ int bin_of(float x, float lo, float scale,
+                                      float top) {
+  const float t = __fmul_rn(__fsub_rn(x, lo), scale);
+  // fmaxf returns 0 for a NaN t, the cumulative body's bin
+  return (int)fminf(fmaxf(floorf(t), 0.f), top);
+}
+
 __device__ __forceinline__ void hist_add(float x, float lo, float scale,
                                          float mean, float top,
                                          int* __restrict__ hist,
                                          float& dev) {
-  const float t = __fmul_rn(__fsub_rn(x, lo), scale);
-  // fmaxf returns 0 for a NaN t, the cumulative body's bin
-  const float b = fminf(fmaxf(floorf(t), 0.f), top);
-  atomicAdd(&hist[(int)b], 1);
+  atomicAdd(&hist[bin_of(x, lo, scale, top)], 1);
   dev += fabsf(x - mean);
 }
 
-// Every thread of the block must call it, after its last hist_add.
-__device__ __forceinline__ void hist_store(float dev,
-                                           const int* __restrict__ hist,
-                                           int nbins, int64_t part,
-                                           int* __restrict__ counts,
-                                           float* __restrict__ pdev) {
+// The block's fixed-shape tree of the threads' sums |x - mean| to one
+// partial per (column, row-split).  Every thread of the block must call
+// it, after its last value.
+__device__ __forceinline__ void dev_store(float dev, int64_t part,
+                                          float* __restrict__ pdev) {
   __shared__ float red[HIST_THREADS];
   red[threadIdx.x] = dev;
   __syncthreads();
@@ -73,6 +81,15 @@ __device__ __forceinline__ void hist_store(float dev,
     __syncthreads();
   }
   if (threadIdx.x == 0) pdev[part] = red[0];
+}
+
+// Every thread of the block must call it, after its last hist_add.
+__device__ __forceinline__ void hist_store(float dev,
+                                           const int* __restrict__ hist,
+                                           int nbins, int64_t part,
+                                           int* __restrict__ counts,
+                                           float* __restrict__ pdev) {
+  dev_store(dev, part, pdev);
   for (int b = threadIdx.x; b < nbins; b += HIST_THREADS) {
     const int v = hist[b];
     if (v) atomicAdd(&counts[b], v);

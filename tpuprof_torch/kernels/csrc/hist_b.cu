@@ -41,6 +41,9 @@
 // thread, measured no faster (within 2% at 10 bins; the fold 17-42%
 // slower at 8,192 bins).
 //
+// Past HIST_MAX_BINS bins (8,192) a second body, hist_partial_global,
+// counts into the output in device memory: see it below.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math:
 // isfinite, floor and denormals must behave as IEEE says).
 
@@ -80,6 +83,45 @@ hist_partial(const float* __restrict__ xt, const uint8_t* __restrict__ rv,
                   counts + (int64_t)c * nbins, pdev);
 }
 
+// The body past HIST_MAX_BINS: a (column, nbins) histogram does not fit in
+// shared memory, so each value's bin is added straight into the zeroed
+// output with an integer atomicAdd in device memory (exact in any order,
+// so the counts are deterministic).  The scale, the clip, the row walk and
+// the MAD tree are the shared body's, so each column's MAD bits equal
+// those of the shared body on the same batch.  Bound: the same bytes as
+// the shared body, plus one global atomic a value; the atomics of a column
+// whose values spread over its bins rarely collide, those of a column
+// whose values share a bin serialize in L2.
+__global__ void __launch_bounds__(HIST_THREADS)
+hist_partial_global(const float* __restrict__ xt,
+                    const uint8_t* __restrict__ rv,
+                    const float* __restrict__ lo,
+                    const float* __restrict__ hi,
+                    const float* __restrict__ mean, int64_t R, int nbins,
+                    int64_t rows_per_split, int splits,
+                    int* __restrict__ counts, float* __restrict__ pdev) {
+  const int c = blockIdx.x;
+  const int s = blockIdx.y;
+  const float* col = xt + (int64_t)c * R;
+  int* out = counts + (int64_t)c * nbins;
+  const float l = lo[c];
+  const float sc = tpt::bin_scale(l, hi[c], nbins);
+  const float mu = mean[c];
+  const float top = (float)(nbins - 1);
+  const int64_t r0 = (int64_t)s * rows_per_split;
+  const int64_t r1 = min(R, r0 + rows_per_split);
+  float dev = 0.f;
+#pragma unroll 8
+  for (int64_t r = r0 + threadIdx.x; r < r1; r += HIST_THREADS) {
+    const float x = __ldcs(col + r);
+    if (rv[r] != 0 && isfinite(x)) {
+      atomicAdd(&out[tpt::bin_of(x, l, sc, top)], 1);
+      dev += fabsf(x - mu);
+    }
+  }
+  tpt::dev_store(dev, (int64_t)c * splits + s, pdev);
+}
+
 }  // namespace
 
 extern "C" const char* tpt_error_string(int e) {
@@ -88,6 +130,7 @@ extern "C" const char* tpt_error_string(int e) {
 extern "C" int tpt_hist_b_max_bins() { return tpt::HIST_MAX_BINS; }
 
 // One pass-B batch: two launches on ``stream``, returns cudaGetLastError().
+// Up to HIST_MAX_BINS bins the shared body counts, past it the global one.
 // ``counts`` (C, nbins) must arrive zeroed; pdev is (C, splits) scratch.
 extern "C" int tpt_hist_b(const float* xt, const uint8_t* row_valid,
                           const float* lo, const float* hi,
@@ -95,9 +138,14 @@ extern "C" int tpt_hist_b(const float* xt, const uint8_t* row_valid,
                           int splits, int64_t rows_per_split, int* counts,
                           float* pdev, float* dev, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  hist_partial<<<dim3(C, splits), HIST_THREADS, nbins * sizeof(int), st>>>(
-      xt, row_valid, lo, hi, mean, R, nbins, rows_per_split, splits,
-      counts, pdev);
+  if (nbins <= tpt::HIST_MAX_BINS)
+    hist_partial<<<dim3(C, splits), HIST_THREADS, nbins * sizeof(int),
+                   st>>>(xt, row_valid, lo, hi, mean, R, nbins,
+                         rows_per_split, splits, counts, pdev);
+  else
+    hist_partial_global<<<dim3(C, splits), HIST_THREADS, 0, st>>>(
+        xt, row_valid, lo, hi, mean, R, nbins, rows_per_split, splits,
+        counts, pdev);
   tpt::dev_fold<<<(C + 127) / 128, 128, 0, st>>>(pdev, C, splits, dev);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,12 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
   ``_fused_ab_tiles``), up to ``MAX_FUSED_AB_COLS`` columns, bit for bit
   K1 followed by K2.
 
+* :func:`update_xla`, the reference's XLA twin (``moments.update`` then
+  ``corr.update``: PyTorch calls, no kernel), folds tables wider than
+  ``MAX_FUSED_COLS_WIDE`` columns, and :func:`spearman_update_exact`
+  (``searchsorted`` ranks in the row sample, then ``corr.update``) ranks
+  them for Spearman: the reference's exact tier.
+
 All return the reference's state dicts, so merge and finalize never care
 which ran.  ``launches``, ``launches_wide``, ``launches_spear``,
 ``launches_rank`` and ``launches_ab`` count the launches of K1, K3, K5, K6
@@ -33,6 +39,7 @@ and K4.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -41,6 +48,7 @@ import torch
 
 from tpuprof_torch import kernels as _k
 from tpuprof_torch.config import MAX_SPEAR_GRID
+from tpuprof_torch.kernels import corr, moments
 from tpuprof_torch.kernels import hist as khist
 
 MAX_FUSED_COLS = 512
@@ -71,9 +79,9 @@ Grams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 TilesAB = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
-_WIDER = ("the reference's XLA formulation for more than "
-          f"{MAX_FUSED_COLS_WIDE} numeric columns is a later slice of the "
-          "PyTorch port")
+_WIDER = (f"the kernels take at most {MAX_FUSED_COLS_WIDE} columns; wider "
+          "tables fold with update_xla and rank on the exact tier "
+          "(runtime/runner.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +344,7 @@ def _check_batch(xt, row_valid) -> None:
     if row_valid.device != xt.device:
         raise ValueError("xt and row_valid must share a device")
     if xt.shape[0] > MAX_FUSED_COLS_WIDE:
-        raise NotImplementedError(f"{xt.shape[0]} numeric columns: {_WIDER}")
+        raise ValueError(f"{xt.shape[0]} columns: {_WIDER}")
 
 
 def _check_inputs(xt, row_valid, shift) -> None:
@@ -512,7 +520,7 @@ def _bind_ab(lib: ctypes.CDLL) -> None:
                                  p, p]
     lib.tpt_fused_ab.restype = ctypes.c_int
     lib.tpt_fused_ab_max_bins.restype = ctypes.c_int
-    if lib.tpt_fused_ab_max_bins() != khist.MAX_BINS:
+    if lib.tpt_fused_ab_max_bins() != khist.SHARED_MAX_BINS:
         raise RuntimeError("hist.cuh HIST_MAX_BINS disagrees with "
                            "tpuprof_torch/kernels/hist.py")
 
@@ -522,6 +530,10 @@ def _check_ab(xt, row_valid, shift, lo, hi, mean, nbins,
     _check_inputs(xt, row_valid, shift)
     khist.check_inputs(xt, row_valid, lo, hi, mean, nbins, kernel)
     _narrow_only(xt.shape[0], "kernel K4")
+    if nbins > khist.SHARED_MAX_BINS:
+        raise ValueError(
+            f"kernel K4 counts at most {khist.SHARED_MAX_BINS} bins in "
+            f"shared memory, got {nbins}; more bins take K1 then K2")
 
 
 def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
@@ -604,6 +616,39 @@ def update(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
     return update_plain(mom, co, xt, row_valid)
 
 
+@contextlib.contextmanager
+def _full_f32():
+    """float32 ``torch.matmul`` in full float32 whatever the caller set:
+    ``allow_tf32`` off for the block, restored after (the port's no-TF32
+    rule; the reference's ``precision=HIGHEST``)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def update_xla(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
+               xt: torch.Tensor, row_valid: torch.Tensor):
+    """The reference's XLA twin (``tpuprof/kernels/fused.py``
+    ``update_xla``): ``moments.update`` then ``corr.update`` of
+    ``x = xt.T``, the pass-A fold of tables wider than
+    ``MAX_FUSED_COLS_WIDE`` columns, on any device.  Not a kernel of the
+    port: the reference computes it in XLA outside any Pallas kernel, and
+    here it is PyTorch calls, the Gram's four products ``torch.matmul``.
+    Those run in full float32 whatever the caller set
+    (``allow_tf32`` off for the call, restored after), as the reference's
+    ``precision=HIGHEST``.  Its temporaries are four (rows, cols) float32
+    arrays (4.3 GB at 4,096 x 65,536)."""
+    if xt.dim() != 2 or tuple(row_valid.shape) != (xt.shape[1],):
+        raise ValueError("xt must be (cols, rows) and row_valid (rows,)")
+    x = xt.T
+    with _full_f32():
+        return moments.update(mom, x, row_valid), corr.update(co, x,
+                                                              row_valid)
+
+
 def spearman_update(co: Dict[str, torch.Tensor], xt: torch.Tensor,
                     row_valid: torch.Tensor, grid: torch.Tensor):
     """Fold one batch of grid ranks into a corr state whose shift is 0.5
@@ -628,6 +673,37 @@ def rank_transform(xt: torch.Tensor, row_valid: torch.Tensor,
         return rank_cuda(xt, row_valid, grid)
     _cpu_only(xt, "rank")
     return rank_transform_plain(xt, row_valid, grid)
+
+
+def exact_ranks(xt: torch.Tensor, row_valid: torch.Tensor,
+                sorted_sample: torch.Tensor,
+                kept: torch.Tensor) -> torch.Tensor:
+    """The reference's exact rank tier (``mesh.py`` ``local_step_spear``):
+    each value's rank in its column's sorted padded row sample,
+    ``(left + right) * 0.5 / max(kept, 1)`` with ``left``/``right`` the
+    two ``searchsorted`` sides, NaN where the value is not finite or the
+    row not valid; (cols, rows) float32.  Not a kernel: batched
+    ``torch.searchsorted`` with int32 indices (half the bytes of int64's:
+    2.1 GB for both sides at 4,096 x 65,536)."""
+    left = torch.searchsorted(sorted_sample, xt, out_int32=True)
+    right = torch.searchsorted(sorted_sample, xt, out_int32=True,
+                               right=True)
+    denom = torch.clamp_min(kept, 1).to(_F32)[:, None]
+    ranks = (left + right).to(_F32) * 0.5 / denom
+    del left, right
+    finite = row_valid[None, :] & torch.isfinite(xt)
+    return torch.where(finite, ranks, float("nan"))
+
+
+def spearman_update_exact(co: Dict[str, torch.Tensor], xt: torch.Tensor,
+                          row_valid: torch.Tensor,
+                          sorted_sample: torch.Tensor,
+                          kept: torch.Tensor):
+    """Fold one batch's :func:`exact_ranks` into the corr state with
+    ``corr.update`` (full float32 products, as :func:`update_xla`)."""
+    ranks = exact_ranks(xt, row_valid, sorted_sample, kept)
+    with _full_f32():
+        return corr.update(co, ranks.T, row_valid)
 
 
 def spearman_update_wide(co: Dict[str, torch.Tensor], ranks_t: torch.Tensor,

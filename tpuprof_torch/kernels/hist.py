@@ -6,7 +6,10 @@ per-column pass-A bounds ``lo``/``hi``/``mean``, and returns
 ((cols, nbins) int32 per-bin counts, (cols,) float32 sum |x - mean|):
 
 * on a CUDA tensor it launches kernel K2 (``csrc/hist_b.cu``), which
-  replaces the TPU kernel ``histogram_tiles``;
+  replaces the TPU kernel ``histogram_tiles``: up to
+  :data:`SHARED_MAX_BINS` bins its blocks count in a shared-memory
+  histogram, past that straight into the output in device memory (any
+  ``nbins >= 1``, as the reference takes);
 * on a CPU tensor it runs :func:`histogram_plain`, the plain PyTorch
   version, which follows the reference's cumulative body.
 
@@ -28,7 +31,9 @@ import torch
 from tpuprof_torch import kernels as _k
 
 KERNELS = ("cumulative", "legacy")
-MAX_BINS = 8192                 # shared-memory histogram bound of K2
+# the bins K2's shared-memory body (and K4) count; K2 takes more in its
+# device-memory body
+SHARED_MAX_BINS = 8192
 
 launches = 0            # K2 launches in this process (see module docstring)
 
@@ -49,18 +54,25 @@ def histogram_plain(xt: torch.Tensor, row_valid: torch.Tensor,
                     lo: torch.Tensor, hi: torch.Tensor, mean: torch.Tensor,
                     nbins: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`histogram_batch`: cumulative
-    >=-edge counts on ``t = (x - lo) * scale``, differenced per bin."""
+    >=-edge counts on ``t = (x - lo) * scale``, differenced per bin.  Each
+    column's count of ``t >= b`` is its length less the count below ``b``
+    in its sorted ``t`` (one ``searchsorted`` for every edge), so the
+    version costs a sort, not a pass a bin."""
     from tpuprof_torch.kernels.histogram import counts_from_cumulative
-    C = xt.shape[0]
+    C, R = xt.shape
     scale = bin_scale(lo, hi, nbins)
     finite = row_valid[None, :] & torch.isfinite(xt)
-    # NaN fails every >= compare, so one select masks invalid values
-    t = torch.where(finite, (xt - lo[:, None]) * scale[:, None],
-                    float("nan"))
+    t = (xt - lo[:, None]) * scale[:, None]
+    # -inf fails every >= compare: invalid values, and a NaN t (an inf
+    # difference times a zero scale, or a NaN scale), count in no edge
+    t = torch.where(finite & ~torch.isnan(t), t, float("-inf"))
+    edges = torch.arange(1, nbins, dtype=torch.float32,
+                         device=xt.device).expand(C, nbins - 1)
+    below = torch.searchsorted(torch.sort(t, dim=1).values,
+                               edges.contiguous())
     cum = torch.empty((C, nbins), dtype=torch.int32, device=xt.device)
     cum[:, 0] = finite.sum(1, dtype=torch.int32)
-    for b in range(1, nbins):
-        cum[:, b] = (t >= float(b)).sum(1, dtype=torch.int32)
+    cum[:, 1:] = (R - below).to(torch.int32)
     dev = row_sums(torch.where(finite, (xt - mean[:, None]).abs(), 0.0))
     return counts_from_cumulative(cum), dev
 
@@ -83,8 +95,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tpt_hist_b_max_bins.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p
-    if lib.tpt_hist_b_max_bins() != MAX_BINS:
-        raise RuntimeError("hist_b.cu MAX_BINS disagrees with "
+    if lib.tpt_hist_b_max_bins() != SHARED_MAX_BINS:
+        raise RuntimeError("hist.cuh HIST_MAX_BINS disagrees with "
                            "tpuprof_torch/kernels/hist.py")
 
 
@@ -107,10 +119,12 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on the current stream (its blocks form the scale
     :func:`bin_scale` computes, bit for bit); same outputs as
-    :func:`histogram_plain`.  The rows split as a batch of ``split_cols``
-    columns does (default: ``xt``'s own): a re-bin of a few of a table's
-    columns passes the table's width, so each column's MAD folds in the
-    order the full-width pass folds it, bit for bit."""
+    :func:`histogram_plain`. Past :data:`SHARED_MAX_BINS` bins the launch
+    takes K2's device-memory body, whose MAD bits are the shared body's.
+    The rows split as a batch of ``split_cols`` columns does (default:
+    ``xt``'s own): a re-bin of a few of a table's columns passes the
+    table's width, so each column's MAD folds in the order the full-width
+    pass folds it, bit for bit."""
     global launches
     if not xt.is_cuda:
         raise ValueError("histogram_cuda needs CUDA tensors")
@@ -144,8 +158,8 @@ def check_inputs(xt, row_valid, lo, hi, mean, nbins,
     if kernel not in KERNELS:
         raise ValueError(f"unknown pass-B kernel {kernel!r} — use "
                          f"{list(KERNELS)}")
-    if not 1 <= nbins <= MAX_BINS:
-        raise ValueError(f"bins must be in [1, {MAX_BINS}], got {nbins}")
+    if nbins < 1:
+        raise ValueError(f"bins must be >= 1, got {nbins}")
     if xt.dtype != torch.float32 or xt.dim() != 2 or not xt.is_contiguous():
         raise ValueError("xt must be a contiguous (cols, rows) float32 "
                          f"tensor, got {xt.dtype} {tuple(xt.shape)}")

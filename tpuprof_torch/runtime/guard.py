@@ -148,6 +148,12 @@ class Quarantine:
             raise exc
         return entry
 
+    def seed(self, entries) -> None:
+        """Adopt a restored checkpoint's manifest: a degraded prefix stays
+        degraded after a resume."""
+        with self._lock:
+            self.entries = list(entries or [])
+
 
 def _expired(site: str, timeout_s: float,
              heartbeat: Optional[Callable[[], Dict[str, Any]]]

@@ -2,13 +2,19 @@
 
 Counterpart of ``tpuprof/runtime/mesh.py`` for one device.  The runner owns
 the device, ships host batches to it, and folds them into the pass-A state
-``{"mom", "corr", "hll"}`` (kernel K1, or K3 past 512 numeric columns), the
-pass-B state ``{"counts", "abs_dev"}`` (kernel K2) and, with Spearman on, the
-rank-correlation state (a corr state about 0.5: kernel K5, or K6 then K3 past
-512 columns).  A single-pass profile folds the pass-A and pass-B states from
-one shipped batch (``step_ab`` / ``scan_ab``): kernel K4 up to 512 columns,
-K3 then K2 past that.  States are dicts of tensors with the reference's
-keys, so the merge laws and finalizers carry over.
+``{"mom", "corr", "hll"}`` (kernel K1, K3 past 512 numeric columns, and
+past 2,048 the reference's XLA twin ``fused.update_xla``, PyTorch calls),
+the pass-B state ``{"counts", "abs_dev"}`` (kernel K2, any bin count) and,
+with Spearman on, the rank-correlation state: on the grid tier up to 2,048
+columns (a corr state about 0.5: kernel K5, or K6 then K3 past 512
+columns), past that on the reference's exact tier (``searchsorted`` ranks in
+the sorted row sample, then ``corr.update``).  A single-pass profile folds
+the pass-A and pass-B states from one shipped batch (``step_ab`` /
+``scan_ab``): kernel K4 up to 512 columns and 8,192 bins, else pass A's
+route then K2 on the same batch (the reference's paired dispatch).  The
+tiers are the reference's (``mesh.py``: ``use_fused``, ``spear_grid``,
+``_ab_combined_kernel``).  States are dicts of tensors with the
+reference's keys, so the merge laws and finalizers carry over.
 
 Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
 copies S batches as ONE host-to-device transfer from pinned memory, and the
@@ -77,16 +83,14 @@ class Runner:
         self.precision = config.hll_precision
         self.bins = config.bins
         self.pass_b_kernel = config.pass_b
-        if n_num > fused.MAX_FUSED_COLS_WIDE:
-            raise NotImplementedError(
-                f"{n_num} numeric columns: tables wider than "
-                f"{fused.MAX_FUSED_COLS_WIDE} numeric columns (the "
-                "reference's XLA formulation) are a later slice of the "
-                "PyTorch port")
-        if self.bins > hist.MAX_BINS:
-            raise NotImplementedError(
-                f"bins={self.bins}: more than {hist.MAX_BINS} bins is a "
-                "later slice of the PyTorch port")
+        # the pass-A kernels (K1, K3) and the grid rank kernels (K5, K6)
+        # take up to MAX_FUSED_COLS_WIDE columns; wider tables fold with
+        # the reference's XLA twin and rank on its exact tier
+        self.use_fused = n_num <= fused.MAX_FUSED_COLS_WIDE
+        self.spear_grid = self.use_fused
+        # K4 holds K1's statistics and a shared-memory histogram
+        self.ab_combined = n_num <= fused.MAX_FUSED_AB_COLS \
+            and self.bins <= hist.SHARED_MAX_BINS
         self._pin = self.device.type == "cuda"
 
     # -- host -> device ------------------------------------------------------
@@ -126,10 +130,11 @@ class Runner:
             self._ship(np.stack([v[2] for v in views])),
             len(hbs))
 
-    def put_replicated(self, arr) -> torch.Tensor:
-        """A small per-column float32 constant (shift, bounds) on the
-        device."""
-        return torch.as_tensor(np.asarray(arr, dtype=np.float32)).to(
+    def put_replicated(self, arr, dtype=np.float32) -> torch.Tensor:
+        """A small per-column constant (shift, bounds, the exact rank
+        tier's sorted sample and kept counts) on the device, float32
+        unless ``dtype`` says otherwise."""
+        return torch.as_tensor(np.ascontiguousarray(arr, dtype=dtype)).to(
             self.device)
 
     # -- state ---------------------------------------------------------------
@@ -154,17 +159,21 @@ class Runner:
                               self.bins, self.device)
 
     def init_spearman(self) -> State:
-        """The Spearman state: a corr state whose shift is the constant
-        0.5, the perfectly conditioned centre of grid ranks in [0, 1]."""
+        """The Spearman state: on the grid tier a corr state whose shift
+        is the constant 0.5, the perfectly conditioned centre of grid
+        ranks in [0, 1]; on the exact tier an unset one, which adopts the
+        first batch's rank means (the reference's)."""
         co = corr.init(self.n_num, self.device)
-        co["shift"].fill_(0.5)
-        co["set"].fill_(1)
+        if self.spear_grid:
+            co["shift"].fill_(0.5)
+            co["set"].fill_(1)
         return co
 
     # -- folds ---------------------------------------------------------------
 
     def _fold_a(self, state: State, xt, row_valid, hllt) -> State:
-        mom, co = fused.update(state["mom"], state["corr"], xt, row_valid)
+        fold = fused.update if self.use_fused else fused.update_xla
+        mom, co = fold(state["mom"], state["corr"], xt, row_valid)
         return {"mom": mom, "corr": co,
                 "hll": hll.update(state["hll"], hllt.T)}
 
@@ -184,14 +193,15 @@ class Runner:
 
     def _fold_ab(self, state: State, state_h: State, xt, row_valid, hllt,
                  lo, hi, mean):
-        if self.n_num <= fused.MAX_FUSED_AB_COLS:
+        if self.ab_combined:
             mom, co, h = fused.update_with_hist(
                 state["mom"], state["corr"], state_h, xt, row_valid, lo, hi,
                 mean, kernel=self.pass_b_kernel)
             return ({"mom": mom, "corr": co,
                      "hll": hll.update(state["hll"], hllt.T)}, h)
-        # wide: K3 then K2 on the same shipped batch (the reference's
-        # paired dispatch)
+        # past K4's columns or bins: pass A's route (K1, K3 or the twin)
+        # then K2 on the same shipped batch (the reference's paired
+        # dispatch)
         return (self._fold_a(state, xt, row_valid, hllt),
                 self._fold_b(state_h, xt, row_valid, lo, hi, mean))
 
@@ -238,6 +248,24 @@ class Runner:
         ranks = fused.rank_transform(xt, row_valid, grid)
         return fused.spearman_update_wide(state, ranks, row_valid)
 
+    def step_spearman(self, state: State, db: DeviceBatch,
+                      sorted_sample: torch.Tensor, kept: torch.Tensor
+                      ) -> State:
+        """The exact tier (past the rank kernels' columns): fold one
+        batch's ranks in the sorted padded row sample (``sorted_sample``
+        (n_num, K) float32, ``kept`` (n_num,) int32 on the device)."""
+        return fused.spearman_update_exact(state, db.xt, db.row_valid,
+                                           sorted_sample, kept)
+
+    def scan_spearman(self, state: State, sb: StackedBatch,
+                      sorted_sample: torch.Tensor, kept: torch.Tensor
+                      ) -> State:
+        """:meth:`step_spearman` over the staged slices, in order."""
+        for i in range(sb.n_batches):
+            state = fused.spearman_update_exact(
+                state, sb.xts[i], sb.row_valids[i], sorted_sample, kept)
+        return state
+
     def step_spearman_grid(self, state: State, db: DeviceBatch,
                            grid: torch.Tensor) -> State:
         """Fold one batch into the Spearman state against ``grid``, the
@@ -268,6 +296,21 @@ class Runner:
                            / torch.clamp_min(n, 1.0), 0.0)
         mean = torch.where(torch.isfinite(mean), mean, 0.0)
         return lo.contiguous(), hi.contiguous(), mean.contiguous()
+
+    def wait_ready(self, state: State, timeout_s=None, heartbeat=None):
+        """Wait for the device work that ``state`` depends on, under the
+        ``device_drain`` watchdog when ``timeout_s`` is set (the
+        reference's ``wait_ready``; the fault hook is ``device_wait``)."""
+        from tpuprof_torch.runtime import guard
+        from tpuprof_torch.testing import faults
+
+        def wait():
+            faults.hit("device_wait")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return state
+        return guard.watched(wait, timeout_s, site="device_drain",
+                             heartbeat=heartbeat)
 
     def finalize_a(self, state: State) -> Dict[str, Any]:
         return state_to_numpy(state)

@@ -59,7 +59,22 @@ class ProvisionalEdges:
     hi: np.ndarray            # (n_num,) float32
     mean: np.ndarray          # (n_num,) float32
     seeded: np.ndarray        # (n_num,) bool
-    origin: str = "sketch"    # "artifact" | "sketch"
+    origin: str = "sketch"    # "artifact" | "sketch" | "checkpoint"
+
+    def as_blob(self) -> Dict[str, object]:
+        """The checkpoint form (a collect checkpoint, a stream's payload,
+        a fold-state artifact): a resume must bin on the same edges, or
+        the restored counts would mix bin layouts."""
+        return {"lo": self.lo, "hi": self.hi, "mean": self.mean,
+                "seeded": self.seeded, "origin": self.origin}
+
+    @classmethod
+    def from_blob(cls, blob: Dict[str, object]) -> "ProvisionalEdges":
+        return cls(lo=np.asarray(blob["lo"], dtype=np.float32),
+                   hi=np.asarray(blob["hi"], dtype=np.float32),
+                   mean=np.asarray(blob["mean"], dtype=np.float32),
+                   seeded=np.asarray(blob["seeded"], dtype=bool),
+                   origin="checkpoint")
 
 
 def _empty_edges(n_num: int) -> ProvisionalEdges:

@@ -14,7 +14,13 @@ Sites the port wires:
 ``prep``           per-batch host prepare (retried; quarantinable)
 ``fold``           per-batch host fold of pass A (quarantinable, never
                    retried)
-``device_wait``    the watched copy of the device state to the host
+``device_wait``    the watched copy of the device state to the host, and
+                   the wait a stream's drain makes on the card
+``device_drain``   the watchdog site of a stream's drain (its fault hook
+                   is ``device_wait``; a timeout names this site)
+``checkpoint_write``  one checkpoint save (``runtime/checkpoint.py``):
+                   raise at the write, or ``truncate@M`` to tear it
+``artifact_write`` one artifact write (``artifact/store.py``): the same
 =================  ========================================================
 
 Spec grammar, ``site:mode`` pairs separated by commas, e.g.
@@ -31,10 +37,12 @@ Spec grammar, ``site:mode`` pairs separated by commas, e.g.
 * ``transient`` — every batch's first attempt raises
   :class:`TransientError`, retries succeed;
 * ``sleep=S`` — delay S seconds on every call; ``sleep=S@M`` only on the
-  M-th.
+  M-th;
+* ``truncate@M`` — for the byte-writing sites: :func:`mangle` keeps the
+  first half of the M-th write's bytes (a torn write that still renames).
 
-The reference's ``truncate@M`` (byte-writing sites) and ``@M`` (host death)
-serve sites of later slices and raise ``ValueError`` here.
+The reference's ``@M`` (host death) serves a site of a later slice and
+raises ``ValueError`` here.
 """
 
 from __future__ import annotations
@@ -64,10 +72,10 @@ class _Rule:
         mode = mode.strip()
         if mode == "transient":
             self.kind = "transient"
-        elif mode.startswith("@") or mode.startswith("truncate@"):
+        elif mode.startswith("@"):
             raise ValueError(
                 f"fault mode {mode!r} serves a site the PyTorch port does "
-                "not have yet (host death, byte-writing sites)")
+                "not have yet (host death)")
         elif mode.startswith("sleep="):
             self.kind = "sleep"
             rest = mode[len("sleep="):]
@@ -85,6 +93,8 @@ class _Rule:
             self.start = int(at)
             if left == "fatal":
                 self.kind, self.count = "fatal", 1
+            elif left == "truncate":
+                self.kind, self.count = "truncate", 1
             else:
                 self.kind, self.count = "window", int(left)
             if self.start < 1 or self.count < 1:
@@ -136,8 +146,8 @@ class FaultPlan:
     def fire(self, site: str, key: Any = None) -> None:
         """Decide this call's fate: return (pass), sleep, or raise."""
         rule = self.rules.get(site)
-        if rule is None:
-            return
+        if rule is None or rule.kind == "truncate":
+            return      # counted by mangle_bytes, where the bytes are
         with self._lock:
             rule.calls += 1
             call_no = rule.calls
@@ -188,6 +198,18 @@ class FaultPlan:
         if do_sleep:
             time.sleep(rule.sleep_s)
 
+    def mangle_bytes(self, site: str, data: bytes) -> bytes:
+        """The M-th call of a ``truncate@M`` site keeps half its bytes."""
+        rule = self.rules.get(site)
+        if rule is None or rule.kind != "truncate":
+            return data
+        with self._lock:
+            rule.calls += 1
+            if rule.start <= rule.calls < rule.start + rule.count:
+                self._record(site)
+                return data[: len(data) // 2]
+        return data
+
 
 _plan: Optional[FaultPlan] = None
 
@@ -229,6 +251,15 @@ def hit(site: str, key: Any = None) -> None:
     if p is None:
         return
     p.fire(site, key=key)
+
+
+def mangle(site: str, data: bytes) -> bytes:
+    """The byte hook of a writing site: ``data`` as a ``truncate@M`` rule
+    leaves it (unchanged with no plan)."""
+    p = _plan
+    if p is None:
+        return data
+    return p.mangle_bytes(site, data)
 
 
 # a process launched with TPUPROF_FAULTS set (a CLI run, a child in a test)
