@@ -5,13 +5,14 @@ Run from the repository root:
 
     python3 chip_smoke.py                  # the full check on the card
     python3 chip_smoke.py --only limits,durable   # build + phases 7 and 8
+    python3 chip_smoke.py --only exact     # build + phase 9
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
-``--only`` takes any of kernels, main, cli, ingest, limits, durable
-(phases 3 to 8) and k2big (phase 3's check of K2's device-memory body
+``--only`` takes any of kernels, main, cli, ingest, limits, durable,
+exact (phases 3 to 9) and k2big (phase 3's check of K2's device-memory body
 alone); ``--kernels-only`` and ``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
@@ -138,7 +139,28 @@ Phases, each fatal on failure:
    resumes, its artifact's stats equal to phase 5's uninterrupted profile's.
    It prints the stream's rows/s, each save's seconds and bytes and the
    resume seconds;
-9. one JSON line of per-kernel numbers, the card's name and power limit,
+9. exact distinct: the reference's wide exact shape (``run_wideexact``:
+   524,288 rows x 200 N(50, 10) float32 columns, nearly all distinct)
+   plus phase 6's ``uid`` and ``city``, 8 batches.  The sketch describe,
+   then ``exact_distinct=True`` with a temporary spill dir at the default
+   2**25-row budget, a third of the stream's hashes (K1 8, K2 8; it
+   spills; every distinct count equals pandas' ``nunique``; the rest of
+   ``stats_to_json`` equals the sketch describe's; no run left), then one
+   partition with synchronous writes and ``unique_track_total_rows=
+   "auto"`` (``stats_to_json`` equal); ``parity=True`` on 262,144 rows
+   (K1, K2, K5 4 each; exact counts; Spearman within 5e-4 of a
+   ``spearman=True`` describe; the derived dir removed); on phase 5's
+   Parquet directory a child ``profile --parity`` (exact counts, the dir
+   removed) and ``profile --exact-distinct --checkpoint``, one child
+   killed by ``TPUPROF_FAULTS=fold:1@9`` and one that resumes, its
+   artifact's stats equal to an uninterrupted exact describe's, the spill
+   dir empty; an exact ``StreamingProfiler`` over the first 262,144 rows
+   written as a fold-state artifact at 131,072 and resumed in a child
+   (``--exact-child``), equal to the uninterrupted stream.  Each run
+   prints its wall, phase seconds, spill bytes and runs and the tracker's
+   feed and resolve seconds; then ``exact_distinct_overhead_x`` (exact
+   wall over sketch wall) and the process's peak host RSS;
+10. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -2543,6 +2565,33 @@ def resume_child(spec_path: str) -> int:
     return 0
 
 
+def cli_directory(rehearsal: bool, tmp: str):
+    """Phase 5's Parquet directory, for a run without phase 5: the
+    200-column table (``wide_frame``, seed 6) at 1,048,576 rows (4,096 in
+    rehearsal) as 4 files of 16 row groups in all, and its uninterrupted
+    two-pass artifact written by a child ``profile``.  Returns (directory,
+    artifact, batch rows)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    n, cbatch = (4096, 256) if rehearsal else (1_048_576, 65_536)
+    cli_dir = f"{tmp}/cli"
+    os.makedirs(cli_dir)
+    t = pa.Table.from_pandas(wide_frame(n, 200, seed=6),
+                             preserve_index=False)
+    per = n // 4
+    for i in range(4):
+        pq.write_table(t.slice(i * per, per), f"{cli_dir}/part{i}.parquet",
+                       row_group_size=cbatch)
+    del t
+    cli_art = f"{tmp}/cli_control.json"
+    rc, err, _, _ = child(["profile", cli_dir, "-o", f"{tmp}/c.html",
+                           "--batch-rows", str(cbatch), "--artifact",
+                           cli_art, *(["--device", "cpu"] if rehearsal
+                                      else [])])
+    require(rc == 0, f"cli control: exit {rc}: {err[-5:]}")
+    return cli_dir, cli_art, cbatch
+
+
 def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
     """Streams with a checkpoint, a child's restore and a child's
     ``resume_profiler`` on the headline table, two-pass (K1) and fused
@@ -2554,7 +2603,6 @@ def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
     import tempfile
 
     import pyarrow as pa
-    import pyarrow.parquet as pq
 
     import tpuprof_torch
     from tpuprof_torch.artifact import read_artifact, write_artifact
@@ -2656,25 +2704,7 @@ def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
     # the profile verb's checkpoints on phase 5's Parquet directory (made
     # here when phase 5 did not run): a child killed on its 9th fold
     cdev = ["--device", "cpu"] if rehearsal else []
-    if cli is not None:
-        cli_dir, cli_art, cbatch = cli
-    else:
-        cbatch = batch if not rehearsal else 128     # 16 batches
-        cli_dir = f"{tmp}/cli"
-        os.makedirs(cli_dir)
-        wide = wide_frame(n // 2, cols, seed=6)
-        per = len(wide) // 4
-        t = pa.Table.from_pandas(wide, preserve_index=False)
-        for i in range(4):
-            pq.write_table(t.slice(i * per, per),
-                           f"{cli_dir}/part{i}.parquet",
-                           row_group_size=cbatch)
-        del wide, t
-        cli_art = f"{tmp}/cli_control.json"
-        rc, err, _, _ = child(["profile", cli_dir, "-o", f"{tmp}/c.html",
-                               "--batch-rows", str(cbatch), "--artifact",
-                               cli_art, *cdev])
-        require(rc == 0, f"cli control: exit {rc}: {err[-5:]}")
+    cli_dir, cli_art, cbatch = cli or cli_directory(rehearsal, tmp)
     ck = f"{tmp}/cli.ckpt"
     argv = ["profile", cli_dir, "--batch-rows", str(cbatch),
             "--checkpoint", ck, "--checkpoint-every", "4", *cdev]
@@ -2705,7 +2735,382 @@ def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
           "artifact's stats equal the uninterrupted profile's", flush=True)
 
 
-PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable")
+# ---------------------------------------------------------------------------
+# phase 9: exact distinct
+# ---------------------------------------------------------------------------
+
+def wideexact_table(rows: int, cols: int, seed: int = 0):
+    """The reference's exact-distinct shape (``benchmarks/run.py``
+    ``run_wideexact``: ``scenarios.wide_batch``, N(50, 10) float32, nearly
+    every value distinct) and phase 6's ``uid`` (about one distinct value a
+    row) and ``city`` (8 values)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    rng = np.random.default_rng(seed)
+    xs = rng.normal(50.0, 10.0, (rows, cols)).astype(np.float32)
+    table = pa.table({f"f{i:03d}": xs[:, i] for i in range(cols)})
+    del xs
+    uid = pc.cast(pa.array(rng.integers(0, 10 ** 12, rows)), pa.string())
+    city = pa.array(np.array(CITIES)[rng.integers(0, len(CITIES), rows)])
+    return table.append_column("uid", uid).append_column("city", city)
+
+
+class TrackerProbe:
+    """Wraps the tracker's methods for one run: the seconds of its feed
+    (``update``) and of its resolve (``resolve`` and ``distinct_counts``),
+    and the runs and bytes it wrote (on the io threads too)."""
+
+    def __init__(self):
+        import threading
+        self.lock = threading.Lock()
+        self.feed_s = self.resolve_s = 0.0
+        self.runs = self.bytes = 0
+
+    def __enter__(self):
+        from tpuprof_torch.kernels import unique
+        cls = unique.UniqueTracker
+        self.saved = {k: getattr(cls, k) for k in (
+            "update", "resolve", "distinct_counts", "_write_run")}
+        probe = self
+
+        def timed(name, attr):
+            real = probe.saved[name]
+
+            def wrapper(self, *a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return real(self, *a, **kw)
+                finally:
+                    setattr(probe, attr, getattr(probe, attr)
+                            + time.perf_counter() - t0)
+            return wrapper
+
+        def write_run(self, path, parts):
+            probe.saved["_write_run"](self, path, parts)
+            with probe.lock:
+                probe.runs += 1
+                probe.bytes += os.path.getsize(path)
+
+        cls.update = timed("update", "feed_s")
+        cls.resolve = timed("resolve", "resolve_s")
+        cls.distinct_counts = timed("distinct_counts", "resolve_s")
+        cls._write_run = write_run
+        return self
+
+    def __exit__(self, *exc):
+        from tpuprof_torch.kernels import unique
+        for k, v in self.saved.items():
+            setattr(unique.UniqueTracker, k, v)
+
+    def text(self) -> str:
+        return (f"spill {self.bytes} B in {self.runs} runs; tracker feed "
+                f"{self.feed_s:.4f} s, resolve {self.resolve_s:.4f} s")
+
+
+def without_distinct(stats) -> dict:
+    """The export without the distinct fields and the messages that follow
+    from an estimate (``APPROX_DISTINCT``, ``HIGH_CARDINALITY``)."""
+    from tpuprof_torch import schema
+    doc = json.loads(exported(stats))
+    for section in (doc, doc["display"]):
+        for var in section["variables"].values():
+            for k in ("distinct_count", "p_unique", "is_unique",
+                      "distinct_approx"):
+                var.pop(k, None)
+    doc["messages"] = [m for m in doc["messages"] if m["kind"] not in
+                       (schema.MSG_APPROX_DISTINCT,
+                        schema.MSG_HIGH_CARDINALITY)]
+    return doc
+
+
+def require_exact(stats, truth, what: str) -> None:
+    """Every column's distinct count is pandas' ``nunique`` and none is an
+    estimate."""
+    bad = [(n, v["distinct_count"], int(truth[n]))
+           for n, v in stats["variables"].items()
+           if v["distinct_count"] != truth[n] or v["distinct_approx"]]
+    require(not bad, f"{what}: distinct counts differ from nunique at "
+            f"{bad[:5]}")
+
+
+def no_runs(path: str) -> bool:
+    import glob
+    return not glob.glob(os.path.join(path, "*.u64"))
+
+
+def exact_child(spec_path: str) -> int:
+    """``--exact-child SPEC``: in a fresh process, ``resume_profiler`` the
+    exact stream's fold-state artifact, feed it the rows after it, write its
+    ``stats_to_json``, close it and print one JSON line of timings."""
+    import pyarrow as pa
+
+    import tpuprof_torch
+    from tpuprof_torch.report.export import stats_to_json
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    with pa.memory_map(spec["rest"]) as src:
+        rest = pa.ipc.open_file(src).read_all()
+    t0 = time.perf_counter()
+    prof = tpuprof_torch.resume_profiler(spec["artifact"],
+                                         device=spec["device"])
+    out = {"resume_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for lo in range(0, rest.num_rows, spec["micro"]):
+        prof.update(rest.slice(lo, spec["micro"]))
+    stats = prof.stats()
+    out["feed_s"] = time.perf_counter() - t0
+    with open(spec["out"], "w") as fh:
+        json.dump(stats_to_json(stats), fh, sort_keys=True)
+    prof.close()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """Exact distinct on the card: the reference's wide exact shape with a
+    string id and a city, exact against the sketch describe; the tracker's
+    settings; ``parity``; the ``profile`` verb with ``--parity`` and with
+    ``--exact-distinct`` killed and resumed; a stream through a fold-state
+    artifact resumed in a child."""
+    import atexit
+    import re
+    import resource
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.dataset as pads
+
+    import tpuprof_torch
+    from tpuprof_torch.artifact import read_artifact, write_artifact
+    from tpuprof_torch.config import ProfilerConfig
+
+    if rehearsal:
+        rows, cols, batch = 4096, 20, 512
+        dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
+        # the default budget holds a rehearsal's stream: a third of it
+        budget = rows * (cols + 2) // 3
+    else:
+        rows, cols, batch = 524_288, 200, 65_536
+        dev, dev_kw = [], {}
+        budget = None           # 2**25, a third of the stream's hashes
+    nb = rows // batch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-exact-")
+    atexit.register(shutil.rmtree, tmp, True)
+    t0 = time.perf_counter()
+    table = wideexact_table(rows, cols)
+    df = table.to_pandas()
+    truth = df.nunique()
+    print(f"exact: made {rows} rows x {table.num_columns} cols and their "
+          f"nunique in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    def run(label, exactly=(), **kw):
+        with TrackerProbe() as probe:
+            stats, secs = counted(torch, rehearsal, card, df, label,
+                                  exactly=exactly, batch_rows=batch,
+                                  **dev_kw, **kw)
+        print(f"{label}: {probe.text()}", flush=True)
+        return stats, secs, probe
+
+    k12 = (("fused_a", nb), ("hist_b", nb))
+    sketch, sketch_s, _ = run(f"sketch {cols} cols", k12)
+    spill = f"{tmp}/spill"
+    exact_kw = dict(exact_distinct=True, unique_spill_dir=spill,
+                    unique_track_total_rows=budget)
+    exact, exact_s, probe = run(f"exact {cols} cols", k12, **exact_kw)
+    require(probe.bytes > 0 and probe.runs > 0,
+            "exact: the default budget did not spill")
+    require_exact(exact, truth, "exact")
+    require(without_distinct(exact) == without_distinct(sketch),
+            "exact: a statistic other than the distinct ones differs from "
+            "the sketch describe")
+    require(os.listdir(spill) == [], f"exact: {os.listdir(spill)[:3]} "
+            "left in the spill dir")
+    print(f"exact: {len(truth)} distinct counts equal nunique, the rest "
+          f"equal the sketch describe; exact_distinct_overhead_x "
+          f"{exact_s / sketch_s:.3f} ({exact_s:.3f} s / {sketch_s:.3f} s) "
+          f"on {card}", flush=True)
+    for label, kw in (("one partition, synchronous writes",
+                       dict(unique_partitions=1, unique_spill_workers=0)),
+                      ("unique_track_total_rows=auto",
+                       dict(unique_track_total_rows="auto"))):
+        got, _s, _p = run(f"exact {label}", k12, **{**exact_kw, **kw})
+        require(exported(got) == exported(exact),
+                f"exact {label}: stats differ")
+    print("exact: the tracker's settings leave stats_to_json as it is",
+          flush=True)
+
+    # parity on the first quarter-million rows: K1, K2 and K5
+    cut = rows // 2
+    part = df.iloc[:cut]
+    cut_truth = part.nunique()
+    auto_dir = ProfilerConfig(parity=True).unique_spill_dir
+    k125 = (("fused_a", cut // batch), ("hist_b", cut // batch),
+            ("spear", cut // batch))
+    with TrackerProbe() as probe:
+        par, par_s = counted(torch, rehearsal, card, part, "parity",
+                             exactly=k125, batch_rows=batch, parity=True,
+                             **dev_kw)
+    print(f"parity: {probe.text()}", flush=True)
+    spear, spear_s = counted(torch, rehearsal, card, part, "spearman",
+                             exactly=k125, batch_rows=batch, spearman=True,
+                             **dev_kw)
+    require_exact(par, cut_truth, "parity")
+    rp = np.asarray(par["correlations"]["spearman"], dtype=float)
+    rs = np.asarray(spear["correlations"]["spearman"], dtype=float)
+    require(rp.shape == rs.shape and np.allclose(
+        rp, rs, rtol=0, atol=ATOL_RHO, equal_nan=True),
+        f"parity: Spearman outside atol {ATOL_RHO} of spearman=True")
+    require(not os.path.exists(auto_dir),
+            f"parity: {auto_dir} left after the profile")
+    print(f"parity: exact counts, rho within {ATOL_RHO} of spearman=True, "
+          f"{auto_dir} removed; {par_s:.3f} s vs {spear_s:.3f} s",
+          flush=True)
+
+    # the profile verb on phase 5's Parquet directory
+    cli_dir, _art, cbatch = cli or cli_directory(rehearsal, tmp)
+    t0 = time.perf_counter()
+    dir_truth = pads.dataset(cli_dir).to_table().to_pandas().nunique()
+    print(f"cli: nunique of {cli_dir} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    budget_flag = ["--unique-track-total-rows", str(budget)] if budget \
+        else []
+    js = f"{tmp}/parity.json"
+    rc, err, mods, secs = child(["profile", cli_dir, "-o",
+                                 f"{tmp}/parity.html", "--batch-rows",
+                                 str(cbatch), "--parity", "--stats-json",
+                                 js, *budget_flag, *dev])
+    require(rc == 0 and re.match(PROFILE_LINE, err[-1]),
+            f"cli --parity: exit {rc}: {err[-5:]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "cli --parity: the child loaded jax or tpuprof")
+    with open(js) as fh:
+        doc = json.load(fh)
+    bad = [n for n, v in doc["variables"].items()
+           if v["distinct_count"] != dir_truth[n]]
+    require(not bad, f"cli --parity: counts differ at {bad[:5]}")
+    require(not os.path.exists(auto_dir),
+            f"cli --parity: {auto_dir} left after the profile")
+    print(f"cli --parity: exit 0 in {secs:.3f} s; {err[-1]}; "
+          f"{footer_phases(f'{tmp}/parity.html')}; exact counts, "
+          f"{auto_dir} removed", flush=True)
+
+    cspill = f"{tmp}/cli-spill"
+    with TrackerProbe() as probe:
+        zero_counts()
+        t0 = time.perf_counter()
+        whole = tpuprof_torch.describe(
+            cli_dir, batch_rows=cbatch, exact_distinct=True,
+            unique_spill_dir=cspill, unique_track_total_rows=budget,
+            **dev_kw)
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    nd = whole["table"]["n"] // cbatch     # row groups of cbatch rows
+    if not rehearsal:
+        require(counts["fused_a"] == nd and counts["hist_b"] == nd,
+                f"cli exact control: launches {counts}")
+    print(f"exact describe of {cli_dir}: {secs:.3f} s, launches {counts}, "
+          f"{phases_text(whole)}; {probe.text()}", flush=True)
+    ck = f"{tmp}/exact.ckpt"
+    argv = ["profile", cli_dir, "--batch-rows", str(cbatch),
+            "--exact-distinct", "--unique-spill-dir", cspill,
+            "--checkpoint", ck, "--checkpoint-every", "4", *budget_flag,
+            *dev]
+    os.environ["TPUPROF_FAULTS"] = "fold:1@9"
+    try:
+        rc, err, _, secs = child([*argv, "-o", f"{tmp}/dead.html"])
+    finally:
+        del os.environ["TPUPROF_FAULTS"]
+    require(rc != 0 and any("injected" in ln for ln in err)
+            and os.path.exists(ck) and not no_runs(cspill),
+            f"cli --exact-distinct: the faulted child exited {rc} "
+            f"(runs left: {not no_runs(cspill)}): {err[-3:]}")
+    print(f"cli --exact-distinct: the child died on its 9th fold (exit "
+          f"{rc}, {secs:.3f} s), {ck} holds {os.path.getsize(ck)} B and "
+          f"{cspill} {len(os.listdir(cspill))} runs", flush=True)
+    art = f"{tmp}/exact_resumed.json"
+    rc, err, mods, secs = child([*argv, "-o", f"{tmp}/resumed.html",
+                                 "--artifact", art])
+    require(rc == 0 and re.match(PROFILE_LINE, err[-1]),
+            f"cli --exact-distinct: the resuming child exited {rc}: "
+            f"{err[-5:]}")
+    got, want = read_artifact(art).stats, json.loads(exported(whole))
+    require(got == want, "cli --exact-distinct: the resumed profile "
+            f"differs from the uninterrupted one at "
+            f"{json_diff(got, want)[:5]}")
+    require(not os.path.exists(ck) and os.listdir(cspill) == [],
+            f"cli --exact-distinct: left {os.listdir(cspill)[:3]}")
+    print(f"cli --exact-distinct: the resuming child exited 0 in "
+          f"{secs:.3f} s; {err[-1]}; its artifact's stats equal the "
+          f"uninterrupted exact describe's; {cspill} empty", flush=True)
+
+    # a stream of the first half (its 4 batches of ~53M hashes still pass
+    # the 2**25-row budget): a fold-state artifact at half, resumed in a
+    # child.  The artifact pickles the live buffers (368 MB in 9.4 s at the
+    # whole table), so the half keeps the phase inside its time
+    stream = table.slice(0, cut)
+    half = cut // 2
+    sspill = f"{tmp}/stream-spill"
+    config = ProfilerConfig(batch_rows=batch, exact_distinct=True,
+                            unique_spill_dir=sspill,
+                            unique_track_total_rows=budget)
+    rest = f"{tmp}/rest.arrow"
+    with pa.OSFile(rest, "wb") as sink:
+        with pa.ipc.new_file(sink, table.schema) as writer:
+            writer.write_table(stream.slice(half))
+    art = f"{tmp}/stream.json"
+    zero_counts()
+    with TrackerProbe() as probe:
+        prof = tpuprof_torch.StreamingProfiler(table.schema, config=config,
+                                               **dev_kw)
+        t0 = time.perf_counter()
+        for lo in range(0, cut, batch):
+            prof.update(stream.slice(lo, batch))
+            if lo + batch == half:
+                t1 = time.perf_counter()
+                write_artifact(art, profiler=prof)
+                art_s = time.perf_counter() - t1
+        full = prof.stats()
+        feed = time.perf_counter() - t0 - art_s
+    counts = read_counts()
+    if not rehearsal:
+        require(counts["fused_a"] == cut // batch,
+                f"exact stream: launches {counts}")
+    require_exact(full, cut_truth, "exact stream")
+    print(f"exact stream: {cut} rows in {batch}-row updates, {feed:.3f} s "
+          f"of feed and snapshot = {cut / feed:.0f} rows/s on {card}; "
+          f"launches {counts}; fold-state artifact at {half} rows "
+          f"{art_s:.3f} s, {os.path.getsize(art)} B; {probe.text()}",
+          flush=True)
+    spec = {"device": "cpu" if rehearsal else "cuda:0", "micro": batch,
+            "rest": rest, "artifact": art, "out": f"{tmp}/stream.out.json"}
+    spec_path = f"{tmp}/exact.spec.json"
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    rc, out, err, secs = _child_python(["--exact-child", spec_path])
+    require(rc == 0, f"exact stream: the child exited {rc}: {err[-8:]}")
+    with open(spec["out"]) as fh:
+        resumed = json.load(fh)
+    require(resumed == json.loads(exported(full)), "exact stream: the "
+            "child's resume differs from the uninterrupted stream at "
+            f"{json_diff(resumed, json.loads(exported(full)))[:5]}")
+    prof.close()
+    require(os.listdir(sspill) == [],
+            f"exact stream: left {os.listdir(sspill)[:3]}")
+    print(f"exact stream: a child ({secs:.3f} s, process included) resumed "
+          "the artifact and finished equal to the uninterrupted stream; "
+          f"{sspill} empty after both closed; seconds: {out[-1]}",
+          flush=True)
+    # this process's high-water mark, earlier phases' frames included (a
+    # child's ru_maxrss counts the parent's pages it was forked with, so
+    # the children's figure would not be theirs)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"exact: peak host RSS of this process {peak:.2f} GiB; {card}",
+          flush=True)
+
+
+PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
+          "exact")
 
 
 def main(argv=None) -> int:
@@ -2714,7 +3119,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 8), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 9), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2728,10 +3133,15 @@ def main(argv=None) -> int:
                     help="seed of phase 6's frame")
     ap.add_argument("--resume-child", metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--exact-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.resume_child:
         # phase 8's child process: restore, feed, write its stats
         return resume_child(args.resume_child)
+    if args.exact_child:
+        # phase 9's child process: resume the exact stream's artifact
+        return exact_child(args.exact_child)
     only = set(PHASES)
     if args.only:
         only = {p.strip() for p in args.only.split(",") if p.strip()}
@@ -2813,6 +3223,8 @@ def main(argv=None) -> int:
         timed(phase_limits, torch, rehearsal, card)
     if "durable" in only:
         timed(phase_durable, torch, rehearsal, card, cli)
+    if "exact" in only:
+        timed(phase_exact, torch, rehearsal, card, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

@@ -242,9 +242,9 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("artifact_keep", 3), ("compile_cache_dir", "/nonexistent/cc"),
-    ("unique_partitions", 4), ("elastic", True),
-    ("unique_spill_dir", "/nonexistent"), ("exact_distinct", True),
-    ("mesh_devices", 2), ("parity", True)])
+    ("backend", "cpu"), ("elastic", True),
+    ("fleet_dir", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
+    ("mesh_devices", 2), ("metrics_enabled", True)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})
@@ -271,6 +271,33 @@ def test_ported_ingest_fields_run(fixture_df, both, tmp_path, field, value):
     assert not os.path.exists(tmp_path / "quarantine.jsonl")
 
 
+@pytest.mark.parametrize("field,value", [
+    ("unique_partitions", 4), ("unique_spill_workers", 0),
+    ("unique_spill_dir", "spill"), ("exact_distinct", True),
+    ("parity", True)])
+def test_ported_exact_distinct_fields_run(fixture_df, both, tmp_path,
+                                          field, value):
+    """The exact-distinct slice's fields run at a non-default value.  The
+    tracker's layout and a spill dir leave the result as the default gives
+    it; ``exact_distinct`` and ``parity`` make every distinct count
+    pandas' ``nunique`` and leave no spill run behind."""
+    from tpuprof_torch.report.export import stats_to_json
+    kw = {field: value}
+    if field == "unique_spill_dir" or field == "exact_distinct":
+        kw["unique_spill_dir"] = str(tmp_path / "spill")
+    port, _ = both
+    got = tpuprof_torch.describe(fixture_df, device="cpu", batch_rows=512,
+                                 unique_track_rows=300, **kw)
+    if field in ("exact_distinct", "parity"):
+        for name, var in got["variables"].items():
+            assert var["distinct_count"] == fixture_df[name].nunique(), name
+            assert not var["distinct_approx"], name
+    else:
+        assert stats_to_json(got) == stats_to_json(port)
+    assert not (tmp_path / "spill").exists() \
+        or not os.listdir(tmp_path / "spill")
+
+
 def test_config_fields_mirror_reference():
     import dataclasses
     ref = {f.name: f.default for f in dataclasses.fields(RefConfig)}
@@ -281,8 +308,9 @@ def test_config_fields_mirror_reference():
 def test_port_imports_no_jax_and_no_reference():
     """A describe run in a fresh process, a checkpointed one, a wide one
     (the XLA twin and the exact rank tier), a ``StreamingProfiler``
-    checkpointed and restored and a ``resume_profiler`` from a fold-state
-    artifact load neither jax nor any module of the reference package."""
+    checkpointed and restored, a ``resume_profiler`` from a fold-state
+    artifact and an ``exact_distinct`` describe that spills load neither
+    jax nor any module of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, pandas as pd
@@ -333,6 +361,14 @@ def test_port_imports_no_jax_and_no_reference():
         stats = tpuprof_torch.describe(wider, device="cpu", batch_rows=32,
                                        spearman=True)
         assert stats["correlations"]["spearman"].shape == (2050, 2050)
+        with tempfile.TemporaryDirectory() as tmp:
+            stats = tpuprof_torch.describe(
+                df, device="cpu", batch_rows=32, exact_distinct=True,
+                unique_spill_dir=tmp, unique_track_rows=20,
+                unique_track_total_rows=40)
+            assert stats["variables"]["c"]["distinct_count"] == 2
+            assert stats["variables"]["x"]["distinct_count"] == 100
+            assert os.listdir(tmp) == []
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpuprof" or m.startswith("tpuprof."))

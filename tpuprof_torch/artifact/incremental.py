@@ -10,7 +10,10 @@ of A ∪ Δ gives.  The restore path is a checkpoint's
 (``StreamingProfiler.from_payload``), with its checks (hash route, sample
 size, register width, the shapes of the device state); a degraded prefix
 stays degraded, and a fused profiler's edges and histogram fold come back
-with it, so the rest is binned on the same edges.
+with it, so the rest is binned on the same edges.  Under ``exact_distinct``
+the artifact references the tracker's spill runs by path (they outlive the
+writer until its ``close()``), and the resumed profiler counts on from
+them; runs that are gone demote their columns to the estimate.
 """
 
 from __future__ import annotations

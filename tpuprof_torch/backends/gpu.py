@@ -5,11 +5,13 @@ Counterpart of the single-process paths of ``tpuprof/backends/tpu.py``
 through pass A (kernel K1, K3 past 512 numeric columns, the reference's
 XLA twin past 2,048: moments, min/max, null/zero/inf counts, the pairwise
 Pearson Gram; host: HLL registers, the row sample, Misra-Gries, dates, the
-exact-unique tracker), then, for a rescannable source, once more through
-pass B (kernel K2, any bin count: exact histograms and MAD on the pass-A
-bounds; with ``spearman=True`` the Spearman Gram from the same shipped
-batches: grid ranks by kernel K5, or K6 then K3 past 512 columns, and past
-2,048 the reference's exact tier; host: the exact top-k recount).
+exact-unique tracker, which with ``exact_distinct`` counts every column's
+distinct values exactly and spills past its budgets), then, for a
+rescannable source, once more through pass B (kernel K2, any bin count:
+exact histograms and MAD on the pass-A bounds; with ``spearman=True`` the
+Spearman Gram from the same shipped batches: grid ranks by kernel K5, or K6
+then K3 past 512 columns, and past 2,048 the reference's exact tier; host:
+the exact top-k recount).
 ``_assemble`` turns the merged results into the stats dict.  The tiers
 are the runner's (``runtime/runner.py``).
 
@@ -57,7 +59,9 @@ from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_profile_passes,
                                   resolve_quarantine_log,
                                   resolve_retry_backoff,
+                                  resolve_spill_workers,
                                   resolve_unique_budget,
+                                  resolve_unique_partitions,
                                   resolve_watchdog_timeout)
 from tpuprof_torch.errors import InputError
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
@@ -121,12 +125,27 @@ class HostAgg:
             s.name: MisraGries(config.topk_capacity)
             for s in plan.by_role("cat")}
         # exact "duplicate seen" flags keep the reference's exact UNIQUE
-        # classification for columns whose Misra-Gries summary overflows
-        # opaque nested columns have no hash stream: nothing to track
+        # classification for columns whose Misra-Gries summary overflows;
+        # exact_distinct counts every column, numeric and date lanes from
+        # their full 64-bit hashes (HostBatch.num_hashes).  Opaque nested
+        # columns have no hash stream: nothing to track
         self.unique = UniqueTracker(
-            (s.name for s in plan.by_role("cat") if not s.opaque),
+            (s.name for s in (plan.specs if config.exact_distinct
+                              else plan.by_role("cat"))
+             if not s.opaque),
             config.unique_track_rows,
-            resolve_unique_budget(config.unique_track_total_rows))
+            resolve_unique_budget(config.unique_track_total_rows),
+            spill_dir=config.unique_spill_dir,
+            count_exact=config.exact_distinct,
+            own_spill_dir=config.spill_dir_auto,
+            partitions=resolve_unique_partitions(config.unique_partitions),
+            spill_workers=resolve_spill_workers(config.unique_spill_workers))
+        # numeric and date columns whose count needs full hashes on every
+        # batch (a batch without them breaks coverage)
+        self._numdate_tracked = [s.name for s in plan.specs
+                                 if s.role != "cat"] \
+            if config.exact_distinct else []
+        self._numkind = "native" if native.available() else "pandas"
         self.cat_null: Dict[str, int] = {s.name: 0
                                          for s in plan.by_role("cat")}
         self.date_min: Dict[str, int] = {}
@@ -194,6 +213,18 @@ class HostAgg:
                 lo, hi = int(ints[valid].min()), int(ints[valid].max())
                 self.date_min[name] = min(self.date_min.get(name, lo), lo)
                 self.date_max[name] = max(self.date_max.get(name, hi), hi)
+        nh = hb.num_hashes or {}
+        # getattr: a HostAgg pickled before exact distinct has no such list
+        for name in getattr(self, "_numdate_tracked", ()):
+            if not self.unique.active(name):
+                continue
+            h = nh.get(name)
+            if h is None:
+                # a batch prepared without full hashes: the count is no
+                # longer sound
+                self.unique.deactivate(name)
+                continue
+            self.unique.update(name, h, hash_kind=self._numkind)
 
     def memorysize(self, name: str) -> float:
         """Arrow buffer bytes for one column (NaN if never observed)."""
@@ -298,11 +329,15 @@ class CollectCheckpoint:
                 "topk_capacity": c.topk_capacity, "seed": c.seed,
                 # a table is enumerated in fixed combined windows
                 "batch_enum": "window-v2" if self.table_source else None,
-                "exact_distinct": False, "nested": c.nested,
+                # the tracker's columns and hash coverage differ by mode
+                "exact_distinct": c.exact_distinct, "nested": c.nested,
                 "profile_passes": "fused" if self.fused else "two_pass"}
 
     def save(self, state, sampler, hostagg, host_hll, cursor, frag_pos,
              quarantine, skipped, hist_state=None, edges=None) -> None:
+        # the save references the tracker's spill runs by path: from now on
+        # a crash must leave them on disk (the flag pickles with it)
+        hostagg.unique.persistent = True
         blob = {"sampler": sampler, "hostagg": hostagg,
                 "host_hll": host_hll,
                 "frag_pos": tuple(frag_pos) if frag_pos else None,
@@ -318,6 +353,8 @@ class CollectCheckpoint:
         with span("checkpoint"):
             ckpt.save(self.path, state, blob, cursor, meta=meta,
                       keep=self.keep)
+        # runs dropped since the previous save are referenced no more
+        hostagg.unique.reap_retired()
         self.last_saved = cursor
 
     def load(self):
@@ -435,6 +472,8 @@ class GPUStatsBackend:
         if resume is not None and resume.exists():
             (state, sampler, hostagg, host_hll, cursor, last_frag,
              prior_q, prior_skip, state_h, sp_edges) = resume.load()
+            # the checkpoint references the restored tracker's runs
+            hostagg.unique.persistent = True
             # a degraded prefix stays degraded, and its skipped batches
             # stay out of pass B
             quarantine.seed(prior_q)
@@ -474,7 +513,8 @@ class GPUStatsBackend:
             prep_workers=config.prep_workers, batch_guard=batch_guard,
             positions=resume is not None,
             resume_pos=(last_frag[0], last_frag[1] + 1)
-            if last_frag is not None else None)
+            if last_frag is not None else None,
+            full_hashes=config.exact_distinct)
         pending: List[HostBatch] = []
 
         def staged_a(group):
@@ -749,6 +789,10 @@ class GPUStatsBackend:
             # degraded runs only: a clean run's stats and HTML are as
             # before the guard existed
             stats["_quarantine"] = list(quarantine.entries)
+        # the spill runs go before the checkpoint: a crash between the two
+        # leaves a checkpoint whose missing runs demote on resume, never
+        # runs that no checkpoint references
+        hostagg.unique.cleanup()
         if resume is not None:
             resume.clear()          # the profile completed
         # private, never exported; the report footer reads it
@@ -779,7 +823,10 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
     freq: Dict[str, pd.Series] = {}
 
     # ---- first sweep: per-column counts/distincts + provisional kinds ----
+    # spilled columns are decided here (the merge over the disk runs);
+    # exact_distinct columns also carry their exact counts
     unique_status = hostagg.unique.resolve()
+    unique_counts = hostagg.unique.distinct_counts()
     kinds: Dict[str, str] = {}
     commons: Dict[str, Dict[str, Any]] = {}
     for spec in plan.specs:
@@ -792,6 +839,9 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
                 distinct = 1
             elif spec.base_kind == schema.BOOL:
                 distinct = 2 if count else 0
+            elif spec.name in unique_counts:
+                # exact_distinct: the full-hash stream counted exactly
+                distinct = min(unique_counts[spec.name], count)
             else:
                 distinct = int(round(hll_est[spec.hash_lane]))
                 distinct = max(min(distinct, count), 1 if count else 0)
@@ -799,9 +849,12 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
         elif spec.role == "date":
             n_missing = hostagg.date_null[spec.name]
             count = n - n_missing
-            distinct = int(round(hll_est[spec.hash_lane]))
-            distinct = max(min(distinct, count), 1 if count else 0)
-            distinct_approx = count > 0
+            if spec.name in unique_counts:
+                distinct = min(unique_counts[spec.name], count)
+            else:
+                distinct = int(round(hll_est[spec.hash_lane]))
+                distinct = max(min(distinct, count), 1 if count else 0)
+                distinct_approx = count > 0
         elif spec.opaque:
             # nested="opaque": count, missing and memory only; with no
             # value stream the cardinality is unknown (None), not estimated
@@ -825,6 +878,9 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
             exact_distinct = hostagg.mg[spec.name].distinct_count()
             if exact_distinct is not None:
                 distinct = exact_distinct
+            elif spec.name in unique_counts:
+                # exact_distinct: the union count over the spill runs
+                distinct = min(unique_counts[spec.name], count)
             else:
                 # Misra-Gries overflowed; the duplicate tracker keeps the
                 # exact `distinct == count -> UNIQUE` rule, and only the

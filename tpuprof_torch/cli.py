@@ -11,7 +11,8 @@ artifact, an unreadable checkpoint, a spent quarantine budget and a
 watchdog timeout print one line too and exit with their error's code
 (``errors.exit_code``: 6, 3, 5, 4).  ``--checkpoint PATH`` saves the
 scan every ``--checkpoint-every`` batches and resumes from PATH when it
-exists.
+exists.  ``--exact-distinct`` (with ``--unique-spill-dir``) and
+``--parity`` count every column's distinct values exactly.
 """
 
 from __future__ import annotations
@@ -97,6 +98,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "but a Python loop a row for that column); "
                         "'opaque' reports count/missing/memory only "
                         "with no decode at all")
+    p.add_argument("--unique-spill-dir", metavar="DIR",
+                   help="spill sorted hash runs here so exact UNIQUE "
+                        "classification never falls back to an estimate "
+                        "(disk cost: 8 bytes/row per high-cardinality "
+                        "column)")
+    p.add_argument("--unique-track-rows", type=int, default=None,
+                   metavar="N",
+                   help="per-column RAM budget (rows) for exact "
+                        "UNIQUE/distinct tracking before spilling "
+                        "(default: 4M rows = ~32 MB/column)")
+    p.add_argument("--unique-track-total-rows", default=None,
+                   metavar="N|auto",
+                   help="global RAM budget (rows across all columns) "
+                        "for exact tracking; 'auto' derives it from "
+                        "available RAM (quarter of MemAvailable at "
+                        "8 B/row, capped at 2 GB) (default: "
+                        "TPUPROF_UNIQUE_TRACK_TOTAL_ROWS, else 32M "
+                        "rows = ~256 MB)")
+    p.add_argument("--unique-partitions", type=int, default=None,
+                   metavar="P",
+                   help="hash partitions of the exact tracker (power "
+                        "of two in [1, 256]; results identical at "
+                        "every count — this sizes sort/resolve working "
+                        "sets, default: TPUPROF_UNIQUE_PARTITIONS, "
+                        "else 16)")
+    p.add_argument("--unique-spill-workers", type=int, default=None,
+                   metavar="W",
+                   help="unique-spill run writes in flight on the "
+                        "shared io pool while the scan keeps folding "
+                        "(0 = synchronous writes; byte-identical "
+                        "output at any width; default: "
+                        "TPUPROF_UNIQUE_SPILL_WORKERS, else 2)")
+    p.add_argument("--exact-distinct", action="store_true",
+                   help="count distincts exactly for every column at any "
+                        "size (needs --unique-spill-dir; 8 bytes per "
+                        "distinct value per column of disk)")
+    p.add_argument("--parity", action="store_true",
+                   help="reference semantics, exactly, in one switch: "
+                        "exact distinct counts for every column (no HLL "
+                        "estimate anywhere), exact histograms/top-k "
+                        "(second pass), and Spearman.  Auto-derives a "
+                        "spill dir under TMPDIR when --unique-spill-dir "
+                        "is not given (8 bytes per distinct value per "
+                        "column; removed after the profile)")
     p.add_argument("--stats-json", metavar="PATH",
                    help="also dump the whole stats dict as "
                         "tpuprof-stats-v1 JSON")
@@ -213,6 +258,13 @@ def cmd_profile(args: argparse.Namespace) -> int:
             hll_precision=args.hll_precision,
             exact_passes=not args.single_pass,
             spearman=args.spearman, artifact_path=args.artifact,
+            unique_spill_dir=args.unique_spill_dir,
+            exact_distinct=args.exact_distinct, parity=args.parity,
+            **({"unique_track_rows": args.unique_track_rows}
+               if args.unique_track_rows is not None else {}),
+            unique_track_total_rows=args.unique_track_total_rows,
+            unique_partitions=args.unique_partitions,
+            unique_spill_workers=args.unique_spill_workers,
             checkpoint_path=args.checkpoint,
             checkpoint_every_batches=args.checkpoint_every,
             checkpoint_keep=args.checkpoint_keep)

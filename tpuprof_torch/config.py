@@ -19,9 +19,12 @@ PASS_B_KERNELS = ("cumulative", "legacy")
 PROFILE_PASSES = ("two_pass", "fused")
 NESTED_POLICIES = ("stringify", "opaque")
 
-# the exact-unique tracker's global row budget when none is given (the
-# reference's historical default)
+# resolve_unique_budget's "auto" sizing: a quarter of available RAM at 8
+# bytes a row, floored at the historical default (auto never tracks less
+# than the default) and capped at 2 GB of buffers
 UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
+UNIQUE_BUDGET_RAM_SHARE = 0.25
+UNIQUE_BUDGET_CAP_ROWS = 1 << 28
 
 _FLEET = "multi-GPU and fleet"
 _SERVE = "serve"
@@ -29,13 +32,7 @@ _TELEMETRY = "telemetry"
 
 # field -> the later slice that ports it
 _LATER = {
-    "parity": "exact distinct counting and Spearman",
     "backend": "a CPU oracle backend",
-    "unique_partitions": "spilled exact-unique tracking",
-    "unique_spill_workers": "spilled exact-unique tracking",
-    "unique_spill_dir": "spilled exact-unique tracking",
-    "spill_dir_auto": "spilled exact-unique tracking",
-    "exact_distinct": "exact distinct counting",
     "mesh_devices": _FLEET,
     "compile_cache_dir": _SERVE,
     "barrier_timeout_s": _FLEET,
@@ -153,14 +150,30 @@ class ProfilerConfig:
     checkpoint_keep: Optional[int] = None   # generations kept (path,
                                             # path.1, ...; resolve_*)
 
+    # ---- exact distinct (kernels/unique.py) -------------------------------
+    parity: bool = False            # the reference's answers in one switch:
+                                    # exact_distinct and spearman, with a
+                                    # per-user spill dir under the temp dir
+                                    # when none is given (removed after
+                                    # the profile)
+    unique_partitions: Optional[int] = None  # hash partitions of the
+                                             # tracker (resolve_*); the
+                                             # results are the same at
+                                             # every count
+    unique_spill_workers: Optional[int] = None  # spill writes in flight on
+                                                # the io tier (resolve_*;
+                                                # 0: synchronous)
+    unique_spill_dir: Optional[str] = None  # columns past the budgets spill
+                                            # sorted hash runs here (8 B a
+                                            # row) and stay exact; None:
+                                            # the HLL estimate past them
+    spill_dir_auto: bool = False    # unique_spill_dir was derived by parity:
+                                    # cleanup may remove the directory too
+    exact_distinct: bool = False    # every column's distinct count exact at
+                                    # any size (needs unique_spill_dir)
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
-    parity: bool = False
     backend: str = "auto"
-    unique_partitions: Optional[int] = None
-    unique_spill_workers: Optional[int] = None
-    unique_spill_dir: Optional[str] = None
-    spill_dir_auto: bool = False
-    exact_distinct: bool = False
     mesh_devices: Optional[int] = None
     compile_cache_dir: Optional[str] = None
     barrier_timeout_s: Optional[float] = None
@@ -264,9 +277,60 @@ class ProfilerConfig:
             if dupes:
                 raise ValueError(f"columns lists duplicates: {dupes}")
             self.columns = cols
-        if isinstance(self.unique_track_total_rows, str) \
-                and self.unique_track_total_rows.strip().lower() != "auto":
-            int(self.unique_track_total_rows)      # raises ValueError
+        if self.parity:
+            if not self.exact_passes:
+                raise ValueError(
+                    "parity conflicts with single-pass mode "
+                    "(exact_passes=False): the reference's histograms "
+                    "and top-k counts are exact, which needs the "
+                    "second scan")
+            self.exact_distinct = True
+            self.spearman = True
+            if self.unique_spill_dir is None:
+                # one per-user directory, not one a run: run files carry
+                # per-tracker tokens, and the next parity run's age-gated
+                # sweep reclaims a crashed run's litter here
+                import tempfile
+                uid = os.getuid() if hasattr(os, "getuid") else "u"
+                self.unique_spill_dir = os.path.join(
+                    tempfile.gettempdir(), f"tpuprof-parity-{uid}")
+                self.spill_dir_auto = True
+        if self.exact_distinct and not self.unique_spill_dir:
+            raise ValueError(
+                "exact_distinct needs unique_spill_dir (CLI: "
+                "--unique-spill-dir, or --parity which derives one): "
+                "exact counting stores 8 bytes per distinct value per "
+                "column, which must be able to spill past the RAM "
+                "budget")
+        if isinstance(self.unique_track_total_rows, str):
+            v = self.unique_track_total_rows.strip().lower()
+            if v != "auto":
+                try:
+                    int(v)
+                except ValueError:
+                    raise ValueError(
+                        "unique_track_total_rows must be an int, "
+                        "'auto' (derive the budget from available "
+                        "RAM), or None (env/default resolution) — got "
+                        f"{self.unique_track_total_rows!r}") from None
+        if self.unique_partitions is not None:
+            resolve_unique_partitions(self.unique_partitions)  # raises
+        if self.unique_spill_workers is not None \
+                and self.unique_spill_workers < 0:
+            raise ValueError("unique_spill_workers must be >= 0 "
+                             "(0 = synchronous spill writes; or None)")
+        if self.exact_distinct and (
+                self.unique_track_rows <= 0
+                or resolve_unique_budget(self.unique_track_total_rows)
+                <= 0):
+            raise ValueError(
+                "exact_distinct conflicts with a disabled tracking "
+                "budget (unique_track_rows/unique_track_total_rows "
+                "<= 0): exact counting needs the in-memory tier.  Set "
+                "the row knobs positive, or "
+                "unique_track_total_rows='auto' (CLI: "
+                "--unique-track-total-rows auto) to size the global "
+                "budget from available RAM")
         from tpuprof_torch.kernels.hll import MAX_PRECISION
         if not 4 <= self.hll_precision <= MAX_PRECISION:
             raise ValueError(
@@ -293,23 +357,69 @@ class ProfilerConfig:
         return cls(**{k: v for k, v in kwargs.items() if k in fields})
 
 
-def resolve_unique_budget(value=None) -> int:
-    """Global exact-unique tracking budget in rows: an int wins; "auto"
-    takes a quarter of available RAM at 8 bytes a row (floored at the
-    default, capped at 2**28 rows); None is the default."""
+def _available_ram_bytes() -> int:
+    """Available host RAM: ``MemAvailable`` of ``/proc/meminfo``, else the
+    sysconf physical-page estimate, else 2 GB."""
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+    except (AttributeError, ValueError, OSError):
+        return 2 << 30
+
+
+def resolve_unique_budget(value=None, available_bytes: Optional[int] = None
+                          ) -> int:
+    """Global exact-unique tracking budget in rows (all columns): an int
+    wins; ``"auto"`` takes ``UNIQUE_BUDGET_RAM_SHARE`` of available RAM at
+    8 bytes a row, floored at ``UNIQUE_BUDGET_DEFAULT_ROWS`` and capped at
+    ``UNIQUE_BUDGET_CAP_ROWS``; None reads ``TPUPROF_UNIQUE_TRACK_TOTAL_ROWS``
+    (an int or ``auto``), else the default."""
     if value is None:
-        return UNIQUE_BUDGET_DEFAULT_ROWS
+        env = os.environ.get("TPUPROF_UNIQUE_TRACK_TOTAL_ROWS")
+        value = env if env not in (None, "") else UNIQUE_BUDGET_DEFAULT_ROWS
     if isinstance(value, str):
         v = value.strip().lower()
         if v != "auto":
             return int(v)
-        try:
-            avail = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
-        except (AttributeError, ValueError, OSError):
-            avail = 2 << 30
+        avail = available_bytes if available_bytes is not None \
+            else _available_ram_bytes()
+        rows = int(avail * UNIQUE_BUDGET_RAM_SHARE) // 8
         return max(UNIQUE_BUDGET_DEFAULT_ROWS,
-                   min(int(avail * 0.25) // 8, 1 << 28))
+                   min(rows, UNIQUE_BUDGET_CAP_ROWS))
     return int(value)
+
+
+def resolve_unique_partitions(value: Optional[int] = None) -> int:
+    """Hash partitions of the exact-unique tracker: the config value, else
+    ``TPUPROF_UNIQUE_PARTITIONS``, else 16.  A power of two in [1, 256] (a
+    partition is the hash's top bits); the results are the same at every
+    count, only the sort and resolve working sets change."""
+    if value is None:
+        env = _env_int("TPUPROF_UNIQUE_PARTITIONS")
+        value = env if env is not None else 16
+    p = int(value)
+    if p < 1 or p > 256 or (p & (p - 1)):
+        raise ValueError(
+            f"unique_partitions={value!r} — use a power of two in "
+            "[1, 256] (the partition id is the hash's top bits)")
+    return p
+
+
+def resolve_spill_workers(value: Optional[int] = None) -> int:
+    """Spill-run writes in flight on the io tier (``ingest/prep.py``) while
+    the scan folds on: the config value, else
+    ``TPUPROF_UNIQUE_SPILL_WORKERS``, else 2; 0 writes on the fold thread.
+    The runs are byte-identical at any number."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_UNIQUE_SPILL_WORKERS")
+    return max(env, 0) if env is not None else 2
 
 
 def _env_int(var: str) -> Optional[int]:

@@ -13,10 +13,11 @@ device step consumes:
 
 plus the host-only side channels: dictionary codes of categorical columns
 (Misra-Gries, recount), the row-hash aggregation of high-cardinality plain
-strings, int64-nanosecond dates, Arrow buffer sizes and the null counts of
-opaque nested columns.  The hashing is the reference's, bit for bit (native
-C++ when it builds, pandas otherwise), so distinct counts and top-k keys
-agree with it.
+strings, int64-nanosecond dates, Arrow buffer sizes, the null counts of
+opaque nested columns and, with ``full_hashes`` (``config.exact_distinct``),
+the unpacked 64-bit hashes of numeric and date columns.  The hashing is the
+reference's, bit for bit (native C++ when it builds, pandas otherwise), so
+distinct counts and top-k keys agree with it.
 
 Nested (list, struct, map) columns follow ``config.nested``: "stringify"
 profiles the ``str()`` of each value as a categorical column (a Python
@@ -163,6 +164,11 @@ class HostBatch:
     # materialize only for what the consumer keeps.  A column prepared
     # this way has no cat_codes entry in the batch
     cat_hashed: Optional[Dict[str, Tuple]] = None
+    # the full 64-bit hashes of each numeric and date column's valid rows
+    # (owned arrays), only when prepared with full_hashes
+    # (config.exact_distinct): the HLL plane keeps 16 packed bits, exact
+    # counting needs the whole hash
+    num_hashes: Optional[Dict[str, np.ndarray]] = None
     # null counts of opaque nested columns: their only statistic
     opaque_nulls: Optional[Dict[str, int]] = None
     hll_precision: int = 11
@@ -207,9 +213,13 @@ def _packed_obs(keys: np.ndarray, valid: np.ndarray,
 
 def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
                    hll_packed: np.ndarray, hashes: bool,
-                   hll_precision: int, lo: int) -> None:
+                   hll_precision: int, lo: int,
+                   nh: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                   ) -> None:
     """Decode one numeric or boolean Arrow slice into plane rows
-    [lo, lo + len(arr)) and, with ``hashes``, its packed HLL lane.  Every
+    [lo, lo + len(arr)) and, with ``hashes``, its packed HLL lane; with
+    ``nh`` (a column's preallocated (hashes, valid) pair) also the rows'
+    full 64-bit hashes and validity, the very hashes the lane packs.  Every
     operation is elementwise, so any row partition of a column gives
     byte-identical planes.  Nulls are NaN."""
     hi = lo + len(arr)
@@ -243,9 +253,22 @@ def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
         if arr.null_count:
             xf = np.where(valid, xf, np.nan)
         x[lo:hi, lane] = xf
-    if hashes:
-        hll_packed[lo:hi, spec.hash_lane] = _packed_obs(
-            _num_keys(vals), valid, hll_precision)
+    if not hashes:
+        return
+    keys = _num_keys(vals)
+    if nh is None:
+        hll_packed[lo:hi, spec.hash_lane] = _packed_obs(keys, valid,
+                                                        hll_precision)
+        return
+    # one native pass writes the full hashes into the pair's slice and
+    # returns the packed observations
+    packed = native.hash_pack_keep_u64(keys, valid, hll_precision,
+                                       nh[0][lo:hi])
+    if packed is None:
+        packed = _packed_obs(keys, valid, hll_precision)
+        nh[0][lo:hi] = _hash64(keys)
+    hll_packed[lo:hi, spec.hash_lane] = packed
+    nh[1][lo:hi] = valid
 
 
 def _stringified(name: str, arr: pa.Array) -> pa.Array:
@@ -332,12 +355,15 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                   hll_precision: int = 11, hashes: bool = True,
                   dict_cache: Optional[_DictionaryCache] = None,
                   col_stats: Optional[Dict[str, int]] = None,
-                  decode_threads: Optional[int] = None) -> HostBatch:
+                  decode_threads: Optional[int] = None,
+                  full_hashes: bool = False) -> HostBatch:
     """Decode one Arrow record batch into a fixed-shape HostBatch.
 
     ``hashes=False`` (pass B) skips hashing and leaves a zero-width packed
-    plane.  ``col_stats`` (owned by the ingest, like ``dict_cache``) holds
-    each column's last per-batch distinct count, which moves plain-string
+    plane.  ``full_hashes`` (with ``hashes``) also keeps each numeric and
+    date column's 64-bit hashes of its valid rows (``num_hashes``).
+    ``col_stats`` (owned by the ingest, like ``dict_cache``) holds each
+    column's last per-batch distinct count, which moves plain-string
     columns onto the row-hash path once they prove high-cardinality.
     ``decode_threads`` is the number of leaf tasks run at once
     (``resolve_prep_workers``); the planes are byte-identical at any
@@ -356,6 +382,9 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
     cat_hash_kind: Dict[str, str] = {}
     cat_hashed: Dict[str, Tuple] = {}
     date_ints: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    # name -> (hashes, valid) while the tasks fill them
+    num_hashes: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    full_hashes = hashes and full_hashes
     opaque_nulls: Dict[str, int] = {}
     col_nbytes: Dict[str, int] = {}
     col_dict_nbytes: Dict[str, int] = {}
@@ -364,7 +393,7 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
         arr = batch.column(i)
         if spec.role == "num":
             _fill_num_rows(arr, spec, x, hll_packed, hashes, hll_precision,
-                           0)
+                           0, num_hashes.get(spec.name))
             return
         if spec.role == "date":
             valid = arr.is_valid().to_numpy(zero_copy_only=False)
@@ -372,8 +401,11 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                       .cast(pa.int64(), safe=False) \
                       .fill_null(0).to_numpy(zero_copy_only=False)
             if hashes:
+                keys = _num_keys(ints)
                 hll_packed[:n, spec.hash_lane] = _packed_obs(
-                    _num_keys(ints), valid, hll_precision)
+                    keys, valid, hll_precision)
+                if full_hashes:
+                    num_hashes[spec.name] = (_hash64(keys), valid)
             date_ints[spec.name] = (ints, valid)
             return
         if spec.opaque:
@@ -428,22 +460,32 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
             col_dict_nbytes[spec.name] = arr.dictionary.nbytes
         else:
             col_nbytes[spec.name] = arr.nbytes
+        if spec.role == "num" and full_hashes:
+            # row-chunk tasks fill disjoint slices of one pair
+            num_hashes[spec.name] = (np.empty(n, dtype=np.uint64),
+                                     np.empty(n, dtype=bool))
         if spec.role == "num" and num_split > 1:
             step = -(-n // num_split)
             for lo in range(0, n, step):
                 tasks.append(
                     lambda lo=lo, arr=arr, spec=spec: _fill_num_rows(
                         arr.slice(lo, step), spec, x, hll_packed, hashes,
-                        hll_precision, lo))
+                        hll_precision, lo, num_hashes.get(spec.name)))
         else:
             tasks.append(lambda i=i, spec=spec: decode_column(i, spec))
     prep.run_tasks(tasks, workers)
+    # compact to the valid rows here, on the prepare's thread, not on the
+    # ordered fold thread: the tracker gets owned valid-only arrays, and an
+    # all-valid lane passes its filled array as it is
+    valid_hashes = {name: harr if hvalid.all() else harr[hvalid]
+                    for name, (harr, hvalid) in num_hashes.items()}
 
     return HostBatch(nrows=n, x=x, row_valid=row_valid, hll=hll_packed,
                      cat_codes=cat_codes, date_ints=date_ints,
                      cat_hashes=cat_hashes if hashes else None,
                      cat_hash_kind=cat_hash_kind if hashes else None,
                      cat_hashed=cat_hashed if hashes else None,
+                     num_hashes=valid_hashes if full_hashes else None,
                      opaque_nulls=opaque_nulls or None,
                      hll_precision=hll_precision, col_nbytes=col_nbytes,
                      col_dict_nbytes=col_dict_nbytes)
@@ -454,8 +496,8 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
                       workers: int = 1, prep_workers: Optional[int] = None,
                       batch_guard=None, skip_keys=frozenset(),
                       positions: bool = False,
-                      resume_pos: Optional[Tuple[int, int]] = None
-                      ) -> Iterator:
+                      resume_pos: Optional[Tuple[int, int]] = None,
+                      full_hashes: bool = False) -> Iterator:
     """Prepared batches in stream order, ``workers`` prepares in flight.
 
     A reader thread enumerates the raw batches and queues prepare futures
@@ -475,8 +517,13 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     ``frag_pos`` and keys the guard on it, as the reference does; with
     ``resume_pos=(fi, done)`` the first ``fi`` fragments are never opened
     and fragment ``fi``'s first ``done`` batches are skipped unprepared
-    (zero-copy slices of a table)."""
-    depth = max(depth, workers)
+    (zero-copy slices of a table).
+
+    ``full_hashes`` (``config.exact_distinct``) has every batch keep its
+    numeric and date columns' 64-bit hashes, about 9 bytes a row a column
+    more, so the queue holds no more than the ``workers`` prepares in
+    flight."""
+    depth = workers if full_hashes else max(depth, workers)
     col_threads = resolve_prep_workers(prep_workers, batch_workers=workers)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
@@ -501,7 +548,8 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
         def _do():
             hb = prepare_batch(rb, ingest.plan, pad, hll_precision,
                                hashes, ingest.dict_cache,
-                               ingest.col_stats, col_threads)
+                               ingest.col_stats, col_threads,
+                               full_hashes=full_hashes)
             hb.frag_pos = frag_pos
             return hb
         if batch_guard is None:

@@ -1,6 +1,6 @@
 """Shared thread pools for the host-side batch prepare.
 
-Counterpart of ``tpuprof/ingest/prep.py``.  Two tiers, two pools, no
+Counterpart of ``tpuprof/ingest/prep.py``.  Three tiers, three pools, no
 nesting:
 
 * the **column pool** runs the leaf tasks of one ``prepare_batch``: one a
@@ -11,20 +11,22 @@ nesting:
 * the **batch pool** runs whole-batch work for ordered pipelines over a
   known worklist (:func:`ordered_map`).  Batch tasks fan out onto the
   column pool, never onto their own, so the tiers form a DAG.
+* the **io pool** runs background disk writes (:func:`submit_io`): the
+  exact-unique tracker's spill runs (``kernels/unique.py``), so they hide
+  under the device scan and the next prepare.  IO tasks are leaves and wait
+  on the disk, not the GIL; callers bound their own window and settle
+  futures oldest first.
 
-Both pools are process-wide and built on first use: the hot paths (Arrow
-decode, numpy casts, the native hash and pack) release the GIL, so shared
-pools keep the cores busy without a thread pool a batch.
-
-The reference's third tier, the io pool (``submit_io``), serves only the
-spilled exact-unique tracker and comes with that slice.  Its per-worker
-task counters wait for the telemetry slice.
+All pools are process-wide and built on first use: the hot paths (Arrow
+decode, numpy casts, the native hash and pack, ``ndarray.tofile``) release
+the GIL, so shared pools keep the cores busy without a thread pool a batch.
+The reference's per-worker task counters wait for the telemetry slice.
 """
 
 from __future__ import annotations
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
 _LOCK = threading.Lock()
@@ -43,6 +45,15 @@ def _shared(kind: str, workers: int) -> ThreadPoolExecutor:
                 thread_name_prefix=f"tpuprof-torch-{kind}")
             _POOLS[kind] = (pool, workers)
         return pool
+
+
+def submit_io(fn: Callable[[], object], workers: int) -> Future:
+    """Queue one background disk write on the io tier and return its
+    Future.  The caller owns the completion policy: it bounds the window,
+    settles futures oldest first and turns a raised ``OSError`` into its
+    own failure semantics; the pool never swallows one.  (The reference
+    counts each task here; that counter comes with the telemetry slice.)"""
+    return _shared("io", max(int(workers), 1)).submit(fn)
 
 
 def run_tasks(tasks: Sequence[Callable[[], None]], workers: int) -> None:

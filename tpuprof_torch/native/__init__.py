@@ -36,6 +36,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tpuprof_hll_update.argtypes = [p, n, n, ctypes.c_ssize_t,
                                        ctypes.c_ssize_t, p, n]
     lib.tpuprof_hash_pack_u64.argtypes = [p, p, p, n, ctypes.c_int]
+    lib.tpuprof_hash_pack_keep_u64.argtypes = [p, p, p, p, n, ctypes.c_int]
     lib.tpuprof_pack_gather.argtypes = [p, n, p, p, p, n, ctypes.c_int]
 
 
@@ -122,6 +123,30 @@ def hash_pack_u64(keys: np.ndarray, valid: Optional[np.ndarray],
     keep, vptr = _valid_ptr(valid)
     lib.tpuprof_hash_pack_u64(keys.ctypes.data, vptr, out.ctypes.data,
                               keys.size, precision)
+    del keep
+    return out
+
+
+def hash_pack_keep_u64(keys: np.ndarray, valid: Optional[np.ndarray],
+                       precision: int,
+                       h64_out: np.ndarray) -> Optional[np.ndarray]:
+    """``hash_pack_u64`` that also writes the full 64-bit hashes into
+    ``h64_out`` (a C-contiguous uint64 array of the keys' length: the
+    exact-distinct tracker's feed) in the same pass; bit-identical to
+    ``hash_pack_u64`` and ``hash_u64_array``.  None without the library."""
+    _check_pack_precision(precision)
+    lib = _load()
+    if lib is None:
+        return None
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    if h64_out.dtype != np.uint64 or h64_out.size != keys.size \
+            or not h64_out.flags.c_contiguous:
+        raise ValueError("h64_out must be a C-contiguous uint64 array of "
+                         "the keys' length")
+    out = np.empty(keys.shape, dtype=np.uint16)
+    keep, vptr = _valid_ptr(valid)
+    lib.tpuprof_hash_pack_keep_u64(keys.ctypes.data, vptr, out.ctypes.data,
+                                   h64_out.ctypes.data, keys.size, precision)
     del keep
     return out
 

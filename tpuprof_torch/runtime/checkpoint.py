@@ -6,7 +6,10 @@ payload bytes.  The payload is a pickled dict ``{"arrays_npz", "host_blob",
 "cursor", "meta"}``: the device state as one ``.npz`` archive (leaves
 flattened to ``/``-joined key paths, through
 ``runner.state_to_numpy`` / ``state_from_numpy``) and the host
-aggregators pickled as they are.
+aggregators pickled as they are.  The exact-unique tracker pickles with the
+paths of its spill runs, not their bytes: a restore on the same host adopts
+the runs, and one whose runs are missing or torn demotes those columns to
+the HLL estimate (``kernels/unique.py``).
 
 * **atomic** — the payload goes to a dot-prefixed temporary file, is
   flushed and fsynced, then renamed over ``path``; a save that raises

@@ -21,6 +21,12 @@ processes (``runtime/checkpoint.py``), :meth:`export_payload` /
 :meth:`from_payload` hand it to fold-state artifacts
 (``artifact/store.py``, ``artifact/incremental.py``).  The device is
 explicit: ``cuda:0`` by default, the CPU only when asked for.
+
+With ``exact_distinct`` the stream keeps exact distinct counts, spilling
+past the tracker's budgets (``kernels/unique.py``).  A checkpoint or a
+fold-state artifact references the spill runs by path, so from then on
+they survive a crash; :meth:`close` (or leaving a ``with`` block without an
+error) deletes them.  ``parity`` needs a second pass and is refused.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from tpuprof_torch.config import (ProfilerConfig, resolve_checkpoint_keep,
                                   resolve_quarantine_log,
                                   resolve_retry_backoff,
                                   resolve_watchdog_timeout)
+from tpuprof_torch.errors import InputError
 from tpuprof_torch.ingest import prep
 from tpuprof_torch.ingest.arrow import (ColumnPlan, _DictionaryCache,
                                         prepare_batch, validate_projection)
@@ -152,6 +159,15 @@ class StreamingProfiler:
                  config: Optional[ProfilerConfig] = None, device=None):
         from tpuprof_torch.backends.gpu import HostAgg
         config = config or ProfilerConfig()
+        if config.parity:
+            # before the replace below, whose validation would blame the
+            # single-pass mode for an option the user never set
+            raise InputError(
+                "parity is not supported for streaming: an unbounded "
+                "stream has no second exact pass (histograms/top-k stay "
+                "sketch-derived).  For the stream's exact tier set "
+                "exact_distinct=True (with unique_spill_dir) and "
+                "spearman=True explicitly")
         # a stream has no second pass
         self.config = dataclasses.replace(config, exact_passes=False)
         if self.config.columns is not None:
@@ -203,6 +219,7 @@ class StreamingProfiler:
             self.config.drain_timeout_s, "TPUPROF_DRAIN_TIMEOUT_S")
         self._ckpt_keep = resolve_checkpoint_keep(self.config.checkpoint_keep)
         self._slice_seq = 0     # each slice's key (faults, the manifest)
+        self._closed = False
 
     @classmethod
     def for_example(cls, example: Any, **kwargs) -> "StreamingProfiler":
@@ -251,7 +268,8 @@ class StreamingProfiler:
             rbs[0], self.plan, self.runner.rows, self.config.hll_precision,
             dict_cache=self._dict_cache, col_stats=self._col_stats,
             decode_threads=resolve_prep_workers(self.config.prep_workers,
-                                                batch_workers=workers))
+                                                batch_workers=workers),
+            full_hashes=self.config.exact_distinct)
 
     def _fold_prepared(self, hb) -> None:
         """Fold one prepared batch, in stream order: the device step, the
@@ -424,8 +442,10 @@ class StreamingProfiler:
         """Fold the buffer, then the whole durable state as one dict
         ``{"state", "host_blob", "config", "cursor", "meta"}`` without
         writing anything: what :meth:`checkpoint` saves and what a
-        fold-state artifact embeds."""
+        fold-state artifact embeds.  The payload references the spill runs
+        by path, so they are marked to survive a crash."""
         self._drain(force=True)
+        self.hostagg.unique.persistent = True
         host_blob = {
             "hostagg": self.hostagg,
             "sampler": self.sampler,
@@ -460,21 +480,36 @@ class StreamingProfiler:
         """Save the fold state atomically (the buffer folds first: the
         checkpoint covers every row passed to :meth:`update`).  Returns
         the file's size in bytes."""
+        # queued spill writes land first: a checkpoint references durable
+        # runs only (pickling drains too; this orders it explicitly)
+        self.hostagg.unique.flush_spills()
         payload = self.export_payload()
-        return ckpt.save(path, payload["state"], payload["host_blob"],
+        size = ckpt.save(path, payload["state"], payload["host_blob"],
                          payload["cursor"], meta=payload["meta"],
                          keep=self._ckpt_keep)
+        # runs dropped since the previous save are referenced no more
+        self.hostagg.unique.reap_retired()
+        return size
 
     def close(self) -> None:
-        """End the stream (the reference's: it releases the spilled
-        unique tracker's runs, which the port does not have yet, so there
-        is nothing to release).  Idempotent."""
+        """Release the stream's disk working space, the spill runs of
+        ``exact_distinct``: once a checkpoint or an artifact references
+        them they outlive the process by design, until this is called.
+        Snapshots are invalid afterwards, so take the last ``stats()``
+        first.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        self.hostagg.unique.cleanup()
 
     def __enter__(self) -> "StreamingProfiler":
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        self.close()
+        # an error leaving the block is the crash a checkpoint promises to
+        # survive: once a save references the runs, they stay for restore
+        if exc_type is None or not self.hostagg.unique.persistent:
+            self.close()
 
     @classmethod
     def restore(cls, path: str, config: Optional[ProfilerConfig] = None,
