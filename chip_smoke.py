@@ -6,13 +6,14 @@ Run from the repository root:
     python3 chip_smoke.py                  # the full check on the card
     python3 chip_smoke.py --only limits,durable   # build + phases 7 and 8
     python3 chip_smoke.py --only exact     # build + phase 9
+    python3 chip_smoke.py --only obs       # build + phase 10 (telemetry)
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact (phases 3 to 9) and k2big (phase 3's check of K2's device-memory body
+exact, obs (phases 3 to 10) and k2big (phase 3's check of K2's device-memory body
 alone); ``--kernels-only`` and ``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
@@ -160,7 +161,27 @@ Phases, each fatal on failure:
    prints its wall, phase seconds, spill bytes and runs and the tracker's
    feed and resolve seconds; then ``exact_distinct_overhead_x`` (exact
    wall over sketch wall) and the process's peak host RSS;
-10. one JSON line of per-kernel numbers, the card's name and power limit,
+10. telemetry (``tpuprof_torch/obs``): the headline 200 x 2,097,152 with
+   metrics off, on (a JSONL sink) and on with every dispatch timed by CUDA
+   events (``metrics_block_sample=1``), the same launches and
+   ``stats_to_json`` in all three; the dispatch series (``scan_a``,
+   ``scan_b``, ``kernel="cumulative"``), rows ingested, the memory gauges
+   of ``cuda:0`` (``limit`` equal to ``torch.cuda.mem_get_info``), host
+   RSS and the footer's pipeline line; one timed sample a ``scan_a``
+   dispatch, their sum between K1's launches x 0.5 ms and the ``scan_a``
+   span (printed beside K1's launches x its phase-3 time); fused warm from
+   an artifact (K4 alone, its ``step_ab``/``scan_ab`` series); then a
+   child ``profile`` of phase 5's directory with ``--metrics-json
+   --metrics-interval 1 --progress --trace --checkpoint``: no ``jax`` or
+   ``tpuprof`` import, every JSONL event valid against ``EVENT_SCHEMA``,
+   the pipeline's spans, interval and final snapshots, a checkpoint save,
+   ``.prom`` and ``.fleet.prom`` parsed and agreeing, progress lines, the
+   stats of phase 5's artifact; the trace's size, K1's and K2's kernel
+   events, the kernel time by name and the device busy share (kernels,
+   copies and fills over the ``profile`` range); and a poisoned child
+   (``TPUPROF_FAULTS=prep:2@1``) exiting 5 with one postmortem bundle
+   naming ``prep``.  Each step prints its wall seconds;
+11. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -2785,8 +2806,8 @@ class TrackerProbe:
                             + time.perf_counter() - t0)
             return wrapper
 
-        def write_run(self, path, parts):
-            probe.saved["_write_run"](self, path, parts)
+        def write_run(self, path, parts, name):
+            probe.saved["_write_run"](self, path, parts, name)
             with probe.lock:
                 probe.runs += 1
                 probe.bytes += os.path.getsize(path)
@@ -3109,8 +3130,492 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: telemetry
+# ---------------------------------------------------------------------------
+
+# the JSONL contract, kind -> {field: (types, required)}: a copy of
+# tests/test_obs_smoke.py's EVENT_SCHEMA (a test holds the two equal), so
+# the check needs no test file on the card's machine
+EVENT_SCHEMA = {
+    "span": {"ts": ((int, float), True), "name": ((str,), True),
+             "seconds": ((int, float), True), "path": ((str,), True),
+             "depth": ((int,), True)},
+    "metric": {"ts": ((int, float), True), "name": ((str,), True),
+               "type": ((str,), True), "labels": ((str,), True),
+               "reason": ((str,), True), "value": ((int, float), False),
+               "count": ((int,), False), "sum": ((int, float), False),
+               "mean": ((int, float), False)},
+    "checkpoint_save": {"ts": ((int, float), True), "path": ((str,), True),
+                        "cursor": ((int,), True),
+                        "seconds": ((int, float), True)},
+    "checkpoint_restore": {"ts": ((int, float), True), "path": ((str,), True),
+                           "cursor": ((int,), True),
+                           "seconds": ((int, float), True)},
+    "heartbeat": {"ts": ((int, float), True), "rows_folded": ((int,), True)},
+    "ingest_retry": {"ts": ((int, float), True), "site": ((str,), True),
+                     "attempt": ((int,), True), "error": ((str,), True)},
+    "batch_quarantined": {"ts": ((int, float), True), "site": ((str,), True),
+                          "error": ((str,), True)},
+    "checkpoint_fallback": {"ts": ((int, float), True), "path": ((str,), True),
+                            "error": ((str,), True)},
+    "checkpoint_fallback_used": {"ts": ((int, float), True),
+                                 "path": ((str,), True),
+                                 "cursor": ((int,), True)},
+    "watchdog_timeout": {"ts": ((int, float), True), "site": ((str,), True),
+                         "timeout_s": ((int, float), True)},
+    "ticker_stop_timeout": {"ts": ((int, float), True),
+                            "interval": ((int, float), True)},
+    "unique_spill": {"ts": ((int, float), True), "column": ((str,), True),
+                     "rows": ((int,), True), "bytes": ((int,), True),
+                     "seconds": ((int, float), True)},
+    "fleet_snapshot": {"ts": ((int, float), True), "reason": ((str,), True),
+                       "hosts": ((int,), True),
+                       "quarantined_by_host": ((list,), True),
+                       "snapshot": ((dict,), True)},
+    "fleet_join": {"ts": ((int, float), True), "host": ((str,), True),
+                   "fragments": ((int,), True), "adopted": ((list,), True)},
+    "fleet_depart": {"ts": ((int, float), True), "host": ((str,), True)},
+    "fleet_contribute": {"ts": ((int, float), True), "host": ((str,), True),
+                         "phase": ((str,), True), "seq": ((int,), True),
+                         "fragments": ((int,), True)},
+    "fleet_fenced": {"ts": ((int, float), True), "host": ((str,), True),
+                     "phase": ((str,), True), "lost": ((list,), True)},
+    "fleet_rebalance": {"ts": ((int, float), True), "host": ((str,), True),
+                        "phase": ((str,), True), "stolen": ((list,), True)},
+    "artifact_resume": {"ts": ((int, float), True), "path": ((str,), True),
+                        "rows": ((int,), True), "cursor": ((int,), True)},
+    "serve_job": {"ts": ((int, float), True), "id": ((str,), True),
+                  "tenant": ((str,), True), "status": ((str,), True),
+                  "seconds": ((int, float), True),
+                  "queue_seconds": ((int, float, type(None)), False),
+                  "cache_hit": ((bool, type(None)), False),
+                  "read_cache": ((str, type(None)), False),
+                  "coalesced_with": ((str, type(None)), False),
+                  "error": ((str, type(None)), False)},
+    "serve_heartbeat": {"ts": ((int, float), True), "requests": ((int,), True),
+                        "done": ((int,), True), "queued": ((int,), True)},
+    "serve_fleet_join": {"ts": ((int, float), True), "daemon": ((str,), True),
+                         "spool": ((str,), True)},
+    "serve_fleet_depart": {"ts": ((int, float), True),
+                           "daemon": ((str,), True),
+                           "unanswered": ((int,), True)},
+    "serve_job_stolen": {"ts": ((int, float), True), "job": ((str,), True),
+                         "daemon": ((str,), True),
+                         "from_daemon": ((str, type(None)), False),
+                         "generation": ((int,), True)},
+    "artifact_write": {"ts": ((int, float), True), "path": ((str,), True),
+                       "rows": ((int,), True), "bytes": ((int,), True),
+                       "foldable": ((bool,), True)},
+    "drift_report": {"ts": ((int, float), True), "verdict": ((str,), True),
+                     "n_drift": ((int,), True), "n_warn": ((int,), True),
+                     "columns": ((int,), True)},
+    "watch_cycle": {"ts": ((int, float), True), "source": ((str,), True),
+                    "cycle": ((int,), True), "status": ((str,), True),
+                    "seconds": ((int, float), True),
+                    "artifact": ((str, type(None)), False),
+                    "n_drift": ((int,), False), "n_warn": ((int,), False)},
+    "drift_alert": {"ts": ((int, float), True), "alert": ((str,), True),
+                    "seq": ((int,), True), "source": ((str,), True),
+                    "cycle": ((int,), True), "severity": ((str,), True),
+                    "verdict": ((str,), False), "error": ((str,), False),
+                    "columns": ((list,), False), "exit_code": ((int,), False)},
+    "warehouse_write": {"ts": ((int, float), True), "path": ((str,), True),
+                        "source": ((str, type(None)), False),
+                        "generation": ((int,), True),
+                        "columns": ((int,), True), "bytes": ((int,), True),
+                        "seconds": ((int, float), True)},
+    "history_query": {"ts": ((int, float), True), "kind": ((str,), True),
+                      "warehouse": ((str,), True),
+                      "generations": ((int,), True),
+                      "seconds": ((int, float), True)},
+    "backtest": {"ts": ((int, float), True), "chain": ((str,), True),
+                 "cycles": ((int,), True), "alerts": ((int,), True),
+                 "seconds": ((int, float), True)},
+    "singlepass_rebin": {"ts": ((int, float), True), "n_miss": ((int,), True),
+                         "columns": ((list,), True),
+                         "seconds": ((int, float), True),
+                         "origin": ((str,), True)},
+    "aot_load": {"ts": ((int, float), True), "path": ((str,), True),
+                 "status": ((str,), True), "programs": ((int,), True),
+                 "seconds": ((int, float), True)},
+    "aot_save": {"ts": ((int, float), True), "path": ((str,), True),
+                 "programs": ((int,), True), "bytes": ((int,), True),
+                 "seconds": ((int, float), True),
+                 "compile_seconds": ((int, float), False)},
+    "aot_prewarm": {"ts": ((int, float), True), "root": ((str,), True),
+                    "loaded": ((int,), True), "failed": ((int,), True)},
+    "read_cache": {"ts": ((int, float), True), "status": ((str,), True),
+                   "bytes": ((int,), True), "entries": ((int,), True)},
+    "query_pushdown": {"ts": ((int, float), True), "source": ((str,), True),
+                       "provenance": ((str,), True), "cols": ((int,), True),
+                       "stats": ((int,), True),
+                       "seconds": ((int, float), True)},
+    "breaker_transition": {"ts": ((int, float), True),
+                           "source": ((str,), True), "state": ((str,), True),
+                           "failures": ((int,), True)},
+    "serve_drain": {"ts": ((int, float), True), "daemon": ((str,), True),
+                    "seconds": ((int, float), True),
+                    "released": ((int,), True), "unanswered": ((int,), True)},
+}
+
+
+def validate_event(ev: dict) -> None:
+    """One JSONL event against :data:`EVENT_SCHEMA` (fields outside it
+    are allowed, unknown kinds are not; a bool is no number)."""
+    kind = ev.get("kind") if isinstance(ev, dict) else None
+    require(kind in EVENT_SCHEMA, f"event of unknown kind: {ev}")
+    for field, (types, required) in EVENT_SCHEMA[kind].items():
+        if field not in ev:
+            require(not required, f"{kind} event without {field!r}: {ev}")
+            continue
+        val = ev[field]
+        require(isinstance(val, types) and (
+            not isinstance(val, bool) or bool in types),
+            f"{kind}.{field} = {val!r} is not of {types}")
+    if kind == "metric":
+        require("value" in ev or ("count" in ev and "sum" in ev),
+                f"metric event with neither value nor count/sum: {ev}")
+
+
+def parse_prom(text: str) -> dict:
+    """Prometheus text exposition parsed and checked: HELP immediately
+    before its TYPE, each sample after its TYPE, well-formed labels, and
+    per histogram series cumulative buckets that never fall, a +Inf bucket
+    equal to _count, one _sum and one _count.  Returns ``{name: {"type",
+    "samples": [(sample name, labels, value)]}}``; a violation raises
+    ``AssertionError``."""
+    import re
+    sample_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?'
+                           r'\s+([+-]?(?:[0-9.eE+-]+|Inf|NaN))$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    seen: dict = {}
+    helped = None
+
+    def owner(name):
+        for base, ent in seen.items():
+            if name == base or (ent["type"] == "histogram" and name in (
+                    base + "_bucket", base + "_sum", base + "_count")):
+                return ent
+        return None
+
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            assert helped is None, f"unpaired HELP before {line!r}"
+            helped = line.split(" ")[2]
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")[:4]
+            assert kind in ("counter", "gauge", "histogram", "untyped"), line
+            assert name not in seen and helped in (None, name), line
+            seen[name] = {"type": kind, "samples": []}
+            helped = None
+            continue
+        assert not line.startswith("#"), f"unknown comment {line!r}"
+        m = sample_re.match(line)
+        assert m, f"unparseable sample {line!r}"
+        raw = m.group(2) or ""
+        pairs = label_re.findall(raw)
+        assert ",".join(f'{k}="{v}"' for k, v in pairs) == raw, line
+        ent = owner(m.group(1))
+        assert ent is not None, f"sample before its TYPE: {line!r}"
+        ent["samples"].append((m.group(1), dict(pairs),
+                               float(m.group(3).replace("Inf", "inf"))))
+    assert helped is None, "trailing HELP"
+    for base, ent in seen.items():
+        if ent["type"] != "histogram":
+            continue
+        series: dict = {}
+        for name, labels, value in ent["samples"]:
+            key = tuple(sorted((k, v) for k, v in labels.items()
+                               if k != "le"))
+            s = series.setdefault(key, {"b": [], "sum": [], "count": []})
+            if name == base + "_bucket":
+                s["b"].append((float(labels["le"].replace("Inf", "inf")),
+                               value))
+            else:
+                s["sum" if name.endswith("_sum") else "count"].append(value)
+        for key, s in series.items():
+            cum = [v for _, v in sorted(s["b"])]
+            assert len(s["sum"]) == 1 and len(s["count"]) == 1, (base, key)
+            assert cum and all(b >= a for a, b in zip(cum, cum[1:])), \
+                (base, key, cum)
+            assert sorted(s["b"])[-1] == (float("inf"), s["count"][0]), \
+                (base, key)
+    return seen
+
+
+def busy_share(doc: dict, window: str = "profile"):
+    """From a ``torch.profiler`` Chrome trace: (the share of the span
+    ``window``'s time the device spent in kernels, copies or fills, the
+    union of their intervals; the window's seconds; {kernel: (events,
+    ms)})."""
+    evs = doc["traceEvents"]
+    spans = [e for e in evs if e.get("cat") == "user_annotation"
+             and e.get("name") == window and "dur" in e]
+    require(len(spans) == 1, f"trace: {len(spans)} {window!r} ranges")
+    lo = spans[0]["ts"]
+    hi = lo + spans[0]["dur"]
+    busy = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                  for e in evs
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "dur" in e and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    total, end = 0.0, lo
+    for a, b in busy:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            # "void tpt::gram_tc<...>(...)" and "(anonymous
+            # namespace)::hist_partial(...)": the bare function name
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1]
+            name = name.split("::")[-1]
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + e["dur"])
+    return (total / (hi - lo) if hi > lo else 0.0, (hi - lo) / 1e6,
+            {k: (n, us / 1e3) for k, (n, us) in by_name.items()})
+
+
+def phase_obs(torch, rehearsal: bool, card: str, k1_ms=None,
+              cli=None) -> None:
+    """Telemetry on the main path: the headline describe with metrics off,
+    on, and on with every dispatch timed (CUDA events), then fused warm
+    from its artifact; the ``profile`` verb with every telemetry flag as a
+    child process, its JSONL, Prometheus files, progress lines and
+    ``--trace`` (the device's busy share in the ``profile`` range); a
+    poisoned child's postmortem bundle."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import tpuprof_torch
+    from tpuprof_torch import obs
+    from tpuprof_torch.artifact import read_artifact, write_artifact
+    from tpuprof_torch.report.render import to_standalone_html
+
+    if rehearsal:
+        n, batch = 4096, 512
+        dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
+    else:
+        n, batch = 2_097_152, 65_536
+        dev, dev_kw = [], {}
+    cols, nb = 200, n // batch
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
+    atexit.register(shutil.rmtree, tmp, True)
+    df = headline_frame(n, cols)
+
+    def run(label, **kw):
+        """describe with the registry emptied and the launch counts set to
+        0 just before, read just after: (stats, counts, seconds)."""
+        obs.registry().reset()
+        zero_counts()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tpuprof_torch.describe(df, batch_rows=batch, scan_batches=8,
+                                       **dev_kw, **kw)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"obs {label}: {n} rows x {cols} cols in {secs:.3f} s on "
+              f"{card}; launches: {counts}; {phases_text(stats)}",
+              flush=True)
+        return stats, counts, secs
+
+    def series(stats, kind, name):
+        return stats["_obs"][kind].get(name, {})
+
+    off, c_off, t_off = run("metrics off")
+    require("_obs" not in off, "metrics off: the stats carry _obs")
+    jsonl = f"{tmp}/describe.jsonl"
+    on, c_on, t_on = run("metrics on", metrics_path=jsonl)
+    obs.events.set_sink(None)
+    smp, c_smp, t_smp = run("metrics on, every dispatch timed",
+                            metrics_enabled=True, metrics_block_sample=1)
+    want = exported(off)
+    require(exported(on) == want and exported(smp) == want,
+            "telemetry changed stats_to_json")
+    require(c_on == c_off == c_smp,
+            f"launches differ: {c_off} / {c_on} / {c_smp}")
+    for stats in (on, smp):
+        disp = series(stats, "counters", "tpuprof_device_dispatch_total")
+        require('{program="scan_a"}' in disp and '{program="scan_b"}'
+                in disp, f"dispatch series {sorted(disp)}")
+        require(series(stats, "counters", "tpuprof_pass_b_dispatch_total")
+                .get('{kernel="cumulative"}', 0) > 0,
+                "no pass-B dispatch under kernel=cumulative")
+        rows = sum(series(stats, "counters",
+                          "tpuprof_ingest_rows_total").values())
+        require(rows >= n, f"tpuprof_ingest_rows_total {rows} < {n}")
+        rss = sum(series(stats, "gauges", "tpuprof_host_rss_bytes").values())
+        require(rss > 0, "no host RSS reading")
+        mem = series(stats, "gauges", "tpuprof_device_memory_bytes")
+        if not rehearsal:
+            in_use = mem.get('{device="cuda:0",kind="in_use"}', 0)
+            limit = mem.get('{device="cuda:0",kind="limit"}')
+            require(in_use > 0 and limit == torch.cuda.mem_get_info()[1],
+                    f"device memory gauges {mem}")
+        page = to_standalone_html(stats, tpuprof_torch.ProfilerConfig())
+        for frag in ("pipeline:", "rows ingested", "device dispatches") + \
+                (() if rehearsal else ("device mem in use",)):
+            require(frag in page, f"the footer lacks {frag!r}")
+    with open(jsonl) as fh:
+        evs = [json.loads(ln) for ln in fh]
+    for ev in evs:
+        validate_event(ev)
+    disp = series(smp, "counters", "tpuprof_device_dispatch_total")
+    blk = series(smp, "histograms", "tpuprof_device_block_seconds").get(
+        '{program="scan_a"}', {"count": 0, "sum": 0.0})
+    n_scan_a = disp['{program="scan_a"}']
+    require(blk["count"] == n_scan_a,
+            f"{blk['count']} scan_a samples for {n_scan_a} dispatches")
+    scan_a = smp["_phases"]["scan_a"]
+    floor = c_smp["fused_a"] * 0.5e-3
+    require(blk["sum"] <= scan_a and (rehearsal or blk["sum"] >= floor),
+            f"sampled scan_a seconds {blk['sum']} outside [{floor}, "
+            f"{scan_a}] (K1 launches x 0.5 ms, the scan_a span)")
+    beside = f"; K1 {c_smp['fused_a']} launches x {k1_ms:.4f} ms (phase " \
+        f"3) = {c_smp['fused_a'] * k1_ms / 1e3:.4f} s" if k1_ms else ""
+    print(f"obs: sampled scan_a dispatch seconds {blk['sum']:.4f} over "
+          f"{blk['count']} dispatches (CUDA events), inside the scan_a span "
+          f"{scan_a:.4f} s{beside}; {len(evs)} JSONL events valid; walls "
+          f"off / on / timed {t_off:.3f} / {t_on:.3f} / {t_smp:.3f} s on "
+          f"{card}", flush=True)
+
+    # fused warm from an artifact of the two-pass profile: K4 alone
+    art = f"{tmp}/headline.json"
+    write_artifact(art, stats=off, config=tpuprof_torch.ProfilerConfig(
+        batch_rows=batch))
+    warm, c_warm, t_warm = run("fused warm, metrics on", metrics_enabled=True,
+                               profile_passes="fused", seed_edges=art)
+    require(exported(warm) == want, "fused warm: stats differ")
+    disp = series(warm, "counters", "tpuprof_device_dispatch_total")
+    k4 = disp.get('{program="step_ab"}', 0) + disp.get(
+        '{program="scan_ab_batches"}', 0)
+    require(rehearsal or (k4 == c_warm["fused_ab"] == nb and all(
+        v == 0 for k, v in c_warm.items() if k != "fused_ab")),
+        f"fused warm: dispatches {disp}, launches {c_warm}")
+    print(f"obs fused warm: step_ab/scan_ab series {disp} cover {k4} K4 "
+          f"launches, no other kernel launched ({t_warm:.3f} s)", flush=True)
+    obs.configure(enabled=False, block_sample=0)
+    obs.registry().reset()
+    del off, on, smp, warm
+
+    # the profile verb as a child with every telemetry flag
+    cli_dir, cli_art, cbatch = cli or cli_directory(rehearsal, tmp)
+    m = f"{tmp}/m.jsonl"
+    trace_dir = f"{tmp}/trace"
+    art2 = f"{tmp}/traced.json"
+    rc, err, mods, secs = child(
+        ["profile", cli_dir, "-o", f"{tmp}/obs.html", "--batch-rows",
+         str(cbatch), "--artifact", art2, "--metrics-json", m,
+         "--metrics-interval", "1", "--progress", "--trace", trace_dir,
+         "--checkpoint", f"{tmp}/obs.ckpt", "--checkpoint-every", "4",
+         *dev])
+    require(rc == 0, f"obs profile child: exit {rc}: {err[-8:]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "obs profile child: it loaded jax or tpuprof")
+    with open(m) as fh:
+        evs = [json.loads(ln) for ln in fh]
+    for ev in evs:
+        validate_event(ev)
+    spans = {e["name"] for e in evs if e["kind"] == "span"}
+    need = {"scan_a", "merge", "scan_b", "render", "profile"}
+    require(need <= spans, f"obs child: spans {sorted(spans)}")
+    reasons = {e["reason"] for e in evs if e["kind"] == "metric"}
+    require({"interval", "cli"} <= reasons,
+            f"obs child: snapshot reasons {sorted(reasons)}")
+    require(any(e["kind"] == "checkpoint_save" for e in evs),
+            "obs child: no checkpoint_save event")
+    with open(m + ".prom") as fh:
+        prom = parse_prom(fh.read())
+    with open(m + ".fleet.prom") as fh:
+        fleet = parse_prom(fh.read())
+    # the fleet view is written at the end of the collect, just after its
+    # "collect" snapshot: its counters sum to that snapshot's, and every
+    # gauge that fired carries host="0" (one that never fired renders an
+    # unlabelled 0)
+    at_collect: dict = {}
+    for e in evs:
+        if e["kind"] == "metric" and e["reason"] == "collect" \
+                and e["type"] == "counter":
+            at_collect[e["name"]] = at_collect.get(e["name"], 0) + e["value"]
+    for name, ent in fleet.items():
+        if ent["type"] == "counter":
+            require(sum(v for *_, v in ent["samples"])
+                    == at_collect.get(name, 0),
+                    f"fleet.prom: {name} does not sum to the collect's")
+        if ent["type"] == "gauge" and ent["samples"] != [(name, {}, 0.0)]:
+            require(all(lab.get("host") == "0"
+                        for _, lab, _ in ent["samples"]),
+                    f"fleet.prom: {name} without host=0")
+    rows = [sum(v for *_, v in p["tpuprof_ingest_rows_total"]["samples"])
+            for p in (prom, fleet)]
+    require(rows[0] == rows[1] > 0, f"rows ingested .prom/.fleet {rows}")
+    progress = [ln for ln in err if ln.startswith("tpuprof_torch: [")]
+    require(progress, "obs child: no progress line on stderr")
+    got, want_st = read_artifact(art2).stats, read_artifact(cli_art).stats
+    require(got == want_st, "obs child: its stats differ from phase 5's at "
+            f"{json_diff(got, want_st)[:5]}")
+    files = os.listdir(trace_dir)
+    require(len(files) == 1, f"trace dir holds {files}")
+    path = os.path.join(trace_dir, files[0])
+    size = os.path.getsize(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    require("traceEvents" in doc, "trace: no traceEvents")
+    share, window, kernels = busy_share(doc)
+    if not rehearsal:
+        k_batches = 1_048_576 // cbatch
+        for k in ("gram_tc", "stats_partial", "hist_partial"):
+            require(kernels.get(k, (0, 0))[0] >= k_batches,
+                    f"trace: {kernels.get(k)} {k} events for {k_batches} "
+                    "launches")
+    shown = ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in
+                      sorted(kernels.items(), key=lambda kv: -kv[1][1]))
+    print(f"obs child: exit 0 in {secs:.3f} s (process included), "
+          f"{len(evs)} valid JSONL events, spans {sorted(need)}, "
+          f"{len(progress)} progress lines, .prom and .fleet.prom parse and "
+          f"agree, stats equal phase 5's; {err[-1]}", flush=True)
+    print(f"obs trace: {size} bytes; kernel time by name: {shown or 'none'}"
+          f"; device busy share {share:.4f} of the {window:.3f} s profile "
+          f"range on {card}", flush=True)
+
+    # the flight recorder: a poisoned child leaves one bundle naming prep
+    pm_dir = f"{tmp}/pm"
+    os.makedirs(pm_dir)
+    os.environ.update(TPUPROF_FAULTS="prep:2@1",
+                      TPUPROF_POSTMORTEM_DIR=pm_dir)
+    try:
+        rc, err, _, secs = child(["profile", cli_dir, "-o",
+                                  f"{tmp}/dead.html", "--batch-rows",
+                                  str(cbatch), "--ingest-retries", "0",
+                                  "--max-quarantined", "1", *dev])
+    finally:
+        del os.environ["TPUPROF_FAULTS"], os.environ["TPUPROF_POSTMORTEM_DIR"]
+    bundles = [f for f in os.listdir(pm_dir)
+               if f.startswith("tpuprof-postmortem-")]
+    require(rc == 5 and len(bundles) == 1,
+            f"poisoned child: exit {rc}, bundles {bundles}: {err[-3:]}")
+    with open(os.path.join(pm_dir, bundles[0])) as fh:
+        bundle = json.load(fh)
+    sites = {e.get("site") for e in bundle["entries"]
+             if e["kind"] in ("batch_failed", "batch_quarantined")}
+    require(bundle["error"]["type"] == "PoisonBatchError" and "prep" in sites
+            and bundle["context"].get("config_fingerprint"),
+            f"postmortem: {bundle.get('error')}, sites {sites}")
+    print(f"obs postmortem: the poisoned child exited 5 in {secs:.3f} s and "
+          f"left {bundles[0]} ({bundle['recorded']} events recorded; "
+          f"error {bundle['error']['type']}; sites {sorted(sites)})",
+          flush=True)
+
+
 PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
-          "exact")
+          "exact", "obs")
 
 
 def main(argv=None) -> int:
@@ -3119,7 +3624,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 9), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 10), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -3225,6 +3730,10 @@ def main(argv=None) -> int:
         timed(phase_durable, torch, rehearsal, card, cli)
     if "exact" in only:
         timed(phase_exact, torch, rehearsal, card, cli)
+    if "obs" in only:
+        k1_ms = next((r["ms"] for r in rows if r["name"] == "fused_a"),
+                     None)
+        timed(phase_obs, torch, rehearsal, card, k1_ms, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

@@ -356,7 +356,10 @@ def test_unreadable_checkpoint_exits_3(data, tmp_path, capsys):
                        "--checkpoint", str(ck))
     assert rc == 3 == ref_exit_code(
         __import__("tpuprof.errors").errors.CorruptCheckpointError("x"))
-    assert len(err) == 1 and "checkpoint" in err[0]
+    # the error line, then where the flight recorder's bundle went
+    assert len(err) == 2 and "checkpoint" in err[0]
+    assert err[1].startswith("tpuprof_torch: postmortem: ")
+    assert os.path.exists(err[1].split(": ", 2)[2])
     assert not os.path.exists(html)
 
 

@@ -244,12 +244,27 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
     ("artifact_keep", 3), ("compile_cache_dir", "/nonexistent/cc"),
     ("backend", "cpu"), ("elastic", True),
     ("fleet_dir", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
-    ("mesh_devices", 2), ("metrics_enabled", True)])
+    ("mesh_devices", 2), ("serve_workers", 2)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         ProfilerConfig.from_kwargs(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,bad", [
+    ("metrics_enabled", True, None), ("metrics_path", "m.jsonl", None),
+    ("metrics_interval", 2.5, -1.0), ("metrics_max_bytes", 4096, 0),
+    ("metrics_block_sample", 4, -1)])
+def test_metrics_config_fields_accepted(field, value, bad):
+    """The telemetry fields are accepted, with the reference's checks: the
+    same values raise ValueError in both packages."""
+    assert getattr(ProfilerConfig(**{field: value}), field) == value
+    assert getattr(RefConfig(**{field: value}), field) == value
+    if bad is not None:
+        for cls in (ProfilerConfig, RefConfig):
+            with pytest.raises(ValueError, match=field):
+                cls(**{field: bad})
 
 
 @pytest.mark.parametrize("field,value", [

@@ -12,8 +12,10 @@ maintains a profile over a stream of micro-batches (checkpoint, restore),
 and ``resume_profiler`` folds new rows onto a fold-state artifact.
 ``tpuprof_torch.artifact`` writes, reads and compares
 ``tpuprof-stats-v1`` artifacts, and ``python -m tpuprof_torch`` runs the
-``profile`` and ``diff`` verbs.  The JAX package ``tpuprof`` is the
-reference; this package imports nothing from it.
+``profile`` and ``diff`` verbs.  ``tpuprof_torch.obs`` is the telemetry
+(metrics, JSONL events, the crash flight recorder, ``--trace``).  The JAX
+package ``tpuprof`` is the reference; this package imports nothing from
+it.
 """
 
 from tpuprof_torch.api import (ProfileReport, StreamingProfiler, describe,

@@ -1,8 +1,8 @@
 """Per-column drift detection over two stats artifacts (``diff``).
 
-Copy of ``tpuprof/artifact/drift.py`` without its metrics counters
-(telemetry is a later slice of the port): the same ``tpuprof-drift-v1``
-dict for the same two artifacts.
+Copy of ``tpuprof/artifact/drift.py``: the same ``tpuprof-drift-v1`` dict
+for the same two artifacts, and with metrics on the same counters
+(``tpuprof_drift_*``) and ``drift_report`` event.
 
 Every metric here is computed from what the artifacts already store —
 no source data is re-read:
@@ -37,14 +37,25 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from tpuprof_torch.artifact.store import Artifact
+from tpuprof_torch.obs import events
+from tpuprof_torch.obs import metrics as _obs_metrics
 
 DRIFT_SCHEMA_ID = "tpuprof-drift-v1"
 
 PSI_BUCKETS = 10
 _EPS = 1e-6
+
+_REPORTS = _obs_metrics.counter(
+    "tpuprof_drift_reports_total", "drift reports computed")
+_SECONDS = _obs_metrics.histogram(
+    "tpuprof_drift_seconds", "wall seconds per drift computation")
+_FLAGGED = _obs_metrics.gauge(
+    "tpuprof_drift_columns_flagged",
+    "columns at drift severity in the newest report")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,6 +296,7 @@ def compute_drift(base: Artifact, current: Artifact,
                   ) -> Dict[str, Any]:
     """The full drift report (``tpuprof-drift-v1``) comparing ``base``
     (A) to ``current`` (B)."""
+    t0 = time.perf_counter()
     th = thresholds or DriftThresholds()
     cols_a, cols_b = base.columns, current.columns
     vars_a = base.stats.get("variables") or {}
@@ -343,4 +355,11 @@ def compute_drift(base: Artifact, current: Artifact,
         "thresholds": th.as_dict(),
         "columns": columns,
     }
+    if _obs_metrics.enabled():
+        _REPORTS.inc()
+        _SECONDS.observe(time.perf_counter() - t0)
+        _FLAGGED.set(n_drift)
+        events.emit("drift_report", verdict=report["summary"]["verdict"],
+                    n_drift=n_drift, n_warn=n_warn,
+                    columns=len(columns))
     return report

@@ -39,8 +39,26 @@ import zlib
 from typing import Any, Dict, Optional
 
 from tpuprof_torch.errors import CorruptArtifactError
+from tpuprof_torch.obs import blackbox, events
+from tpuprof_torch.obs import metrics as _obs_metrics
 from tpuprof_torch.report.export import SCHEMA_ID, json_scalar, stats_to_json
 from tpuprof_torch.testing import faults
+
+_WRITES = _obs_metrics.counter(
+    "tpuprof_artifact_writes_total", "stats artifacts written")
+_READS = _obs_metrics.counter(
+    "tpuprof_artifact_reads_total", "stats artifacts read back")
+_CORRUPT = _obs_metrics.counter(
+    "tpuprof_artifact_corrupt_total",
+    "artifact reads rejected by the integrity checks")
+_WRITE_SECONDS = _obs_metrics.histogram(
+    "tpuprof_artifact_write_seconds",
+    "wall seconds per atomic artifact write (serialize + fsync + rename)")
+_READ_SECONDS = _obs_metrics.histogram(
+    "tpuprof_artifact_read_seconds",
+    "wall seconds per artifact read (disk + CRC + decode)")
+_BYTES = _obs_metrics.gauge(
+    "tpuprof_artifact_bytes", "size of the newest artifact written")
 
 # the package an embedded fold state names
 PACKAGE = "tpuprof_torch"
@@ -185,6 +203,7 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
     Returns a copy of the document's ``meta`` with its ``crc32``."""
     if (profiler is None) == (stats is None):
         raise ValueError("pass exactly one of profiler= or stats=")
+    t0 = time.perf_counter()
     state_entry = None
     if profiler is not None:
         config = profiler.config
@@ -231,6 +250,12 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
             pass
         raise
     os.replace(tmp, path)
+    if _obs_metrics.enabled():
+        _WRITES.inc()
+        _WRITE_SECONDS.observe(time.perf_counter() - t0)
+        _BYTES.set(len(data))
+        events.emit("artifact_write", path=path, rows=meta["rows"],
+                    bytes=len(data), foldable=meta["foldable"])
     out = dict(meta)
     out["crc32"] = doc["integrity"]["crc32"]
     return out
@@ -238,7 +263,23 @@ def write_artifact(path: str, stats: Optional[Dict[str, Any]] = None,
 
 def read_artifact(path: str) -> Artifact:
     """Read and integrity-check one artifact (``CorruptArtifactError`` on
-    any failure but a missing file, which raises ``FileNotFoundError``)."""
+    any failure but a missing file, which raises ``FileNotFoundError``).
+    A rejected read counts in ``tpuprof_artifact_corrupt_total`` and
+    leaves an ``artifact_corrupt`` entry in the flight recorder."""
+    t0 = time.perf_counter()
+    try:
+        art = _read_checked(path)
+    except CorruptArtifactError:
+        _CORRUPT.inc()
+        blackbox.record("artifact_corrupt")
+        raise
+    if _obs_metrics.enabled():
+        _READS.inc()
+        _READ_SECONDS.observe(time.perf_counter() - t0)
+    return art
+
+
+def _read_checked(path: str) -> Artifact:
     try:
         with open(path, "rb") as fh:
             data = fh.read()

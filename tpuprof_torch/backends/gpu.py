@@ -43,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,7 +51,7 @@ import pandas as pd
 import pyarrow as pa
 import torch
 
-from tpuprof_torch import native, schema
+from tpuprof_torch import native, obs, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_checkpoint_keep,
                                   resolve_ingest_retries,
@@ -407,6 +408,9 @@ class GPUStatsBackend:
         # this profile's phase seconds ride its own stats dict: drop what
         # an earlier profile left
         get_phase_report(reset=True)
+        obs.configure_from_config(config)   # metrics and the JSONL sink
+        # a postmortem from this process names its rank
+        obs.blackbox.set_context(process_index=0, process_count=1)
         ingest = ArrowIngest(source, config.batch_rows,
                              columns=config.columns, nested=config.nested)
         plan = ingest.plan
@@ -542,7 +546,8 @@ class GPUStatsBackend:
             resume.save(state, sampler, hostagg, host_hll, cursor,
                         last_frag, quarantine, skipped, state_h, sp_edges)
 
-        with span("scan_a"):
+        with span("scan_a", cols=len(plan.specs), n_num=plan.n_num,
+                  n_hash=plan.n_hash):
             for hb in batches:
                 key = cursor        # the batch's position in the stream
                 cursor += 1
@@ -590,6 +595,8 @@ class GPUStatsBackend:
             flush_group(pending, staged_a, one_a)
             if state is None:
                 state = runner.init_pass_a()
+            # the end of pass A: device and host memory headroom
+            obs.memory.sample(runner.device)
         if resume is not None and resume.last_saved != cursor:
             # pass A complete: a crash in pass B resumes with the whole
             # stream skipped; cleared once the stats are assembled
@@ -600,7 +607,7 @@ class GPUStatsBackend:
         # the exact pass-B inputs, computed on the device (no host round
         # trip before pass B): what K2 bins with, what a fused profile's
         # provisional edges are held to, and what the artifact seeds carry
-        with span("merge"):
+        with span("merge", hosts=1):
             bounds_d = runner.bounds_b_device(state) \
                 if plan.n_num > 0 else None
             exact = singlepass.exact_triple(bounds_d) \
@@ -622,6 +629,7 @@ class GPUStatsBackend:
         if state_h is not None and hostagg.n_rows > 0:
             res_h = drained(runner.finalize_b, state_h)
             hits = singlepass.hit_lanes(sp_edges, exact)
+            singlepass.record_outcome(hits)
             if run_pass_b:
                 if hits.all() and not hostagg.mg and not config.spearman:
                     # every edge held and nothing else needs a second
@@ -738,7 +746,8 @@ class GPUStatsBackend:
                     spear_state = spear_one(spear_state, db, *spear_in)
 
             pending_b: List[HostBatch] = []
-            with span("scan_b"):
+            t0_b = time.perf_counter()
+            with span("scan_b", spearman=config.spearman):
                 for hb in pass_b_batches():
                     recounter.update(hb)
                     pending_b.append(hb)
@@ -752,7 +761,12 @@ class GPUStatsBackend:
                 # re-bin: two-pass's result, lane for lane
                 if res_b is not None:
                     res_b = singlepass.merge_rebinned(res_h, res_b, rebin)
-                    singlepass.record_rebin(len(rebin))
+                    lane_names = {s.num_lane: s.name for s in plan.specs
+                                  if s.role == "num"}
+                    singlepass.record_rebin(
+                        time.perf_counter() - t0_b,
+                        [str(lane_names[i]) for i in rebin.tolist()],
+                        sp_edges.origin)
                 else:
                     res_b = res_h
             hists, mad = khistogram.finalize(
@@ -767,7 +781,7 @@ class GPUStatsBackend:
                 and hostagg.n_rows > 0:
             # no numeric columns: only the top-k recount needs a rescan
             recounter = Recounter(hostagg)
-            with span("scan_b"):
+            with span("scan_b", recount_only=True):
                 for hb in pass_b_batches():
                     recounter.update(hb)
         if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
@@ -797,6 +811,20 @@ class GPUStatsBackend:
             resume.clear()          # the profile completed
         # private, never exported; the report footer reads it
         stats["_phases"] = get_phase_report(reset=True)
+        # likewise the metrics snapshot for the footer's pipeline line,
+        # after a last headroom reading; then the JSONL sink's final
+        # snapshot and the fleet-of-one exposition
+        obs.memory.sample(runner.device)
+        snap = obs.snapshot_if_enabled()
+        if snap is not None:
+            stats["_obs"] = snap
+        obs.finalize(reason="collect")
+        if obs.enabled():
+            obs.fleet.write_fleet(obs.resolve_metrics_path(config),
+                                  [obs.registry().to_wire()],
+                                  reason="collect",
+                                  quarantined_by_host=[
+                                      len(quarantine.entries)])
         return stats
 
 

@@ -13,6 +13,16 @@ watchdog timeout print one line too and exit with their error's code
 scan every ``--checkpoint-every`` batches and resumes from PATH when it
 exists.  ``--exact-distinct`` (with ``--unique-spill-dir``) and
 ``--parity`` count every column's distinct values exactly.
+
+Telemetry: ``--metrics-json PATH`` streams JSONL events into PATH and
+writes the final Prometheus text to ``PATH.prom`` (and the fleet-of-one
+view to ``PATH.fleet.prom``); ``--metrics-interval`` adds periodic
+snapshots, ``--progress`` a status line on stderr, and ``--trace DIR`` a
+``torch.profiler`` Chrome trace of the run.  A run that fails on a typed
+error or an unexpected exception leaves a flight-recorder bundle,
+``tpuprof-postmortem-<pid>.json`` (in ``TPUPROF_POSTMORTEM_DIR``, else the
+working directory), and names it on stderr; SIGUSR1 dumps one and goes on,
+SIGTERM dumps one and ends the process.
 """
 
 from __future__ import annotations
@@ -154,6 +164,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "from PATH after a crash")
     p.add_argument("--checkpoint-every", type=int, default=64,
                    metavar="N", help="batches between checkpoints")
+    p.add_argument("--trace", metavar="DIR",
+                   help="record a torch.profiler trace of the run (host "
+                        "activity, plus the device's kernels and copies "
+                        "on a CUDA device) into DIR as Chrome-trace JSON "
+                        "(open it in Perfetto or chrome://tracing)")
+    p.add_argument("--metrics-json", metavar="PATH",
+                   help="enable pipeline telemetry (tpuprof_torch/obs) and "
+                        "stream JSONL events here: span timings as they "
+                        "close, checkpoint saves, and metric snapshots "
+                        "(see OBSERVABILITY.md).  Also dumps the final "
+                        "Prometheus text exposition next to PATH "
+                        "(PATH + '.prom') and the fleet view of this "
+                        "process (PATH + '.fleet.prom', gauges labelled "
+                        "host=0)")
+    p.add_argument("--metrics-interval", type=float, default=0.0,
+                   metavar="SEC",
+                   help="with --metrics-json: emit a metrics snapshot "
+                        "every SEC seconds while the profile runs "
+                        "(default: one final snapshot only)")
+    p.add_argument("--metrics-max-bytes", type=int, default=None,
+                   metavar="N",
+                   help="JSONL sink growth cap: rotate PATH -> PATH.1 "
+                        "once at N bytes so long runs stay disk-bounded "
+                        "(~2xN; default: TPUPROF_METRICS_MAX_BYTES env, "
+                        "else unlimited)")
+    p.add_argument("--progress", action="store_true",
+                   help="print a one-line pipeline status (rows, "
+                        "batches, dispatches, recent rows/s) to stderr "
+                        "every few seconds (implies metrics; interval = "
+                        "--metrics-interval, default 5s)")
     ft = p.add_argument_group(
         "fault tolerance", "retry transient prepare failures, skip poison "
         "batches instead of dying, keep fallback checkpoint generations, "
@@ -221,13 +261,20 @@ def _error(msg) -> None:
 
 
 def cmd_profile(args: argparse.Namespace) -> int:
+    from tpuprof_torch import obs
     from tpuprof_torch.api import ProfileReport
     from tpuprof_torch.config import ProfilerConfig
     from tpuprof_torch.errors import (CorruptCheckpointError, InputError,
                                       PoisonBatchError, WatchdogTimeout,
                                       exit_code)
+    from tpuprof_torch.obs import blackbox
     from tpuprof_torch.obs.spans import span
     from tpuprof_torch.runtime.runner import resolve_device
+    from tpuprof_torch.utils.trace import trace_to
+
+    # the crash flight recorder, on unless TPUPROF_BLACKBOX=0: SIGTERM and
+    # SIGUSR1 dump its ring, and every failure below leaves a bundle
+    blackbox.install_signal_handlers()
 
     try:
         device = resolve_device(args.device)
@@ -267,33 +314,77 @@ def cmd_profile(args: argparse.Namespace) -> int:
             unique_spill_workers=args.unique_spill_workers,
             checkpoint_path=args.checkpoint,
             checkpoint_every_batches=args.checkpoint_every,
-            checkpoint_keep=args.checkpoint_keep)
+            checkpoint_keep=args.checkpoint_keep,
+            metrics_enabled=True if (args.metrics_json or args.progress)
+            else None,
+            metrics_path=args.metrics_json,
+            metrics_interval=args.metrics_interval,
+            metrics_max_bytes=args.metrics_max_bytes)
     except ValueError as exc:
         _error(exc)
         return 2
 
+    # telemetry on before the ticker starts (the backend's configure is
+    # then a no-op)
+    ticker = None
+    if config.metrics_enabled:
+        obs.configure_from_config(config)
+        interval = args.metrics_interval \
+            or (5.0 if args.progress else 0.0)
+        if interval > 0:
+            ticker = obs.Ticker(interval, progress=args.progress,
+                                snapshots=bool(args.metrics_json)).start()
+
+    def postmortem(exc: BaseException) -> None:
+        dump = blackbox.dump_postmortem(error=exc)
+        if dump:
+            print(f"{PROG}: postmortem: {dump}", file=sys.stderr)
+
     t0 = time.perf_counter()
     try:
-        report = ProfileReport(args.source, config=config, device=device)
-    except (InputError, FileNotFoundError, NotImplementedError) as exc:
-        # what the caller asked for cannot be read or profiled (a missing
-        # path, an unknown column, a field of a later slice): one line, not
-        # a traceback; every other failure keeps its traceback
-        _error(exc)
-        return 2
-    except (PoisonBatchError, WatchdogTimeout,
-            CorruptCheckpointError) as exc:
-        # the ingest guard ran out, or no checkpoint generation is
-        # readable: one line and its own exit code
-        _error(exc)
-        return exit_code(exc)
-    with span("render"):
-        report.to_file(args.output)
-    if config.artifact_path:
-        from tpuprof_torch.artifact import write_artifact
-        write_artifact(config.artifact_path, stats=report.description,
-                       config=config, source=str(args.source))
+        with trace_to(args.trace, device):
+            with span("profile"):
+                try:
+                    report = ProfileReport(args.source, config=config,
+                                           device=device)
+                except (InputError, FileNotFoundError,
+                        NotImplementedError) as exc:
+                    # what the caller asked for cannot be read or
+                    # profiled (a missing path, an unknown column, a field
+                    # of a later slice): one line, not a traceback, and no
+                    # postmortem (nothing crashed)
+                    _error(exc)
+                    return 2
+                except (PoisonBatchError, WatchdogTimeout,
+                        CorruptCheckpointError) as exc:
+                    # the ingest guard ran out, or no checkpoint
+                    # generation is readable: one line, its own exit code
+                    # and a bundle whose last entries name the site
+                    _error(exc)
+                    postmortem(exc)
+                    return exit_code(exc)
+                except Exception as exc:
+                    # the traceback is the diagnosis; the bundle adds the
+                    # batch and dispatch context it cannot show
+                    postmortem(exc)
+                    raise
+            with span("render"):
+                report.to_file(args.output)
+            if config.artifact_path:
+                from tpuprof_torch.artifact import write_artifact
+                write_artifact(config.artifact_path,
+                               stats=report.description, config=config,
+                               source=str(args.source))
+    finally:
+        if ticker is not None:
+            ticker.stop()
     elapsed = time.perf_counter() - t0
+    if args.metrics_json:
+        # the final snapshot holds the render span the collect's could
+        # not; the .prom twin is the same registry as Prometheus text
+        obs.finalize(reason="cli")
+        with open(args.metrics_json + ".prom", "w") as fh:
+            fh.write(obs.registry().render_text())
 
     table = report.description["table"]
     rate = table["n"] / elapsed if elapsed > 0 else float("nan")

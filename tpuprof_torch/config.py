@@ -28,7 +28,6 @@ UNIQUE_BUDGET_CAP_ROWS = 1 << 28
 
 _FLEET = "multi-GPU and fleet"
 _SERVE = "serve"
-_TELEMETRY = "telemetry"
 
 # field -> the later slice that ports it
 _LATER = {
@@ -64,11 +63,6 @@ _LATER = {
     "read_cache_entries": _SERVE,
     "read_cache_bytes": _SERVE,
     "artifact_keep": _SERVE,
-    "metrics_enabled": _TELEMETRY,
-    "metrics_path": _TELEMETRY,
-    "metrics_interval": _TELEMETRY,
-    "metrics_max_bytes": _TELEMETRY,
-    "metrics_block_sample": _TELEMETRY,
     "use_pallas": "none: the port always runs its kernels on CUDA",
     "use_fused": "none: the port always runs its kernels on CUDA",
 }
@@ -172,6 +166,27 @@ class ProfilerConfig:
     exact_distinct: bool = False    # every column's distinct count exact at
                                     # any size (needs unique_spill_dir)
 
+    # ---- telemetry (tpuprof_torch/obs) -----------------------------------
+    metrics_enabled: Optional[bool] = None  # counters, gauges and span
+                                            # histograms on the process
+                                            # registry (resolve_*: None =
+                                            # TPUPROF_METRICS, else on iff
+                                            # metrics_path is set)
+    metrics_path: Optional[str] = None      # JSONL event sink (span events
+                                            # as they close, metric
+                                            # snapshots); also
+                                            # TPUPROF_METRICS_PATH
+    metrics_interval: float = 0.0           # seconds between snapshot
+                                            # events of the CLI's ticker
+                                            # (0: the final one only)
+    metrics_max_bytes: Optional[int] = None  # the sink rotates PATH ->
+                                             # PATH.1 once past this many
+                                             # bytes (resolve_*)
+    metrics_block_sample: int = 0           # time every Nth device
+                                            # dispatch with CUDA events
+                                            # (kernels/fused.py); 0 never
+                                            # synchronizes for telemetry
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
     backend: str = "auto"
     mesh_devices: Optional[int] = None
@@ -205,11 +220,6 @@ class ProfilerConfig:
     read_cache_entries: Optional[int] = None
     read_cache_bytes: Optional[int] = None
     artifact_keep: Optional[int] = None
-    metrics_enabled: Optional[bool] = None
-    metrics_path: Optional[str] = None
-    metrics_interval: float = 0.0
-    metrics_max_bytes: Optional[int] = None
-    metrics_block_sample: int = 0
     use_pallas: Optional[bool] = None
     use_fused: Optional[bool] = None
 
@@ -261,6 +271,15 @@ class ProfilerConfig:
             raise ValueError("max_quarantined must be >= 0 (or None)")
         if self.drain_timeout_s is not None and self.drain_timeout_s <= 0:
             raise ValueError("drain_timeout_s must be > 0 (or None = off)")
+        if self.metrics_interval < 0:
+            raise ValueError("metrics_interval must be >= 0")
+        if self.metrics_max_bytes is not None \
+                and self.metrics_max_bytes < 1:
+            raise ValueError(
+                "metrics_max_bytes must be >= 1 (or None = unlimited)")
+        if self.metrics_block_sample < 0:
+            raise ValueError("metrics_block_sample must be >= 0 "
+                             "(0 disables block-timing sampling)")
         if not 0.0 < self.corr_reject <= 1.0:
             raise ValueError("corr_reject must be in (0, 1]")
         if not 2 <= self.spearman_grid <= 4096:
@@ -519,6 +538,29 @@ def resolve_watchdog_timeout(value: Optional[float], var: str
         return float(value) if value > 0 else None
     env = _env_float(var)
     return env if env and env > 0 else None
+
+
+def resolve_metrics_max_bytes(value: Optional[int] = None) -> Optional[int]:
+    """The JSONL sink's growth cap: the config value, else
+    ``TPUPROF_METRICS_MAX_BYTES``, else None (unlimited).  Past the cap the
+    sink rotates ``PATH`` to ``PATH.1`` once (``obs/events.JsonlSink``)."""
+    if value is not None:
+        return int(value) if value > 0 else None
+    env = _env_int("TPUPROF_METRICS_MAX_BYTES")
+    return env if env and env > 0 else None
+
+
+def resolve_metrics_enabled(value: Optional[bool] = None,
+                            metrics_path: Optional[str] = None) -> bool:
+    """The telemetry switch (``tpuprof_torch/obs``): the config value, else
+    ``TPUPROF_METRICS`` ("", "0", "false" and "no" are off, anything else
+    on), else on exactly when a JSONL sink path was asked for."""
+    if value is not None:
+        return bool(value)
+    env = os.environ.get("TPUPROF_METRICS")
+    if env is not None:
+        return env not in ("", "0", "false", "no")
+    return metrics_path is not None
 
 
 def resolve_profile_passes(value: Optional[str] = None) -> str:

@@ -47,6 +47,7 @@ import dataclasses
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -61,8 +62,28 @@ from tpuprof_torch.config import NESTED_POLICIES, resolve_prep_workers
 from tpuprof_torch.errors import InputError
 from tpuprof_torch.ingest import prep
 from tpuprof_torch.kernels import hll as khll
+from tpuprof_torch.obs import metrics as _obs_metrics
 
 logger = logging.getLogger("tpuprof_torch")
+
+# ---- ingest telemetry (OBSERVABILITY.md; off = one branch a batch) ------
+_ROWS_INGESTED = _obs_metrics.counter(
+    "tpuprof_ingest_rows_total", "rows decoded into HostBatch planes")
+_BYTES_INGESTED = _obs_metrics.counter(
+    "tpuprof_ingest_bytes_total",
+    "Arrow buffer bytes decoded (indices + dictionaries)")
+_BATCHES_INGESTED = _obs_metrics.counter(
+    "tpuprof_ingest_batches_total", "record batches prepared")
+_NUM_PATHS = _obs_metrics.counter(
+    "tpuprof_prep_numeric_path_total",
+    "numeric column-chunk decodes by path: zero_copy (no-null f64/int "
+    "view) vs slow (cast/fill_null chain)")
+_PREP_SECONDS = _obs_metrics.histogram(
+    "tpuprof_prep_batch_seconds", "wall seconds per prepare_batch call")
+_QUEUE_DEPTH = _obs_metrics.gauge(
+    "tpuprof_prep_queue_depth",
+    "prepared batches (futures) buffered ahead of the consumer in "
+    "prefetch_prepared")
 
 # plain-string columns leave the per-batch dictionary_encode for the native
 # row hash + factorize once their previous batch showed more distinct
@@ -229,21 +250,26 @@ def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
         vals = arr.to_numpy(zero_copy_only=False)    # f32, NaN = null
         x[lo:hi, lane] = vals
         valid = ~np.isnan(vals)
+        _NUM_PATHS.inc(path="zero_copy" if arr.null_count == 0
+                       else "slow")
     elif pa.types.is_floating(t) and t.bit_width == 64 \
             and arr.null_count == 0:
         vals = arr.to_numpy()                        # a zero-copy view
         x[lo:hi, lane] = vals
         valid = ~np.isnan(vals)
+        _NUM_PATHS.inc(path="zero_copy")
     elif pa.types.is_floating(t) or pa.types.is_decimal(t):
         vals = arr.cast(pa.float64(), safe=False).to_numpy(
             zero_copy_only=False)
         x[lo:hi, lane] = vals.astype(np.float32)
         valid = ~np.isnan(vals)
+        _NUM_PATHS.inc(path="slow")
     elif arr.null_count == 0 and not pa.types.is_boolean(t):
         # ints stay int64 so ids above 2^53 hash exactly
         vals = arr.to_numpy().astype(np.int64, copy=False)
         x[lo:hi, lane] = vals.astype(np.float32)
         valid = np.ones(len(arr), dtype=bool)
+        _NUM_PATHS.inc(path="zero_copy")
     else:                           # bools, and ints carrying nulls
         valid = (arr.is_valid().to_numpy(zero_copy_only=False)
                  if arr.null_count else np.ones(len(arr), dtype=bool))
@@ -253,6 +279,7 @@ def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
         if arr.null_count:
             xf = np.where(valid, xf, np.nan)
         x[lo:hi, lane] = xf
+        _NUM_PATHS.inc(path="slow")
     if not hashes:
         return
     keys = _num_keys(vals)
@@ -368,6 +395,7 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
     ``decode_threads`` is the number of leaf tasks run at once
     (``resolve_prep_workers``); the planes are byte-identical at any
     number."""
+    t0 = time.perf_counter() if _obs_metrics.enabled() else None
     if dict_cache is None:
         dict_cache = _DictionaryCache()
     n = batch.num_rows
@@ -479,6 +507,12 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
     # all-valid lane passes its filled array as it is
     valid_hashes = {name: harr if hvalid.all() else harr[hvalid]
                     for name, (harr, hvalid) in num_hashes.items()}
+    if t0 is not None:
+        _ROWS_INGESTED.inc(n)
+        _BATCHES_INGESTED.inc()
+        _BYTES_INGESTED.inc(sum(col_nbytes.values())
+                            + sum(col_dict_nbytes.values()))
+        _PREP_SECONDS.observe(time.perf_counter() - t0)
 
     return HostBatch(nrows=n, x=x, row_valid=row_valid, hll=hll_packed,
                      cat_codes=cat_codes, date_ints=date_ints,
@@ -536,6 +570,7 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
         while not cancelled.is_set():
             try:
                 q.put(item, timeout=0.5)
+                _QUEUE_DEPTH.set(q.qsize())
                 return True
             except queue.Full:
                 continue
@@ -583,6 +618,7 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     try:
         while True:
             item = q.get()
+            _QUEUE_DEPTH.set(q.qsize())
             if item is sentinel:
                 break
             yield item.result()     # in order; re-raises prepare errors

@@ -20,7 +20,8 @@ nesting:
 All pools are process-wide and built on first use: the hot paths (Arrow
 decode, numpy casts, the native hash and pack, ``ndarray.tofile``) release
 the GIL, so shared pools keep the cores busy without a thread pool a batch.
-The reference's per-worker task counters wait for the telemetry slice.
+Each tier counts the tasks it ran by worker thread (``worker="serial"`` for
+the in-caller path): a skewed spread means the split leaves cores idle.
 """
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
+from tpuprof_torch.obs import metrics
+
+_PREP_TASKS = metrics.counter(
+    "tpuprof_prep_tasks_total",
+    "intra-batch prep leaf tasks executed, by worker thread")
+_BATCH_TASKS = metrics.counter(
+    "tpuprof_prep_batch_tasks_total",
+    "whole-batch prepares run through the ordered cross-batch pipeline")
+_IO_TASKS = metrics.counter(
+    "tpuprof_prep_io_tasks_total",
+    "background disk-write tasks (unique-spill runs) run on the io tier")
 _LOCK = threading.Lock()
 _POOLS = {}         # tier -> (ThreadPoolExecutor, workers)
 
@@ -51,9 +63,14 @@ def submit_io(fn: Callable[[], object], workers: int) -> Future:
     """Queue one background disk write on the io tier and return its
     Future.  The caller owns the completion policy: it bounds the window,
     settles futures oldest first and turns a raised ``OSError`` into its
-    own failure semantics; the pool never swallows one.  (The reference
-    counts each task here; that counter comes with the telemetry slice.)"""
-    return _shared("io", max(int(workers), 1)).submit(fn)
+    own failure semantics; the pool never swallows one."""
+
+    def _counted():
+        out = fn()
+        _IO_TASKS.inc(worker=threading.current_thread().name)
+        return out
+
+    return _shared("io", max(int(workers), 1)).submit(_counted)
 
 
 def run_tasks(tasks: Sequence[Callable[[], None]], workers: int) -> None:
@@ -66,9 +83,16 @@ def run_tasks(tasks: Sequence[Callable[[], None]], workers: int) -> None:
     if workers <= 1 or len(tasks) <= 1:
         for t in tasks:
             t()
+        _PREP_TASKS.inc(len(tasks), worker="serial")
         return
+
+    def _counted(t: Callable[[], None]) -> None:
+        t()
+        # after the body: the count is completed work, not attempts
+        _PREP_TASKS.inc(worker=threading.current_thread().name)
+
     pool = _shared("col", workers)
-    futs = [pool.submit(t) for t in tasks]
+    futs = [pool.submit(_counted, t) for t in tasks]
     first: Optional[BaseException] = None
     for f in futs:
         try:
@@ -88,13 +112,20 @@ def ordered_map(items: Iterable, fn: Callable, workers: int,
     if workers <= 1:
         for it in items:
             yield fn(it)
+            _BATCH_TASKS.inc(worker="serial")
         return
     pool = _shared("batch", workers)
     pending: List = []
     depth = max(depth, 1)
+
+    def _counted(it):
+        out = fn(it)
+        _BATCH_TASKS.inc(worker=threading.current_thread().name)
+        return out
+
     try:
         for it in items:
-            pending.append(pool.submit(fn, it))
+            pending.append(pool.submit(_counted, it))
             while len(pending) > depth:
                 yield pending.pop(0).result()
         while pending:

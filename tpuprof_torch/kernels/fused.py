@@ -35,21 +35,29 @@ All return the reference's state dicts, so merge and finalize never care
 which ran.  ``launches``, ``launches_wide``, ``launches_spear``,
 ``launches_rank`` and ``launches_ab`` count the launches of K1, K3, K5, K6
 and K4.
+
+:func:`observe_dispatch` wraps each device fold the runner makes
+(``runtime/runner.py``): it counts the dispatch and, for every Nth one
+(``metrics_block_sample``), times the fold with CUDA events.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpuprof_torch import kernels as _k
+from tpuprof_torch import obs as _obs
 from tpuprof_torch.config import MAX_SPEAR_GRID
 from tpuprof_torch.kernels import corr, moments
 from tpuprof_torch.kernels import hist as khist
+from tpuprof_torch.obs import blackbox as _blackbox
+from tpuprof_torch.obs import metrics as _obs_metrics
 
 MAX_FUSED_COLS = 512
 MAX_FUSED_COLS_WIDE = 2048
@@ -72,6 +80,79 @@ _MAX_SPLIT_ROWS = 1 << 20       # keeps each split's f32 pair count exact
 # scratch stays a small multiple of the outputs
 _WIDE_MAX_GRAM_SPLITS = 4
 _PLAIN_RANK_CHUNK = 1 << 21     # values ranked per step of the plain rank
+
+# ---- device-fold telemetry (OBSERVABILITY.md) ----------------------------
+# Dispatch counts are host increments.  A time needs the device to finish
+# the fold, which serializes the pipeline it measures, so only every Nth
+# dispatch is timed (obs.block_sample(), config.metrics_block_sample); N = 0
+# never synchronizes.  The pass-B series carry the binning formulation
+# (config.pass_b_kernel), as the reference's do.
+_DISPATCHES = _obs_metrics.counter(
+    "tpuprof_device_dispatch_total",
+    "device program dispatches, by program (step_a/scan_a/...)")
+_BLOCK_SECONDS = _obs_metrics.histogram(
+    "tpuprof_device_block_seconds",
+    "sampled seconds of a device fold, CUDA events around its launches "
+    "(host clock on the CPU), by program")
+_PASS_B_DISPATCHES = _obs_metrics.counter(
+    "tpuprof_pass_b_dispatch_total",
+    "pass-B device dispatches, by binning kernel (legacy/cumulative)")
+_PASS_B_SECONDS = _obs_metrics.histogram(
+    "tpuprof_pass_b_dispatch_seconds",
+    "sampled pass-B fold seconds, by binning kernel")
+_dispatch_seq = [0]     # process-wide sample phase (a racy += at worst
+                        # skips or doubles one sample)
+
+
+@contextlib.contextmanager
+def observe_dispatch(program: str, device: torch.device, batches: int = 1,
+                     kernel: Optional[str] = None) -> Iterator[None]:
+    """Wrap one device fold: a ``dispatch`` entry in the flight recorder
+    always; with metrics on, ``tpuprof_device_dispatch_total{program}`` (and
+    ``{program}_batches`` for a staged group of ``batches``) and, at pass-B
+    sites (``kernel``), ``tpuprof_pass_b_dispatch_total{kernel}``.  Every
+    Nth dispatch (``obs.block_sample()``) is timed: on a CUDA device by an
+    event recorded on the current stream before the fold's launches and one
+    after them, then ``end.synchronize()``; on the CPU, where the fold is
+    synchronous, by the host clock.  The seconds go to
+    ``tpuprof_device_block_seconds{program}`` and, at pass-B sites,
+    ``tpuprof_pass_b_dispatch_seconds{kernel}``."""
+    # a postmortem of a wedged drain shows what the device was last asked
+    # to run, metrics on or off
+    _blackbox.record("dispatch", program=program, batches=batches)
+    if not _obs_metrics.enabled():
+        yield
+        return
+    _DISPATCHES.inc(program=program)
+    if batches > 1:
+        _DISPATCHES.inc(batches, program=f"{program}_batches")
+    if kernel is not None:
+        _PASS_B_DISPATCHES.inc(kernel=kernel)
+    rate = _obs.block_sample()
+    timed = False
+    if rate > 0:
+        _dispatch_seq[0] += 1
+        timed = _dispatch_seq[0] % rate == 0
+    if not timed:
+        yield
+        return
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        end.synchronize()
+        elapsed = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        yield
+        elapsed = time.perf_counter() - t0
+    _BLOCK_SECONDS.observe(elapsed, program=program)
+    if kernel is not None:
+        _PASS_B_SECONDS.observe(elapsed, kernel=kernel)
+
 
 Tiles = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor, torch.Tensor]

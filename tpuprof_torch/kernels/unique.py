@@ -33,10 +33,15 @@ host adopts the runs, one whose runs are missing or torn demotes those
 columns (``__setstate__``).  ``persistent`` keeps the runs a saved
 checkpoint references through a crash.
 
+Each run written counts its bytes and seconds
+(``tpuprof_unique_spill_bytes_total``, ``tpuprof_unique_spill_seconds``)
+and emits a ``unique_spill`` event; the ``tpuprof_unique_partitions`` and
+``tpuprof_unique_spill_pending`` gauges show the partition count and the
+writes queued on the io tier.
+
 The reference's cross-host laws (``merge``, ``disown_runs``,
 ``claim_runs``, ``seed_resolution`` and the ``_end_counting`` they use)
-come with the multi-GPU slice; its spill counters and events
-(``tpuprof_unique_*``, ``unique_spill``) with the telemetry slice.
+come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from tpuprof_torch.ingest.prep import submit_io
+from tpuprof_torch.obs import events as _events
+from tpuprof_torch.obs import metrics as _metrics
 
 logger = logging.getLogger("tpuprof_torch")
 
@@ -74,6 +81,19 @@ RESOLVE_SLICE_ROWS = 1 << 24
 # truncation or bit flip fails the size/CRC checks as CorruptRunError.
 RUN_MAGIC = b"TPUQRUN2"
 _RUN_HEAD = len(RUN_MAGIC) + 8          # magic + <II (P, crc32(index))
+
+_SPILL_BYTES = _metrics.counter(
+    "tpuprof_unique_spill_bytes_total",
+    "bytes of sorted hash runs written by the exact-unique tracker")
+_SPILL_SECONDS = _metrics.histogram(
+    "tpuprof_unique_spill_seconds",
+    "wall time per spill-run write (header + tofile), wherever it ran")
+_PARTITIONS_G = _metrics.gauge(
+    "tpuprof_unique_partitions",
+    "hash partitions the exact-unique tracker scatters into")
+_SPILL_PENDING_G = _metrics.gauge(
+    "tpuprof_unique_spill_pending",
+    "spill writes queued on the io tier, not yet durable")
 
 # cleanup() removes OTHER tokens' spill files only past this age: a crashed
 # chain's orphans are swept eventually, a live concurrent writer's runs
@@ -128,6 +148,7 @@ class UniqueTracker:
         # log2(P) bits): a value's partition is a function of the value, so
         # the results are the same at every count
         self._partitions = p
+        _PARTITIONS_G.set(p)
         # spill writes in flight on the io tier; 0 writes on the caller's
         # thread.  Queued runs publish into _runs at submit time (the same
         # order at any width); every read or persist path drains first
@@ -349,16 +370,18 @@ class UniqueTracker:
             # is full, so RAM holds at most spill_workers unwritten buffers
             while len(self._spill_pending) >= self._spill_workers:
                 self._settle_spill(self._spill_pending.pop(0))
+                _SPILL_PENDING_G.set(len(self._spill_pending))
             if not self.active(name):
                 # a settled failure just demoted THIS column
                 return True
             parts = list(merged)
-            fut = submit_io(lambda: self._write_run(path, parts),
+            fut = submit_io(lambda: self._write_run(path, parts, name),
                             self._spill_workers)
             self._spill_pending.append((fut, name, path, rows, parts))
+            _SPILL_PENDING_G.set(len(self._spill_pending))
         else:
             try:
-                self._write_run(path, merged)
+                self._write_run(path, merged, name)
             except OSError as exc:
                 self._spill_write_failed(name, path, exc)
                 return False
@@ -370,12 +393,14 @@ class UniqueTracker:
         self._clean.discard(name)
         return True
 
-    def _write_run(self, path: str, parts: Sequence[np.ndarray]) -> None:
-        """Write one partitioned run: the header (magic, P, index CRC), the
-        per-partition row counts, then each partition's sorted values.  An
-        ``OSError`` propagates to the caller or settler, which demotes.
-        (The reference also counts the bytes and seconds and emits an
-        event here; those come with the telemetry slice.)"""
+    def _write_run(self, path: str, parts: Sequence[np.ndarray],
+                   name: str) -> None:
+        """Write one partitioned run of column ``name``: the header (magic,
+        P, index CRC), the per-partition row counts, then each partition's
+        sorted values; count its bytes and seconds and emit its
+        ``unique_spill`` event.  An ``OSError`` propagates to the caller or
+        settler, which demotes."""
+        t0 = time.perf_counter()
         shift = self._pshift()
         counts = np.zeros(self._partitions, dtype="<u8")
         for part in parts:
@@ -399,6 +424,14 @@ class UniqueTracker:
                 _remove(path)
                 if attempt:
                     raise
+        rows = int(counts.sum())
+        nbytes = len(header) + rows * 8
+        seconds = time.perf_counter() - t0
+        _SPILL_BYTES.inc(nbytes)
+        _SPILL_SECONDS.observe(seconds)
+        _events.emit("unique_spill", column=name, rows=rows,
+                     bytes=nbytes, seconds=round(seconds, 6),
+                     queued=self._spill_workers > 0)
 
     def _spill_write_failed(self, name: str, path: str,
                             exc: BaseException) -> None:
@@ -446,6 +479,7 @@ class UniqueTracker:
                 self._settle_spill(self._spill_pending.pop(0))
         finally:
             self._draining = False
+            _SPILL_PENDING_G.set(0)
 
     def flush_spills(self) -> None:
         """Block until every queued run is on disk (failed writes demote

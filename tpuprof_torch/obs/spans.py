@@ -1,40 +1,93 @@
-"""Phase spans: the wall seconds of each pipeline stage.
+"""Span-based tracing: nested wall-clock timing with metadata.
 
-Counterpart of ``tpuprof/obs/spans.py`` without its metrics histogram and
-event sink (telemetry is a later slice of the port).  ``span("scan_a")``
-times its body and adds the seconds, on a lock, to the total of its leaf
-name; :func:`get_phase_report` reads (and optionally resets) the totals.
-The backend resets them when a profile starts and snapshots them onto the
-profile's ``stats["_phases"]`` when it ends; the report footer reads them
-from there.
+Counterpart of ``tpuprof/obs/spans.py``.  ``span("scan_a", cols=200)``
+times its body and records the wall seconds into
+
+* the per-phase totals (:func:`get_phase_report`): the backend resets them
+  when a profile starts and snapshots them onto the profile's
+  ``stats["_phases"]`` when it ends; the report footer reads them there;
+* the ``tpuprof_span_seconds{name=...}`` histogram (when metrics are on);
+* one ``{"kind": "span"}`` event (into the flight recorder always, into
+  the JSONL sink when one is configured), carrying the dotted path
+  (``"profile.scan_a"``), the nesting depth and the span's metadata;
+* a debug log line;
+* while ``utils/trace.trace_to`` records a ``torch.profiler`` trace, a
+  ``record_function`` range of the same name, so the trace's timeline
+  shows the pipeline's stages above the device's kernels.
+
+Nesting is per thread (a ``threading.local`` stack): spans opened by pool
+threads neither see nor corrupt the main thread's stack.  Phase totals
+accumulate under the span's leaf name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
 import threading
 import time
-from typing import Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, Optional
+
+from tpuprof_torch.obs import events, metrics
+
+logger = logging.getLogger("tpuprof_torch")
 
 _lock = threading.Lock()
 _phase_totals: Dict[str, float] = {}
+_tls = threading.local()
+# set by utils/trace.trace_to while a profiler trace records: a callable
+# from a span name to a context manager that marks the range in the trace
+annotate: Optional[Callable[[str], Any]] = None
+
+_SPAN_SECONDS = metrics.histogram(
+    "tpuprof_span_seconds",
+    "wall-clock seconds per pipeline span, by leaf name")
+
+
+def _stack() -> list:
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+    return st
+
+
+def current_path() -> str:
+    """Dotted path of the innermost open span on THIS thread ('' at top
+    level)."""
+    return ".".join(_stack())
 
 
 @contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
+def span(name: str, **meta: Any) -> Iterator[None]:
     """Time a pipeline stage.  Exceptions propagate; the time is recorded
     either way (a failed stage's cost is still cost)."""
+    stack = _stack()
+    stack.append(name)
+    depth = len(stack)
+    mark = annotate(name) if annotate is not None \
+        else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
-        yield
+        with mark:
+            yield
     finally:
         dt = time.perf_counter() - t0
+        stack.pop()
         with _lock:
             _phase_totals[name] = _phase_totals.get(name, 0.0) + dt
+        _SPAN_SECONDS.observe(dt, name=name)
+        # into the flight recorder even with no sink: a postmortem of a
+        # metrics-off run still shows which stages closed
+        events.emit("span", name=name, seconds=round(dt, 6),
+                    path=".".join(stack + [name]), depth=depth, **meta)
+        logger.debug("%s", json.dumps(
+            {"event": "phase", "name": name, "seconds": round(dt, 4),
+             **meta}, default=str))
 
 
 def get_phase_report(reset: bool = False) -> Dict[str, float]:
-    """Wall seconds accumulated per span name since the last reset."""
+    """Wall seconds accumulated per span leaf name since the last reset."""
     with _lock:
         out = dict(_phase_totals)
         if reset:

@@ -4,11 +4,11 @@ Copy of ``tpuprof/report/render.py`` over a copy of its templates
 (``tpuprof_torch/report/templates``): for the same stats dict and config
 the port renders the same bytes as the reference, version string aside.
 The footer's scan line reads ``stats["_phases"]``
-(``tpuprof_torch/obs/spans.py``) and the degraded-run banner
+(``tpuprof_torch/obs/spans.py``), its pipeline line the metrics snapshot
+``stats["_obs"]`` that a profile with metrics on carries
+(``tpuprof_torch/obs``), and the degraded-run banner
 ``stats["_quarantine"]``, which only a run that skipped batches carries
-(``runtime/guard.py``).  The reference's pipeline-stats line
-(``stats["_obs"]``) waits for the telemetry slice: the port writes no such
-key, so it renders nothing, as the reference's does with metrics off.
+(``runtime/guard.py``).
 """
 
 from __future__ import annotations
@@ -87,6 +87,53 @@ def _perf_line(stats: Dict[str, Any]) -> str:
     return f"{n / scan:,.0f} rows/s · " + " · ".join(parts)
 
 
+def _pipeline_stats_line(stats: Dict[str, Any]) -> str:
+    """The footer's second line: pipeline counters from the metrics
+    snapshot ``stats["_obs"]`` (metrics on only).  A metric that is missing
+    drops its fragment; no snapshot gives the empty line."""
+    snap = stats.get("_obs") or {}
+    counters = snap.get("counters") or {}
+    hists = snap.get("histograms") or {}
+
+    def _total(name: str) -> float:
+        return sum((counters.get(name) or {}).values())
+
+    parts = []
+    rows = _total("tpuprof_ingest_rows_total")
+    if rows:
+        parts.append(f"{int(rows):,} rows ingested")
+    batches = _total("tpuprof_ingest_batches_total")
+    if batches:
+        parts.append(f"{int(batches)} batches prepared")
+    disp = counters.get("tpuprof_device_dispatch_total") or {}
+    n_disp = sum(v for k, v in disp.items() if "_batches" not in k)
+    if n_disp:
+        parts.append(f"{int(n_disp)} device dispatches")
+    paths = counters.get("tpuprof_prep_numeric_path_total") or {}
+    zc = sum(v for k, v in paths.items() if "zero_copy" in k)
+    total_paths = sum(paths.values())
+    if total_paths:
+        parts.append(f"{zc / total_paths:.0%} zero-copy decodes")
+    ck = hists.get("tpuprof_checkpoint_save_seconds") or {}
+    saves = sum(s["count"] for s in ck.values())
+    if saves:
+        secs = sum(s["sum"] for s in ck.values())
+        parts.append(f"{int(saves)} checkpoints ({secs:.2f}s)")
+    gauges = snap.get("gauges") or {}
+    devmem = gauges.get("tpuprof_device_memory_bytes") or {}
+    in_use = sum(v for k, v in devmem.items() if 'kind="in_use"' in k)
+    if in_use:
+        frag = f"{formatters.fmt_bytesize(in_use)} device mem in use"
+        limit = sum(v for k, v in devmem.items() if 'kind="limit"' in k)
+        if limit:
+            frag += f" ({in_use / limit:.0%} of limit)"
+        parts.append(frag)
+    rss = sum((gauges.get("tpuprof_host_rss_bytes") or {}).values())
+    if rss:
+        parts.append(f"{formatters.fmt_bytesize(rss)} host rss")
+    return " · ".join(parts)
+
+
 def _quarantine_rows(stats: Dict[str, Any]):
     """The degraded-run manifest for the banner: one row a skipped batch,
     formatted here so the template stays plain.  A clean run has no
@@ -118,7 +165,7 @@ def to_html(stats: Dict[str, Any], config) -> str:
         config=config,
         version=__version__,
         perf=_perf_line(stats),
-        pipeline_stats="",
+        pipeline_stats=_pipeline_stats_line(stats),
         quarantine=_quarantine_rows(stats),
     )
 

@@ -26,6 +26,14 @@ the HLL estimate (``kernels/unique.py``).
 * **retention** — ``save(..., keep=N)`` rotates the previous file to
   ``path.1``, ``path.2``, ... (N generations in all), and
   :func:`restore_payload` walks them newest first past corrupt ones.
+
+Telemetry: saves, restores and skipped generations are counted
+(``tpuprof_checkpoint_*``), with the seconds of each save and read and the
+newest file's bytes, and emitted as events (``checkpoint_save``,
+``checkpoint_restore``, ``checkpoint_fallback``,
+``checkpoint_fallback_used``); with metrics off the save and the restore
+still land in the flight recorder, and the newest saved cursor rides its
+context card.
 """
 
 from __future__ import annotations
@@ -33,13 +41,33 @@ from __future__ import annotations
 import io
 import os
 import pickle
+import time
 import zlib
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 from tpuprof_torch.errors import CorruptCheckpointError
+from tpuprof_torch.obs import blackbox, events
+from tpuprof_torch.obs import metrics as _obs_metrics
 from tpuprof_torch.testing import faults
+
+_SAVES = _obs_metrics.counter(
+    "tpuprof_checkpoint_saves_total", "checkpoint artifacts written")
+_RESTORES = _obs_metrics.counter(
+    "tpuprof_checkpoint_restores_total", "checkpoint payloads read back")
+_FALLBACKS = _obs_metrics.counter(
+    "tpuprof_checkpoint_fallbacks_total",
+    "corrupt/unreadable artifacts skipped by the restore walk-back")
+_SAVE_SECONDS = _obs_metrics.histogram(
+    "tpuprof_checkpoint_save_seconds",
+    "wall seconds per atomic checkpoint write (device fetch + pickle + "
+    "fsync + rename)")
+_RESTORE_SECONDS = _obs_metrics.histogram(
+    "tpuprof_checkpoint_restore_seconds",
+    "wall seconds per checkpoint payload read (disk + CRC + unpickle)")
+_SAVE_BYTES = _obs_metrics.gauge(
+    "tpuprof_checkpoint_bytes", "size of the newest checkpoint artifact")
 
 FORMAT_VERSION = 5
 PACKAGE = "tpuprof_torch"
@@ -154,6 +182,7 @@ def save(path: str, state: Optional[Dict[str, Any]], host_blob: Any,
          cursor: int, meta: Dict[str, Any], keep: int = 1) -> int:
     """Write one atomic, fsynced, CRC-stamped checkpoint, rotating the
     previous ``keep - 1`` generations.  Returns its size in bytes."""
+    t0 = time.perf_counter()
     payload = {"arrays_npz": encode_state(state), "host_blob": host_blob,
                "cursor": int(cursor), "meta": meta}
     payload_bytes = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
@@ -176,13 +205,28 @@ def save(path: str, state: Optional[Dict[str, Any]], host_blob: Any,
         raise
     _rotate(path, keep)
     os.replace(tmp, path)
-    return os.path.getsize(path)
+    size = os.path.getsize(path)
+    # the newest durable cursor rides the postmortem context: a crash
+    # dump says how much work a resume would skip
+    blackbox.set_context(last_checkpoint_cursor=int(cursor),
+                         last_checkpoint_path=path)
+    if not _obs_metrics.enabled():
+        blackbox.record("checkpoint_save", path=path, cursor=int(cursor))
+    else:
+        dt = time.perf_counter() - t0
+        _SAVES.inc()
+        _SAVE_SECONDS.observe(dt)
+        _SAVE_BYTES.set(size)
+        events.emit("checkpoint_save", path=path, cursor=int(cursor),
+                    seconds=round(dt, 6))
+    return size
 
 
 def load_payload(path: str) -> Dict[str, Any]:
     """Read one checkpoint and check its version, package, length and CRC
     before unpickling its payload.  Every failure but a missing file
     raises :class:`CorruptCheckpointError`."""
+    t0 = time.perf_counter()
     try:
         with open(path, "rb") as fh:
             header = _PortUnpickler(fh).load()
@@ -227,6 +271,16 @@ def load_payload(path: str) -> Dict[str, Any]:
         raise CorruptCheckpointError(
             f"checkpoint {path!r} is unreadable "
             f"({type(exc).__name__}: {exc})") from exc
+    if _obs_metrics.enabled():
+        dt = time.perf_counter() - t0
+        _RESTORES.inc()
+        _RESTORE_SECONDS.observe(dt)
+        events.emit("checkpoint_restore", path=path,
+                    cursor=int(payload.get("cursor", -1)),
+                    seconds=round(dt, 6))
+    else:
+        blackbox.record("checkpoint_restore", path=path,
+                        cursor=int(payload.get("cursor", -1)))
     return payload
 
 
@@ -255,15 +309,26 @@ def restore_payload(path: str) -> Tuple[Dict[str, Any], str]:
     """``(payload, used_path)`` of the newest generation of the chain at
     ``path`` that passes its checks (a deleted head whose rotations
     survive is walked past too); raises :class:`CorruptCheckpointError`
-    only when none does."""
+    only when none does.  Each generation skipped counts in
+    ``tpuprof_checkpoint_fallbacks_total`` and emits a
+    ``checkpoint_fallback`` event; an older generation used emits
+    ``checkpoint_fallback_used``."""
     last: Optional[Exception] = None
     tried = 0
     for cand in candidate_paths(path):
         tried += 1
         try:
-            return load_payload(cand), cand
+            payload = load_payload(cand)
         except (CorruptCheckpointError, OSError) as exc:
             last = exc
+            _FALLBACKS.inc()
+            events.emit("checkpoint_fallback", path=cand,
+                        error=f"{type(exc).__name__}: {exc}")
+            continue
+        if cand != path:
+            events.emit("checkpoint_fallback_used", path=cand, head=path,
+                        cursor=int(payload.get("cursor", -1)))
+        return payload, cand
     raise CorruptCheckpointError(
         f"no readable checkpoint at {path!r} ({tried} generation(s) "
         f"tried; newest failure: {last})") from last

@@ -16,8 +16,11 @@ Counterpart of ``tpuprof/runtime/guard.py``, rung by rung:
    under a deadline and raises :class:`WatchdogTimeout` with a heartbeat
    snapshot instead of hanging.
 
-The reference's metric counters and ``obs.events`` records wait for the
-port's telemetry slice; each spot is marked where it stands.
+Each rung counts what it did (``tpuprof_ingest_retries_total``,
+``tpuprof_batches_quarantined_total``, ``tpuprof_watchdog_timeouts_total``
+by site, ``tpuprof_watchdog_wait_seconds``) and emits its event
+(``ingest_retry``, ``batch_quarantined``, ``watchdog_timeout``); a batch
+that escalates leaves a ``batch_failed`` entry in the flight recorder.
 """
 
 from __future__ import annotations
@@ -29,7 +32,22 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 from tpuprof_torch.errors import (PoisonBatchError, TransientError,
                                   WatchdogTimeout)
+from tpuprof_torch.obs import blackbox, events
+from tpuprof_torch.obs import metrics as _obs_metrics
 from tpuprof_torch.testing import faults
+
+_RETRIES = _obs_metrics.counter(
+    "tpuprof_ingest_retries_total",
+    "transient per-batch failures retried by the ingest guard, by site")
+_QUARANTINED = _obs_metrics.counter(
+    "tpuprof_batches_quarantined_total",
+    "batches skipped by the poison-batch quarantine, by site")
+_WATCHDOG_TIMEOUTS = _obs_metrics.counter(
+    "tpuprof_watchdog_timeouts_total",
+    "watched blocking calls that overran their deadline, by site")
+_WATCHDOG_WAIT_SECONDS = _obs_metrics.histogram(
+    "tpuprof_watchdog_wait_seconds",
+    "wall seconds a watched call actually took (completed calls only)")
 
 
 def is_transient(exc: BaseException) -> bool:
@@ -79,12 +97,19 @@ class BatchGuard:
             except Exception as exc:
                 if is_transient(exc) and attempt < self.retries:
                     attempt += 1
-                    # (telemetry slice: the retries counter and the
-                    # ingest_retry event)
+                    _RETRIES.inc(site=site)
+                    events.emit("ingest_retry", site=site, key=key,
+                                attempt=attempt,
+                                error=f"{type(exc).__name__}: {exc}")
                     if self.backoff_s > 0:
                         self._sleep(self.backoff_s * (2 ** (attempt - 1)))
                     continue
-                # (telemetry slice: the flight recorder's batch_failed)
+                # the escalation lands in the flight recorder before it
+                # raises: a postmortem's last entries name the failing
+                # site, metrics on or off
+                blackbox.record("batch_failed", site=site, key=key,
+                                attempts=attempt + 1,
+                                error=f"{type(exc).__name__}: {exc}")
                 if self.capture:
                     return PoisonBatch(
                         site=site, error=f"{type(exc).__name__}: {exc}",
@@ -129,8 +154,8 @@ class Quarantine:
         with self._lock:
             self.entries.append(entry)
             n = len(self.entries)
-        # (telemetry slice: the quarantined counter and the
-        # batch_quarantined event)
+        _QUARANTINED.inc(site=site)
+        events.emit("batch_quarantined", **entry)
         if self.log_path:
             try:
                 with open(self.log_path, "a") as fh:
@@ -158,14 +183,15 @@ class Quarantine:
 def _expired(site: str, timeout_s: float,
              heartbeat: Optional[Callable[[], Dict[str, Any]]]
              ) -> WatchdogTimeout:
-    # (telemetry slice: the watchdog timeouts counter and the
-    # watchdog_timeout event)
+    _WATCHDOG_TIMEOUTS.inc(site=site)
     hb = None
     if heartbeat is not None:
         try:
             hb = heartbeat()
         except Exception:       # a broken heartbeat must not mask the
             hb = None           # timeout it reports on
+    events.emit("watchdog_timeout", site=site, timeout_s=timeout_s,
+                heartbeat=hb)
     return WatchdogTimeout(site, timeout_s, heartbeat=hb)
 
 
@@ -210,11 +236,12 @@ def watched(fn: Callable[[], Any], timeout_s: Optional[float], site: str,
         finally:
             done.set()
 
+    t0 = time.perf_counter()
     threading.Thread(target=_body, daemon=True,
                      name=f"tpuprof-torch-watchdog-{site}").start()
     if not done.wait(timeout_s):
         raise _expired(site, float(timeout_s), heartbeat)
-    # (telemetry slice: the watchdog wait-seconds histogram)
+    _WATCHDOG_WAIT_SECONDS.observe(time.perf_counter() - t0, site=site)
     if err:
         raise err[0]
     return result[0]

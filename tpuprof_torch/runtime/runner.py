@@ -19,7 +19,9 @@ reference's keys, so the merge laws and finalizers carry over.
 Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
 copies S batches as ONE host-to-device transfer from pinned memory, and the
 ``scan_*`` forms fold the staged slices in order with the same per-batch
-calls, so a staged run gives the same bits as a per-batch run.
+calls, so a staged run gives the same bits as a per-batch run.  Each
+``step_*``/``scan_*`` of the two passes is one dispatch to the telemetry
+(``kernels/fused.observe_dispatch``), under the reference's program names.
 
 :func:`state_from_numpy` / :func:`state_to_numpy` carry states in and out of
 the port, including the reference's per-device stacked states, which are
@@ -206,23 +208,32 @@ class Runner:
                 self._fold_b(state_h, xt, row_valid, lo, hi, mean))
 
     def step_a(self, state: State, db: DeviceBatch) -> State:
-        return self._fold_a(state, db.xt, db.row_valid, db.hllt)
+        with fused.observe_dispatch("step_a", self.device):
+            return self._fold_a(state, db.xt, db.row_valid, db.hllt)
 
     def scan_a(self, state: State, sb: StackedBatch) -> State:
-        for i in range(sb.n_batches):
-            state = self._fold_a(state, sb.xts[i], sb.row_valids[i],
-                                 sb.hllts[i])
+        with fused.observe_dispatch("scan_a", self.device,
+                                    batches=sb.n_batches):
+            for i in range(sb.n_batches):
+                state = self._fold_a(state, sb.xts[i], sb.row_valids[i],
+                                     sb.hllts[i])
         return state
 
     def step_b(self, state: State, db: DeviceBatch, lo, hi, mean,
                lanes=None) -> State:
-        return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean, lanes)
+        with fused.observe_dispatch("step_b", self.device,
+                                    kernel=self.pass_b_kernel):
+            return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean,
+                                lanes)
 
     def scan_b(self, state: State, sb: StackedBatch, lo, hi, mean,
                lanes=None) -> State:
-        for i in range(sb.n_batches):
-            state = self._fold_b(state, sb.xts[i], sb.row_valids[i],
-                                 lo, hi, mean, lanes)
+        with fused.observe_dispatch("scan_b", self.device,
+                                    batches=sb.n_batches,
+                                    kernel=self.pass_b_kernel):
+            for i in range(sb.n_batches):
+                state = self._fold_b(state, sb.xts[i], sb.row_valids[i],
+                                     lo, hi, mean, lanes)
         return state
 
     def step_ab(self, state: State, state_h: State, db: DeviceBatch, lo, hi,
@@ -230,16 +241,21 @@ class Runner:
         """Fold one shipped batch into the pass-A state AND the histogram
         state on the provisional ``lo``/``hi``/``mean`` (a single-pass
         profile).  Returns ``(state, state_h)``."""
-        return self._fold_ab(state, state_h, db.xt, db.row_valid, db.hllt,
-                             lo, hi, mean)
+        with fused.observe_dispatch("step_ab", self.device,
+                                    kernel=self.pass_b_kernel):
+            return self._fold_ab(state, state_h, db.xt, db.row_valid,
+                                 db.hllt, lo, hi, mean)
 
     def scan_ab(self, state: State, state_h: State, sb: StackedBatch, lo,
                 hi, mean):
         """:meth:`step_ab` over the staged batches, in order."""
-        for i in range(sb.n_batches):
-            state, state_h = self._fold_ab(state, state_h, sb.xts[i],
-                                           sb.row_valids[i], sb.hllts[i],
-                                           lo, hi, mean)
+        with fused.observe_dispatch("scan_ab", self.device,
+                                    batches=sb.n_batches,
+                                    kernel=self.pass_b_kernel):
+            for i in range(sb.n_batches):
+                state, state_h = self._fold_ab(
+                    state, state_h, sb.xts[i], sb.row_valids[i],
+                    sb.hllts[i], lo, hi, mean)
         return state, state_h
 
     def _fold_spearman(self, state: State, xt, row_valid, grid) -> State:

@@ -27,7 +27,9 @@ still identical to two-pass.
 
 The hit, miss and re-bin counts are plain module-level integers
 (:data:`edge_hits`, :data:`edge_misses`, :data:`rebins`,
-:data:`rebin_lanes`), the counterpart of the reference's metrics.
+:data:`rebin_lanes`); with metrics on a profile's outcome also feeds the
+reference's metrics (:func:`record_outcome`, :func:`record_rebin`:
+``tpuprof_singlepass_*`` and the ``singlepass_rebin`` event).
 """
 
 from __future__ import annotations
@@ -38,7 +40,25 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tpuprof_torch.obs import events
+from tpuprof_torch.obs import metrics as _obs_metrics
+
 logger = logging.getLogger("tpuprof_torch")
+
+_EDGE_HITS = _obs_metrics.counter(
+    "tpuprof_singlepass_edge_hits_total",
+    "fused-profile numeric lanes whose provisional bin edges matched "
+    "the exact pass-A bounds bitwise (counts adopted, no re-bin)")
+_EDGE_MISSES = _obs_metrics.counter(
+    "tpuprof_singlepass_edge_misses_total",
+    "fused-profile numeric lanes whose provisional edges missed "
+    "(re-binned in the targeted pass-B fallback)")
+_REBIN_SECONDS = _obs_metrics.histogram(
+    "tpuprof_singlepass_rebin_seconds",
+    "wall seconds per targeted pass-B re-bin scan (edge-miss fallback)")
+
+# missed column names one singlepass_rebin event carries, at most
+REBIN_COLUMNS_CAP = 16
 
 edge_hits = 0       # numeric lanes whose provisional triple held
 edge_misses = 0     # numeric lanes whose provisional triple missed
@@ -193,11 +213,33 @@ def hit_lanes(edges: ProvisionalEdges, exact: Triple) -> np.ndarray:
     return hits
 
 
-def record_rebin(n_lanes: int) -> None:
-    """One targeted re-bin scan ran over ``n_lanes`` missed lanes."""
+def record_outcome(hits: np.ndarray) -> None:
+    """A profile's hit check into the metrics: one increment a lane, so a
+    hit rate is ``hits / (hits + misses)`` over any window."""
+    if not _obs_metrics.enabled():
+        return
+    n_hit = int(hits.sum())
+    if n_hit:
+        _EDGE_HITS.inc(n_hit)
+    if hits.size - n_hit:
+        _EDGE_MISSES.inc(int(hits.size - n_hit))
+
+
+def record_rebin(seconds: float, miss_names: List[str],
+                 origin: str) -> None:
+    """One targeted re-bin scan ran over the missed lanes ``miss_names``
+    of edges from ``origin``, in ``seconds``; with metrics on, its
+    histogram and a ``singlepass_rebin`` event naming up to
+    :data:`REBIN_COLUMNS_CAP` of the columns."""
     global rebins, rebin_lanes
     rebins += 1
-    rebin_lanes += n_lanes
+    rebin_lanes += len(miss_names)
+    if not _obs_metrics.enabled():
+        return
+    _REBIN_SECONDS.observe(seconds)
+    events.emit("singlepass_rebin", n_miss=len(miss_names),
+                columns=sorted(miss_names)[:REBIN_COLUMNS_CAP],
+                seconds=round(seconds, 4), origin=origin)
 
 
 def merge_rebinned(res_fused: Dict[str, np.ndarray],

@@ -27,19 +27,26 @@ past the tracker's budgets (``kernels/unique.py``).  A checkpoint or a
 fold-state artifact references the spill runs by path, so from then on
 they survive a crash; :meth:`close` (or leaving a ``with`` block without an
 error) deletes them.  ``parity`` needs a second pass and is refused.
+
+Telemetry: the constructor applies the config's metrics fields
+(``obs.configure_from_config``); each drain is a ``drain`` span, counts
+the batches and rows it folded (``tpuprof_stream_*``), its seconds and the
+share of them not spent waiting on the prepare, and samples the memory
+gauges; :meth:`heartbeat` emits a ``heartbeat`` event and leaves its
+reading on the flight recorder's context card; a snapshot with metrics on
+carries the registry's snapshot as ``stats["_obs"]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Any, Dict, Optional, Sequence
 
 import pandas as pd
 import pyarrow as pa
 
-from tpuprof_torch import native
+from tpuprof_torch import native, obs
 from tpuprof_torch.config import (ProfilerConfig, resolve_checkpoint_keep,
                                   resolve_ingest_retries,
                                   resolve_max_quarantined,
@@ -57,11 +64,26 @@ from tpuprof_torch.kernels import corr as kcorr
 from tpuprof_torch.kernels import histogram as khistogram
 from tpuprof_torch.kernels import hll as khll
 from tpuprof_torch.kernels import moments as kmoments
+from tpuprof_torch.obs import metrics as _obs_metrics
+from tpuprof_torch.obs.progress import RateEMA, fmt_rate
 from tpuprof_torch.runtime import checkpoint as ckpt
 from tpuprof_torch.runtime import guard, singlepass
 from tpuprof_torch.runtime.runner import (Runner, state_from_numpy,
                                           state_to_numpy)
 from tpuprof_torch.testing import faults
+
+_BATCHES_FOLDED = _obs_metrics.counter(
+    "tpuprof_stream_batches_folded_total",
+    "device batches folded into the streaming state")
+_STREAM_ROWS = _obs_metrics.counter(
+    "tpuprof_stream_rows_total", "rows folded through the stream")
+_DRAIN_SECONDS = _obs_metrics.histogram(
+    "tpuprof_stream_drain_seconds",
+    "wall seconds per buffer drain (prep + device folds)")
+_OVERLAP_RATIO = _obs_metrics.gauge(
+    "tpuprof_stream_prefetch_overlap_ratio",
+    "share of the last multi-slice drain NOT spent waiting on prep "
+    "(1.0 = prep fully hidden under device folds)")
 
 
 def _to_record_batches(batch: Any, schema: Optional[pa.Schema]):
@@ -103,47 +125,6 @@ def _project_batch(batch: Any, cols: Sequence[str]) -> Any:
             return batch.select(list(cols))
         return batch
     return batch
-
-
-class _RateEMA:
-    """Rows a second, decayed with a half-life (the reference's
-    ``obs.progress.RateEMA``): a stalled stream decays toward 0."""
-
-    def __init__(self, halflife: float = 10.0):
-        self.halflife = float(halflife)
-        self._lock = threading.Lock()
-        self._rate = 0.0
-        self._acc = 0.0
-        self._t_last: Optional[float] = None
-
-    def update(self, n: float) -> None:
-        now = time.monotonic()
-        with self._lock:
-            if self._t_last is None:
-                self._t_last, self._acc = now, float(n)
-                return
-            self._acc += float(n)
-            dt = now - self._t_last
-            if dt <= 0:
-                return
-            alpha = 1.0 - 0.5 ** (dt / self.halflife)
-            self._rate += alpha * (self._acc / dt - self._rate)
-            self._acc, self._t_last = 0.0, now
-
-    def rate(self) -> float:
-        with self._lock:
-            if self._t_last is None:
-                return 0.0
-            dt = max(time.monotonic() - self._t_last, 0.0)
-            return self._rate * 0.5 ** (dt / self.halflife)
-
-
-def _fmt_rate(rows_per_sec: float) -> str:
-    if rows_per_sec >= 1e6:
-        return f"{rows_per_sec / 1e6:.2f}M rows/s"
-    if rows_per_sec >= 1e3:
-        return f"{rows_per_sec / 1e3:.1f}k rows/s"
-    return f"{rows_per_sec:,.0f} rows/s"
 
 
 class StreamingProfiler:
@@ -206,8 +187,9 @@ class StreamingProfiler:
         self._buf_rows = 0
         self._dict_cache = _DictionaryCache()
         self._col_stats: Dict[str, int] = {}
+        obs.configure_from_config(self.config)
         self._t_start = time.monotonic()
-        self._rate_ema = _RateEMA(halflife=10.0)
+        self._rate_ema = RateEMA(halflife=10.0)
         self._quarantine = guard.Quarantine(
             resolve_max_quarantined(self.config.max_quarantined),
             log_path=resolve_quarantine_log(self.config.quarantine_log))
@@ -257,7 +239,8 @@ class StreamingProfiler:
             self._buf.append(rb)
             self._buf_rows += rb.num_rows
         if self._buf_rows >= self._flush_rows:
-            self._drain(force=False)
+            with obs.span("drain", rows=int(self._buf_rows)):
+                self._drain(force=False)
 
     def _prepare_slice(self, tbl: pa.Table, workers: int):
         rbs = tbl.combine_chunks().to_batches()
@@ -300,6 +283,8 @@ class StreamingProfiler:
         self.hostagg.update(hb)
         self.cursor += 1
         self._rate_ema.update(hb.nrows)
+        _BATCHES_FOLDED.inc()
+        _STREAM_ROWS.inc(hb.nrows)
 
     def _drain(self, force: bool) -> None:
         """Fold the buffered rows: every full device batch, and the partial
@@ -309,6 +294,7 @@ class StreamingProfiler:
         the cursor and the sample are the serial stream's."""
         if not self._buf_rows:
             return
+        t0 = time.perf_counter()
         rows = self.runner.rows
         tbl = pa.Table.from_batches(self._buf)
         n, pos = tbl.num_rows, 0
@@ -333,8 +319,18 @@ class StreamingProfiler:
                 lambda: self._prepare_slice(part, w), site="prep", key=idx,
                 rows=part.num_rows)
 
-        for hb in prep.ordered_map(list(enumerate(slices, start=seq0)),
-                                   _prepare, workers=w, depth=2):
+        # the drain's wall splits into waiting on the prepare and folding:
+        # their ratio is the prefetch-overlap gauge
+        wait_s = 0.0
+        done = object()     # ordered_map may yield None for an empty slice
+        it = iter(prep.ordered_map(list(enumerate(slices, start=seq0)),
+                                   _prepare, workers=w, depth=2))
+        while True:
+            tw = time.perf_counter()
+            hb = next(it, done)
+            wait_s += time.perf_counter() - tw
+            if hb is done:
+                break
             if isinstance(hb, guard.PoisonBatch):
                 # failed past its retries: skipped, the stream goes on
                 self._quarantine.admit(site=hb.site, error=hb.error,
@@ -354,14 +350,22 @@ class StreamingProfiler:
             # a wedged device raises WatchdogTimeout with a heartbeat
             self.runner.wait_ready(self.state, self._drain_timeout,
                                    heartbeat=self.heartbeat)
+        if obs.enabled():
+            dt = time.perf_counter() - t0
+            _DRAIN_SECONDS.observe(dt)
+            if len(slices) > 1 and dt > 0:
+                _OVERLAP_RATIO.set(max(0.0, 1.0 - wait_s / dt))
+            obs.memory.sample(self.runner.device)
 
     # -- liveness ----------------------------------------------------------
 
     def heartbeat(self) -> Dict[str, Any]:
         """A cheap liveness snapshot with no drain and no device wait: rows
         folded and buffered, batches folded, the recent rows/s (a 10 s
-        half-life average) and the uptime.  Safe from another thread."""
-        return {
+        half-life average) and the uptime.  Safe from another thread.
+        Also a ``heartbeat`` event (the sink, if any, and the flight
+        recorder), whose reading rides the postmortem context card."""
+        hb = {
             "rows_folded": int(self.hostagg.n_rows),
             "rows_buffered": int(self._buf_rows),
             "batches_folded": int(self.cursor),
@@ -369,6 +373,9 @@ class StreamingProfiler:
             "uptime_s": round(time.monotonic() - self._t_start, 3),
             "columns": len(self.plan.specs),
         }
+        obs.emit("heartbeat", **hb)
+        obs.blackbox.set_context(last_heartbeat=hb)
+        return hb
 
     def progress(self) -> str:
         """One human line from :meth:`heartbeat`."""
@@ -376,7 +383,7 @@ class StreamingProfiler:
         return (f"{hb['rows_folded']:,} rows folded "
                 f"(+{hb['rows_buffered']:,} buffered) · "
                 f"{hb['batches_folded']} batches · "
-                f"{_fmt_rate(hb['rows_per_sec_ema'])} · "
+                f"{fmt_rate(hb['rows_per_sec_ema'])} · "
                 f"up {hb['uptime_s']:.0f}s")
 
     # -- snapshots ---------------------------------------------------------
@@ -390,7 +397,8 @@ class StreamingProfiler:
             stats = _empty_stats(self.config)
             stats["variables"] = VariablesView(stats["variables"])
             return stats
-        self._drain(force=True)
+        with obs.span("drain", rows=int(self._buf_rows), forced=True):
+            self._drain(force=True)
         state = self.state if self.state is not None \
             else self.runner.init_pass_a()
         res = self.runner.finalize_a(state)
@@ -430,6 +438,9 @@ class StreamingProfiler:
         if self._quarantine.entries:
             # degraded streams only: a clean snapshot is as before
             stats["_quarantine"] = list(self._quarantine.entries)
+        snap = obs.snapshot_if_enabled()
+        if snap is not None:
+            stats["_obs"] = snap
         return stats
 
     def report_html(self) -> str:
@@ -444,7 +455,8 @@ class StreamingProfiler:
         writing anything: what :meth:`checkpoint` saves and what a
         fold-state artifact embeds.  The payload references the spill runs
         by path, so they are marked to survive a crash."""
-        self._drain(force=True)
+        with obs.span("drain", rows=int(self._buf_rows), forced=True):
+            self._drain(force=True)
         self.hostagg.unique.persistent = True
         host_blob = {
             "hostagg": self.hostagg,
