@@ -7,14 +7,16 @@ Run from the repository root:
     python3 chip_smoke.py --only limits,durable   # build + phases 7 and 8
     python3 chip_smoke.py --only exact     # build + phase 9
     python3 chip_smoke.py --only obs       # build + phase 10 (telemetry)
+    python3 chip_smoke.py --only fleet     # build + phase 11 (multi-GPU)
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact, obs (phases 3 to 10) and k2big (phase 3's check of K2's device-memory body
-alone); ``--kernels-only`` and ``--ingest-only`` are its short forms.
+exact, obs, fleet (phases 3 to 11) and k2big (phase 3's check of K2's
+device-memory body alone); ``--kernels-only`` and ``--ingest-only`` are its
+short forms.
 
 Phases, each fatal on failure:
 
@@ -102,8 +104,8 @@ Phases, each fatal on failure:
 6. the rest of host ingest on one frame made from ``--seed``: the
    headline's 200 float32 columns plus ``tags`` list<string>, ``meta``
    struct<a: int64, b: string>, ``uid`` (about one distinct value a
-   row) and ``city``, 524,288 rows in 8 batches (a depth cut to keep the
-   script inside its time limit).  ``describe`` of it
+   row) and ``city``, 262,144 rows in 8 batches of 32,768 (a depth cut
+   to keep the script inside its time limit).  ``describe`` of it
    in memory at ``prep_workers`` 1, default and 8 (K1 8, K2 8; the
    three ``stats_to_json`` equal; which of the dictionary and row-hash
    paths each string column took, batch by batch); the command line on
@@ -118,19 +120,20 @@ Phases, each fatal on failure:
    budget raising, and a 3 s ``device_wait`` under a 1 s
    ``drain_timeout_s`` raising ``WatchdogTimeout``; every run prints its
    wall and phase seconds;
-7. past the kernels' limits: 2,112 float32 columns x 32,768 rows two-pass
+7. past the kernels' limits: 2,112 float32 columns x 16,384 rows two-pass
    and with ``spearman=True`` (the XLA twin, K2, the exact rank tier; K1,
    K3, K5 and K6 launch 0 times) against ``describe(..., device="cpu")``;
-   4,096 x 131,072 (two device batches) two-pass with ``spearman=True`` and
+   4,096 x 65,536 (one device batch) two-pass with ``spearman=True`` and
    fused warm (equal to two-pass), with wall, phase seconds and peak
    device memory, and the card times of the routes that are not kernels
    (the twin, its ``torch.matmul`` Gram, the exact tier's
-   ``searchsorted``) on one batch; the headline 200 x 2,097,152 at
+   ``searchsorted``) on one batch; the headline 200 x 1,048,576 at
    ``bins=16384`` two-pass and fused warm (K1 then K2, equal), each
    histogram's bin pairs summing to the 8,192-bin describe's exactly;
-8. durable profiles: a ``StreamingProfiler`` over the headline table in
-   16,384-row micro-batches, two-pass (K1) and fused (K4), checkpointed at
-   1,048,576 rows and written as a fold-state artifact at 1,572,864; a
+8. durable profiles: a ``StreamingProfiler`` over the headline table at
+   1,048,576 rows in 16,384-row micro-batches, two-pass (K1) and fused
+   (K4), checkpointed at 524,288 rows and written as a fold-state artifact
+   at 786,432; a
    child process (``--resume-child``) restores the checkpoint and
    ``resume_profiler``-s the artifact, feeds the rest, and both equal the
    uninterrupted stream's ``stats_to_json``; the stream's counts, min/max
@@ -141,19 +144,21 @@ Phases, each fatal on failure:
    It prints the stream's rows/s, each save's seconds and bytes and the
    resume seconds;
 9. exact distinct: the reference's wide exact shape (``run_wideexact``:
-   524,288 rows x 200 N(50, 10) float32 columns, nearly all distinct)
-   plus phase 6's ``uid`` and ``city``, 8 batches.  The sketch describe,
+   200 N(50, 10) float32 columns, nearly all distinct, at 262,144 rows of
+   its 524,288, a depth cut) plus phase 6's ``uid`` and ``city``, 4
+   batches.  The sketch describe,
    then ``exact_distinct=True`` with a temporary spill dir at the default
-   2**25-row budget, a third of the stream's hashes (K1 8, K2 8; it
+   2**25-row budget, 0.6 of the stream's hashes (K1 4, K2 4; it
    spills; every distinct count equals pandas' ``nunique``; the rest of
    ``stats_to_json`` equals the sketch describe's; no run left), then one
    partition with synchronous writes and ``unique_track_total_rows=
    "auto"`` (``stats_to_json`` equal); ``parity=True`` on 262,144 rows
    (K1, K2, K5 4 each; exact counts; Spearman within 5e-4 of a
-   ``spearman=True`` describe; the derived dir removed); on phase 5's
-   Parquet directory a child ``profile --parity`` (exact counts, the dir
-   removed) and ``profile --exact-distinct --checkpoint``, one child
-   killed by ``TPUPROF_FAULTS=fold:1@9`` and one that resumes, its
+   ``spearman=True`` describe; the derived dir removed); on the first
+   two files of phase 5's Parquet directory (524,288 rows, a depth cut) a
+   child ``profile --parity`` (exact counts, the dir removed) and
+   ``profile --exact-distinct --checkpoint``, one child killed by
+   ``TPUPROF_FAULTS=fold:1@5`` and one that resumes, its
    artifact's stats equal to an uninterrupted exact describe's, the spill
    dir empty; an exact ``StreamingProfiler`` over the first 262,144 rows
    written as a fold-state artifact at 131,072 and resumed in a child
@@ -181,7 +186,24 @@ Phases, each fatal on failure:
    copies and fills over the ``profile`` range); and a poisoned child
    (``TPUPROF_FAULTS=prep:2@1``) exiting 5 with one postmortem bundle
    naming ``prep``.  Each step prints its wall seconds;
-11. one JSON line of per-kernel numbers, the card's name and power limit,
+11. devices, processes and the elastic fleet: ``MeshRunner`` over
+   ``[cuda:0, cuda:0]`` on the headline 200 x 2,097,152 (K1 64 and K2 64,
+   two shards a batch; the stats equal the one-device describe's); on
+   phase 5's directory, a single ``profile`` child, then two ranks on
+   ``cuda:0`` over gloo (``--coordinator 127.0.0.1:<free port>``; K1 8 and
+   K2 8 each; rank 0 alone writes, its artifact equal to phase 5's), the
+   same pair with ``--parity`` and a shared ``--unique-spill-dir`` on
+   phase 9's half of the directory (K5 4 each; every exact count equal to
+   its distinct values and to phase 9's single-process ``--parity``
+   profile; no run left), two ``--elastic`` members ``a`` and ``b``
+   started together (K1 summing to 16, the leader's artifact equal to
+   phase 5's, its
+   ``.fleet.prom`` labelled ``host="a"`` and ``host="b"``), then ``b``
+   killed by ``TPUPROF_FAULTS=host_death:@2`` (exit 8) and its survivor
+   ``a`` stealing its fragments, equal to phase 5's profile.  Each child
+   (``--fleet-child SPEC``) reports its launch counts, phase seconds and
+   process wall;
+12. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -2123,9 +2145,10 @@ def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
         rows, batch, cols = 4 * 20_000, 20_000, 8
         dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
     else:
-        # 8 batches: a depth cut to keep the script inside its time limit
-        # with phases 7 and 8
-        rows, batch, cols = 524_288, 65_536, 200
+        # 8 batches of 32,768 rows (each still past the row-hash path's
+        # 16,384 distinct values): a depth cut to keep the script inside
+        # its time limit with phases 7 to 11
+        rows, batch, cols = 262_144, 32_768, 200
         dev, dev_kw = [], {}
         require(native.available(), "the native hash library did not "
                 "build: the row-hash path needs it")
@@ -2311,6 +2334,14 @@ def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 _HEADLINE = {}
+# phase 10's telemetry-off describe of the headline, (stats, seconds) by
+# (rows, cols, batch rows), each Parquet directory's nunique and phase 9's
+# `--parity` profile: phase 11 compares with them instead of computing
+# them again
+_HEADLINE_STATS = {}
+_DIR_TRUTH = {}
+# phase 9's single-process `profile --parity` stats_to_json by directory
+_PARITY_DOCS = {}
 
 
 def headline_frame(rows: int, cols: int):
@@ -2363,7 +2394,7 @@ def _no_kernels_but_k2(n_batches: int):
 
 
 def phase_limits(torch, rehearsal: bool, card: str) -> None:
-    """2,112 columns against the CPU; 4,096 x 131,072 two-pass with
+    """2,112 columns against the CPU; 4,096 x 65,536 two-pass with
     Spearman and fused warm, with peak device memory and the times of the
     routes that are not kernels; the headline at 16,384 bins, two-pass and
     fused warm, each histogram held against the 8,192-bin one."""
@@ -2381,8 +2412,10 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
         cols_h, n_head, batch, big = 20, 4096, 512, 2 * 1024
         dev_kw = {"device": "cpu"}
     else:
-        c1, n1, c2, n2, batch2 = 2112, 32_768, 4096, 131_072, 65_536
-        cols_h, n_head, batch, big = 200, 2_097_152, 65_536, 16_384
+        # one device batch each: a depth cut to keep the script
+        # inside its time limit with phase 11
+        c1, n1, c2, n2, batch2 = 2112, 16_384, 4096, 65_536, 65_536
+        cols_h, n_head, batch, big = 200, 1_048_576, 65_536, 16_384
         dev_kw = {}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-limits-")
     atexit.register(shutil.rmtree, tmp, True)
@@ -2633,7 +2666,8 @@ def phase_durable(torch, rehearsal: bool, card: str, cli=None) -> None:
         cols, n, batch, micro = 20, 4096, 512, 128
         dev, dev_kw = "cpu", {"device": "cpu"}
     else:
-        cols, n, batch, micro = 200, 2_097_152, 65_536, 16_384
+        # half the headline: a depth cut for phase 11's time
+        cols, n, batch, micro = 200, 1_048_576, 65_536, 16_384
         dev, dev_kw = "cuda:0", {}
     ck_rows, art_rows = n // 2, 3 * n // 4
     nb = n // batch
@@ -2900,7 +2934,6 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
     import tempfile
 
     import pyarrow as pa
-    import pyarrow.dataset as pads
 
     import tpuprof_torch
     from tpuprof_torch.artifact import read_artifact, write_artifact
@@ -2912,9 +2945,11 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
         # the default budget holds a rehearsal's stream: a third of it
         budget = rows * (cols + 2) // 3
     else:
-        rows, cols, batch = 524_288, 200, 65_536
+        # 4 batches, a depth cut for phase 11's time: the ~53M
+        # hashes still pass the default 2**25-row budget and spill
+        rows, cols, batch = 262_144, 200, 65_536
         dev, dev_kw = [], {}
-        budget = None           # 2**25, a third of the stream's hashes
+        budget = None           # 2**25, 0.6 of the stream's hashes
     nb = rows // batch
     tmp = tempfile.mkdtemp(prefix="chip-smoke-exact-")
     atexit.register(shutil.rmtree, tmp, True)
@@ -2962,7 +2997,7 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
           flush=True)
 
     # parity on the first quarter-million rows: K1, K2 and K5
-    cut = rows // 2
+    cut = rows // 2 if rehearsal else 262_144
     part = df.iloc[:cut]
     cut_truth = part.nunique()
     auto_dir = ProfilerConfig(parity=True).unique_spill_dir
@@ -2988,12 +3023,11 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
           f"{auto_dir} removed; {par_s:.3f} s vs {spear_s:.3f} s",
           flush=True)
 
-    # the profile verb on phase 5's Parquet directory
-    cli_dir, _art, cbatch = cli or cli_directory(rehearsal, tmp)
-    t0 = time.perf_counter()
-    dir_truth = pads.dataset(cli_dir).to_table().to_pandas().nunique()
-    print(f"cli: nunique of {cli_dir} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    # the profile verb on the first half of phase 5's Parquet directory (a
+    # depth cut for the script's time)
+    cli_full, _art, cbatch = cli or cli_directory(rehearsal, tmp)
+    cli_dir = half_directory(cli_full)
+    dir_truth = directory_truth(cli_dir)
     budget_flag = ["--unique-track-total-rows", str(budget)] if budget \
         else []
     js = f"{tmp}/parity.json"
@@ -3015,6 +3049,7 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
     print(f"cli --parity: exit 0 in {secs:.3f} s; {err[-1]}; "
           f"{footer_phases(f'{tmp}/parity.html')}; exact counts, "
           f"{auto_dir} removed", flush=True)
+    _PARITY_DOCS[cli_dir] = doc
 
     cspill = f"{tmp}/cli-spill"
     with TrackerProbe() as probe:
@@ -3037,7 +3072,7 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
             "--exact-distinct", "--unique-spill-dir", cspill,
             "--checkpoint", ck, "--checkpoint-every", "4", *budget_flag,
             *dev]
-    os.environ["TPUPROF_FAULTS"] = "fold:1@9"
+    os.environ["TPUPROF_FAULTS"] = "fold:1@5"     # just after the save at 4
     try:
         rc, err, _, secs = child([*argv, "-o", f"{tmp}/dead.html"])
     finally:
@@ -3046,7 +3081,7 @@ def phase_exact(torch, rehearsal: bool, card: str, cli=None) -> None:
             and os.path.exists(ck) and not no_runs(cspill),
             f"cli --exact-distinct: the faulted child exited {rc} "
             f"(runs left: {not no_runs(cspill)}): {err[-3:]}")
-    print(f"cli --exact-distinct: the child died on its 9th fold (exit "
+    print(f"cli --exact-distinct: the child died on its 5th fold (exit "
           f"{rc}, {secs:.3f} s), {ck} holds {os.path.getsize(ck)} B and "
           f"{cspill} {len(os.listdir(cspill))} runs", flush=True)
     art = f"{tmp}/exact_resumed.json"
@@ -3430,6 +3465,7 @@ def phase_obs(torch, rehearsal: bool, card: str, k1_ms=None,
         return stats["_obs"][kind].get(name, {})
 
     off, c_off, t_off = run("metrics off")
+    _HEADLINE_STATS[(n, cols, batch)] = (off, t_off)
     require("_obs" not in off, "metrics off: the stats carry _obs")
     jsonl = f"{tmp}/describe.jsonl"
     on, c_on, t_on = run("metrics on", metrics_path=jsonl)
@@ -3614,8 +3650,349 @@ def phase_obs(torch, rehearsal: bool, card: str, k1_ms=None,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh, ranks over gloo, the elastic fleet
+# ---------------------------------------------------------------------------
+
+def fleet_child(spec_path: str) -> int:
+    """``--fleet-child SPEC``: one rank or member in a fresh process.  It
+    waits until the ready file of every peer the spec names exists (so
+    members start together) and, with ``after``, until a file of that
+    prefix appears in that directory, sets the launch counts to 0, runs
+    ``tpuprof_torch.cli.main(spec["argv"])`` in process and writes its exit
+    code, launch counts, phase seconds, seconds and stolen fragments into
+    ``spec["out"]``."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    from tpuprof_torch import api, cli
+    from tpuprof_torch.obs import metrics
+    captured = []
+    real = api.describe
+
+    def describe(*a, **kw):
+        stats = real(*a, **kw)
+        captured.append(stats)
+        return stats
+    api.describe = describe             # ProfileReport calls it
+    ready = spec.get("ready")
+    if ready:
+        open(f"{ready}.{spec['name']}", "w").close()
+        t0 = time.monotonic()
+        while not all(os.path.exists(f"{ready}.{p}") for p in spec["peers"]):
+            if time.monotonic() - t0 > 120:
+                print("fleet child: peers never started", file=sys.stderr)
+                return 3
+            time.sleep(0.02)
+    after = spec.get("after")       # (directory, file name prefix)
+    if after:
+        t0 = time.monotonic()
+        while not (os.path.isdir(after[0]) and any(
+                f.startswith(after[1]) for f in os.listdir(after[0]))):
+            if time.monotonic() - t0 > 120:
+                print(f"fleet child: no {after[1]} in {after[0]}",
+                      file=sys.stderr)
+                return 3
+            time.sleep(0.02)
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(spec["argv"])
+    secs = time.perf_counter() - t0
+    stats = captured[0] if captured else None
+    with open(spec["out"], "w") as fh:
+        json.dump({"rc": rc, "counts": read_counts(), "secs": secs,
+                   "phases": stats.get("_phases") if stats else None,
+                   "n": int(stats["table"]["n"]) if stats else None,
+                   "stolen": metrics.registry().counter(
+                       "tpuprof_fragments_stolen_total").total()}, fh)
+    return 0
+
+
+def run_fleet_children(tmp: str, specs, envs=None, timeout=600):
+    """Start one ``--fleet-child`` per spec (``envs``: extra environment
+    per child) and wait for all.  Returns each child's result dict with
+    its process wall seconds (``wall``) and stderr tail."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for spec in specs:
+        path = f"{tmp}/{spec['name']}.spec.json"
+        with open(path, "w") as fh:
+            json.dump(spec, fh)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        env.update((envs or {}).get(spec["name"], {}))
+        err = open(f"{tmp}/{spec['name']}.stderr", "w")
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--fleet-child", path], cwd=root, env=env,
+                             stdout=err, stderr=subprocess.STDOUT)
+        procs.append((p, time.perf_counter(), err))
+    walls = [None] * len(procs)
+    deadline = time.monotonic() + timeout
+    try:
+        while any(w is None for w in walls):
+            for i, (p, t0, _err) in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            require(time.monotonic() < deadline,
+                    f"fleet children still running after {timeout} s")
+            time.sleep(0.05)
+    finally:
+        for p, _t0, err in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    out = []
+    for (p, _t0, _err), wall, spec in zip(procs, walls, specs):
+        with open(f"{tmp}/{spec['name']}.stderr") as fh:
+            tail = fh.read().splitlines()[-6:]
+        require(p.returncode == 0, f"{spec['name']}: child exit "
+                f"{p.returncode}: {tail}")
+        with open(spec["out"]) as fh:
+            res = json.load(fh)
+        res.update(wall=wall, tail=tail)
+        out.append(res)
+    return out
+
+
+def _rank_line(label, res, n, card):
+    ph = res["phases"] or {}
+    return (f"{label}: exit {res['rc']}, process wall {res['wall']:.3f} s "
+            f"({n / res['wall']:.0f} rows/s), in-process "
+            f"{res['secs']:.3f} s; scan_a {ph.get('scan_a', 0):.4f} s, "
+            f"merge {ph.get('merge', 0):.4f} s, scan_b "
+            f"{ph.get('scan_b', 0):.4f} s; launches {res['counts']} on "
+            f"{card}")
+
+
+def phase_fleet(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """Across devices and processes: a ``MeshRunner`` over the card twice
+    on the headline; two ``profile`` ranks on the card over gloo, then the
+    same with ``--parity`` and a shared spill dir; two elastic members,
+    then a member killed by ``host_death:@2`` and its survivor."""
+    import atexit
+    import shutil
+    import socket
+    import tempfile
+
+    import pyarrow.dataset as pads
+
+    import tpuprof_torch
+    from tpuprof_torch import schema
+    from tpuprof_torch.backends.gpu import GPUStatsBackend
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    atexit.register(shutil.rmtree, tmp, True)
+    if rehearsal:
+        n, batch = 4096, 512
+        dev, dev_kw, devices = ["--device", "cpu"], {"device": "cpu"}, \
+            ["cpu", "cpu"]
+    else:
+        n, batch = 2_097_152, 65_536
+        dev, dev_kw, devices = [], {}, ["cuda:0", "cuda:0"]
+    cols, nb = 200, n // batch
+
+    # ---- the mesh: the card twice, every batch in two row blocks --------
+    df = headline_frame(n, cols)
+    if (n, cols, batch) in _HEADLINE_STATS:
+        # phase 10's describe of the same table with telemetry off
+        one, one_s = _HEADLINE_STATS[(n, cols, batch)]
+        print(f"fleet one device: phase 10's describe, {one_s:.3f} s; "
+              f"{phases_text(one)}", flush=True)
+    else:
+        one, one_s = counted(torch, rehearsal, card, df, "fleet one device",
+                             exactly=(("fused_a", nb), ("hist_b", nb)),
+                             batch_rows=batch, **dev_kw)
+    config = tpuprof_torch.ProfilerConfig(batch_rows=batch)
+    zero_counts()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = GPUStatsBackend(devices=devices).collect(df, config)
+    mesh_s = time.perf_counter() - t0
+    counts = read_counts()
+    require(not schema.validate_stats(mesh), "mesh: stats contract")
+    if not rehearsal:
+        require(counts["fused_a"] == 2 * nb and counts["hist_b"] == 2 * nb,
+                f"mesh: launches {counts}, expected K1 and K2 {2 * nb}")
+    compare_stats(mesh, one, "mesh")
+    print(f"fleet mesh {devices}: {n} rows x {cols} cols in {mesh_s:.3f} s "
+          f"= {n / mesh_s:.0f} rows/s ({mesh_s / one_s:.3f}x one device) on "
+          f"{card}; launches: {counts}; {phases_text(mesh)}; stats equal "
+          "to one device's", flush=True)
+
+    # ---- two ranks on one card over gloo --------------------------------
+    cli_dir, cli_art, cbatch = cli or cli_directory(rehearsal, tmp)
+    n_dir = pads.dataset(cli_dir).count_rows()
+    nd = n_dir // cbatch                    # row groups of cbatch rows
+    control = from_artifact(cli_art)
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def profile_argv(tag, *extra):
+        return ["profile", cli_dir, "-o", f"{tmp}/{tag}.html",
+                "--batch-rows", str(cbatch), *dev, *extra]
+
+    def rank_specs(tag, *extra):
+        coord = f"127.0.0.1:{free_port()}"
+        return [{"name": f"{tag}{i}", "out": f"{tmp}/{tag}{i}.json",
+                 "argv": profile_argv(
+                     f"{tag}{i}", "--artifact", f"{tmp}/{tag}{i}.art.json",
+                     "--coordinator", coord, "--num-processes", "2",
+                     "--process-id", str(i), "--barrier-timeout", "300",
+                     *extra)} for i in range(2)]
+
+    (single,) = run_fleet_children(tmp, [{
+        "name": "single", "out": f"{tmp}/single.json",
+        "argv": profile_argv("single", "--artifact",
+                             f"{tmp}/single.art.json")}])
+    compare_stats(from_artifact(f"{tmp}/single.art.json"), control,
+                  "single-process child")
+    print(_rank_line("fleet one process", single, n_dir, card), flush=True)
+    ranks = run_fleet_children(tmp, rank_specs("rank"))
+    for i, res in enumerate(ranks):
+        if not rehearsal:
+            require(res["counts"]["fused_a"] == nd // 2
+                    and res["counts"]["hist_b"] == nd // 2,
+                    f"rank {i}: launches {res['counts']}, expected K1 and "
+                    f"K2 {nd // 2}")
+        require(res["n"] == n_dir, f"rank {i}: {res['n']} rows")
+        print(_rank_line(f"fleet rank {i} of 2", res, n_dir, card),
+              flush=True)
+    require(os.path.exists(f"{tmp}/rank0.html")
+            and not os.path.exists(f"{tmp}/rank1.html")
+            and not os.path.exists(f"{tmp}/rank1.art.json"),
+            "two ranks: rank 0 alone writes")
+    compare_stats(from_artifact(f"{tmp}/rank0.art.json"), control,
+                  "two ranks")
+    wall2 = max(r["wall"] for r in ranks)
+    print(f"fleet two ranks: rank 0's artifact equals phase 5's; the pair's "
+          f"wall {wall2:.3f} s = {wall2 / single['wall']:.3f}x one "
+          f"process's {single['wall']:.3f} s", flush=True)
+
+    # ---- the same pair with --parity and a shared spill dir, on the
+    # first half of the directory (phase 9's exact profiles run there too)
+    spill = f"{tmp}/shared-spill"
+    os.makedirs(spill)
+    pdir = half_directory(cli_dir)
+    nh = pads.dataset(pdir).count_rows() // cbatch
+    truth = directory_truth(pdir)
+    single_doc = _PARITY_DOCS.get(pdir)
+    coord = f"127.0.0.1:{free_port()}"
+    par = run_fleet_children(tmp, [
+        {"name": f"parity{i}", "out": f"{tmp}/parity{i}.json",
+         "argv": ["profile", pdir, "-o", f"{tmp}/parity{i}.html",
+                  "--batch-rows", str(cbatch), *dev, "--parity",
+                  "--unique-spill-dir", spill, "--stats-json",
+                  f"{tmp}/parity.stats.json", "--coordinator", coord,
+                  "--num-processes", "2", "--process-id", str(i),
+                  "--barrier-timeout", "300"]}
+        for i in range(2)])
+    for i, res in enumerate(par):
+        if not rehearsal:
+            require(res["counts"]["spear"] == nh // 2
+                    and res["counts"]["fused_a"] == nh // 2,
+                    f"parity rank {i}: launches {res['counts']}")
+        print(_rank_line(f"fleet --parity rank {i} of 2", res,
+                         nh * cbatch, card), flush=True)
+    with open(f"{tmp}/parity.stats.json") as fh:
+        doc = json.load(fh)
+    bad = [c for c, v in doc["variables"].items()
+           if v["distinct_count"] != truth[c] or v["distinct_approx"]
+           or (single_doc is not None and v["distinct_count"]
+               != single_doc["variables"][c]["distinct_count"])]
+    require(not bad, f"two-rank --parity: counts differ at {bad[:5]}")
+    require(not glob_runs(spill), "two-rank --parity: runs left")
+    print(f"fleet --parity on {pdir}: every exact count equals nunique"
+          + ("" if single_doc is None else
+             " and the single-process --parity profile's (phase 9)")
+          + ", the shared spill dir is empty", flush=True)
+
+    # ---- two elastic members, then a host death --------------------------
+    def member_specs(tag, hosts, ready=True):
+        fleet = f"{tmp}/{tag}-fleet"
+        return [{"name": f"{tag}-{h}", "out": f"{tmp}/{tag}-{h}.json",
+                 "ready": f"{tmp}/{tag}.ready" if ready else None,
+                 "peers": [f"{tag}-{p}" for p in hosts],
+                 "argv": profile_argv(
+                     f"{tag}-{h}", "--artifact", f"{tmp}/{tag}-{h}.art.json",
+                     "--elastic", "--fleet-dir", fleet, "--fleet-host-id",
+                     h, "--metrics-json", f"{tmp}/{tag}-{h}.jsonl")}
+                for h in hosts], fleet
+
+    specs, _fleet = member_specs("elastic", "ab")
+    members = run_fleet_children(tmp, specs)
+    k1 = sum(r["counts"]["fused_a"] for r in members)
+    if not rehearsal:
+        require(k1 >= nd, f"elastic: members launched K1 {k1} < {nd}")
+    for h, res in zip("ab", members):
+        print(_rank_line(f"fleet elastic member {h}", res, n_dir, card),
+              flush=True)
+    compare_stats(from_artifact(f"{tmp}/elastic-a.art.json"), control,
+                  "elastic leader")
+    prom = parse_prom(open(f"{tmp}/elastic-a.jsonl.fleet.prom").read())
+    hosts = {lab.get("host") for _n, lab, _v in
+             prom["tpuprof_host_rss_bytes"]["samples"]}
+    require(hosts == {"a", "b"}, f"elastic .fleet.prom hosts {hosts}")
+    print(f"fleet elastic: K1 {k1} across the members, the leader's "
+          "artifact equals phase 5's, .fleet.prom labelled host=a and "
+          "host=b", flush=True)
+
+    # both start at once; the survivor waits for the victim's first
+    # phase-a claim, so the victim holds fragments it never finishes
+    specs, fleet = member_specs("death", "ba")
+    specs[1]["after"] = [fleet, "claim.a."]
+    victim, survivor = run_fleet_children(
+        tmp, specs, envs={"death-b": {"TPUPROF_FAULTS": "host_death:@2",
+                                      "TPUPROF_POSTMORTEM_DIR": tmp}})
+    require(victim["rc"] == 8, f"the victim exited {victim['rc']}, not 8")
+    require(survivor["rc"] == 0 and survivor["stolen"] >= 1,
+            f"the survivor: exit {survivor['rc']}, stole "
+            f"{survivor['stolen']}")
+    compare_stats(from_artifact(f"{tmp}/death-a.art.json"), control,
+                  "survivor")
+    print(_rank_line("fleet survivor a", survivor, n_dir, card), flush=True)
+    print(f"fleet host death: b died at its 2nd batch (exit 8, wall "
+          f"{victim['wall']:.3f} s); a stole {survivor['stolen']:.0f} "
+          f"fragments and equals phase 5's profile in {survivor['wall']:.3f}"
+          f" s ({survivor['wall'] / max(r['wall'] for r in members):.3f}x "
+          "the clean members')", flush=True)
+
+
+def directory_truth(path: str):
+    """pandas' ``nunique`` of every column of a Parquet directory, made once
+    a process (phases 9 and 11 hold exact counts to it)."""
+    if path not in _DIR_TRUTH:
+        import pyarrow.dataset as pads
+        t0 = time.perf_counter()
+        _DIR_TRUTH[path] = pads.dataset(path).to_table().to_pandas() \
+            .nunique()
+        print(f"nunique of {path} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    return _DIR_TRUTH[path]
+
+
+def half_directory(path: str) -> str:
+    """The first two files of a Parquet directory of four, hard-linked
+    into a sibling directory (made once): phases 9 and 11 run their exact
+    profiles on it, a depth cut for the script's time."""
+    half = path.rstrip("/") + "-half"
+    if not os.path.isdir(half):
+        os.makedirs(half)
+        for name in sorted(os.listdir(path))[:2]:
+            os.link(os.path.join(path, name), os.path.join(half, name))
+    return half
+
+
+def glob_runs(path: str):
+    import glob
+    return glob.glob(os.path.join(path, "*.u64"))
+
+
 PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
-          "exact", "obs")
+          "exact", "obs", "fleet")
 
 
 def main(argv=None) -> int:
@@ -3624,7 +4001,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 10), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 11), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -3640,6 +4017,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--exact-child", metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--fleet-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.resume_child:
         # phase 8's child process: restore, feed, write its stats
@@ -3647,6 +4026,9 @@ def main(argv=None) -> int:
     if args.exact_child:
         # phase 9's child process: resume the exact stream's artifact
         return exact_child(args.exact_child)
+    if args.fleet_child:
+        # phase 11's child process: one rank or elastic member
+        return fleet_child(args.fleet_child)
     only = set(PHASES)
     if args.only:
         only = {p.strip() for p in args.only.split(",") if p.strip()}
@@ -3734,6 +4116,8 @@ def main(argv=None) -> int:
         k1_ms = next((r["ms"] for r in rows if r["name"] == "fused_a"),
                      None)
         timed(phase_obs, torch, rehearsal, card, k1_ms, cli)
+    if "fleet" in only:
+        timed(phase_fleet, torch, rehearsal, card, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

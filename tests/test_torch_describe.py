@@ -242,9 +242,9 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("artifact_keep", 3), ("compile_cache_dir", "/nonexistent/cc"),
-    ("backend", "cpu"), ("elastic", True),
-    ("fleet_dir", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
-    ("mesh_devices", 2), ("serve_workers", 2)])
+    ("backend", "cpu"), ("job_timeout_s", 5.0),
+    ("aot_cache_dir", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
+    ("serve_http_port", 2), ("serve_workers", 2)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})

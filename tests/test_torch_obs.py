@@ -34,6 +34,7 @@ import tpuprof.ingest.prep  # noqa: F401
 import tpuprof.kernels.unique  # noqa: F401
 import tpuprof.obs as ref_obs
 import tpuprof.runtime.checkpoint  # noqa: F401
+import tpuprof.runtime.fleet  # noqa: F401
 import tpuprof.runtime.guard  # noqa: F401
 import tpuprof.runtime.singlepass  # noqa: F401
 import tpuprof.runtime.stream  # noqa: F401
@@ -92,6 +93,11 @@ INSTRUMENTS = (
     "tpuprof_host_rss_bytes",
     "tpuprof_stream_batches_folded_total", "tpuprof_stream_rows_total",
     "tpuprof_stream_drain_seconds", "tpuprof_stream_prefetch_overlap_ratio",
+)
+# the elastic fleet's rebalance instruments (runtime/fleet.py)
+FLEET_INSTRUMENTS = (
+    "tpuprof_fleet_rebalances_total", "tpuprof_fragments_stolen_total",
+    "tpuprof_fleet_fragments_claimed", "tpuprof_fleet_fragments_done",
 )
 
 
@@ -274,9 +280,9 @@ def test_the_49_instruments_with_the_reference_kinds():
     mine = {n: i.kind for n, i in metrics.registry()._instruments.items()}
     ref = {n: i.kind for n, i in ref_metrics.registry()._instruments.items()}
     assert len(INSTRUMENTS) == len(set(INSTRUMENTS)) == 49
-    assert set(mine) == set(INSTRUMENTS)
-    assert {n: ref[n] for n in INSTRUMENTS} == mine
-    for name in INSTRUMENTS:
+    assert set(mine) == set(INSTRUMENTS) | set(FLEET_INSTRUMENTS)
+    assert {n: ref[n] for n in INSTRUMENTS + FLEET_INSTRUMENTS} == mine
+    for name in INSTRUMENTS + FLEET_INSTRUMENTS:
         a = metrics.registry()._instruments[name]
         b = ref_metrics.registry()._instruments[name]
         assert getattr(a, "buckets", None) == getattr(b, "buckets", None)

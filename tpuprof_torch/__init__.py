@@ -13,7 +13,10 @@ and ``resume_profiler`` folds new rows onto a fold-state artifact.
 ``tpuprof_torch.artifact`` writes, reads and compares
 ``tpuprof-stats-v1`` artifacts, and ``python -m tpuprof_torch`` runs the
 ``profile`` and ``diff`` verbs.  ``tpuprof_torch.obs`` is the telemetry
-(metrics, JSONL events, the crash flight recorder, ``--trace``).  The JAX
+(metrics, JSONL events, the crash flight recorder, ``--trace``).  Several
+CUDA devices shard a scan (``runtime/mesh.py``), several processes profile
+a dataset's stripes and merge over gloo (``runtime/distributed.py``), and
+an elastic fleet of members survives a lost one (``runtime/fleet.py``).  The JAX
 package ``tpuprof`` is the reference; this package imports nothing from
 it.
 """

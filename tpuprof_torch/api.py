@@ -2,8 +2,12 @@
 durable-profile entry points ``StreamingProfiler`` and ``resume_profiler``.
 
 Counterpart of ``tpuprof/api.py``.  Statistics are computed eagerly at
-construction, on the device given (``None`` = the first CUDA device, which
-must exist; the CPU only when asked for with ``device="cpu"``).  Rendering
+construction, on the device given (``None`` = the CUDA devices the process
+sees, cut to ``mesh_devices``: one runs the scan, several shard it; at least
+one must exist; the CPU only when asked for with ``device="cpu"``).  Under
+a process group (``runtime/distributed.initialize``) each process profiles
+its stripe of a Parquet dataset and every one returns the whole table's
+statistics.  Rendering
 waits for the first ``.html``; the fragment is cached, so a notebook's
 ``_repr_html_`` returns the same string every time.
 """
@@ -36,7 +40,10 @@ def describe(source: Any, config: Optional[ProfilerConfig] = None,
     or Dataset, or the path of a Parquet file or directory), without
     rendering."""
     config = _config(config, kwargs)
-    backend = GPUStatsBackend(resolve_device(device))
+    # raises without a CUDA device unless the CPU was asked for; with no
+    # device named the backend takes every CUDA device the process sees
+    resolved = resolve_device(device)
+    backend = GPUStatsBackend(resolved if device is not None else None)
     stats = backend.collect(source, config)
     problems = validate_stats(stats)
     if problems:

@@ -1,7 +1,7 @@
-"""GPUStatsBackend — the profile scans on one device.
+"""GPUStatsBackend — the profile scans.
 
-Counterpart of the single-process paths of ``tpuprof/backends/tpu.py``
-(``TPUStatsBackend.collect``) and its helpers.  Batches stream once
+Counterpart of ``tpuprof/backends/tpu.py`` (``TPUStatsBackend.collect``) and
+its helpers.  Batches stream once
 through pass A (kernel K1, K3 past 512 numeric columns, the reference's
 XLA twin past 2,048: moments, min/max, null/zero/inf counts, the pairwise
 Pearson Gram; host: HLL registers, the row sample, Misra-Gries, dates, the
@@ -36,11 +36,22 @@ With ``checkpoint_path`` set, pass A saves its fold state every
 ``checkpoint_every_batches`` batches (:class:`CollectCheckpoint`), and a
 rerun after a crash resumes from the newest good save.  Staged copies are
 capped at :data:`STAGE_BYTES` of host planes.
+
+Devices and processes: several devices row-shard every batch
+(``runtime/mesh.py``); a process group (``runtime/distributed.py``) stripes
+a dataset's fragments over its ranks, agrees one centering shift, and
+merges the finalized states and host sketches over gloo after each pass,
+so every rank returns the whole table's stats; an elastic member
+(``runtime/fleet.py``) pulls fragments off a shared manifest and merges
+the members' contribution parts, stealing a dead member's fragments.  Both
+keep two passes (a fused profile is demoted, with a warning) and take the
+pass-B bounds from the merged state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import time
@@ -53,8 +64,10 @@ import torch
 
 from tpuprof_torch import native, obs, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
-                                  resolve_checkpoint_keep,
+                                  resolve_checkpoint_keep, resolve_elastic,
+                                  resolve_fleet_dir, resolve_fleet_host_id,
                                   resolve_ingest_retries,
+                                  resolve_liveness_timeout,
                                   resolve_max_quarantined,
                                   resolve_prepare_workers,
                                   resolve_profile_passes,
@@ -64,7 +77,7 @@ from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_unique_budget,
                                   resolve_unique_partitions,
                                   resolve_watchdog_timeout)
-from tpuprof_torch.errors import InputError
+from tpuprof_torch.errors import HostDeathError, InputError
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
                                         prefetch_prepared)
 from tpuprof_torch.ingest.sample import RowSampler
@@ -78,7 +91,10 @@ from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
 from tpuprof_torch.obs.spans import get_phase_report, span
 from tpuprof_torch.runtime import checkpoint as ckpt
+from tpuprof_torch.runtime import distributed
+from tpuprof_torch.runtime import fleet as fleetrt
 from tpuprof_torch.runtime import guard, singlepass
+from tpuprof_torch.runtime.mesh import MeshRunner, local_devices
 from tpuprof_torch.runtime.runner import Runner
 from tpuprof_torch.testing import faults
 
@@ -286,7 +302,7 @@ def stage_group(scan_batches: int, rows: int, n_num: int, n_hash: int,
 
 class CollectCheckpoint:
     """Batch-granular resume of the pass-A scan (the reference's
-    ``_CollectCheckpoint``, one process).  Every ``checkpoint_every_batches``
+    ``_CollectCheckpoint``).  Every ``checkpoint_every_batches``
     delivered batches the device state, the host sketches, the cursor, the
     (fragment, batch) position of the last consumed batch, the quarantine
     manifest and the stream positions pass A skipped are saved
@@ -295,11 +311,21 @@ class CollectCheckpoint:
     histogram state and the provisional edges it bins on.  A rerun with the
     same path loads the newest good generation and skips the folded prefix
     without decoding it: whole fragments of a Parquet source, zero-copy
-    slices of a table.  A run that completes removes the chain."""
+    slices of a table.  A run that completes removes the chain.
+
+    Across processes each saves its own stripe's scan to ``PATH.h<i>of<N>``
+    (``pshard=(i, N)``; their cursors are independent), the meta pins
+    ``process_id`` and ``process_count``, and the collect holds a resume
+    barrier so every process knows who restored.  An elastic member's save
+    carries the fragments it finished (``fleet_done``)."""
 
     def __init__(self, config: ProfilerConfig, plan, runner,
-                 source_fp: str, table_source: bool, fused: bool):
+                 source_fp: str, table_source: bool, fused: bool,
+                 pshard: Tuple[int, int] = (0, 1)):
+        self.pshard = pshard
         self.path = config.checkpoint_path
+        if pshard[1] > 1:
+            self.path = f"{self.path}.h{pshard[0]}of{pshard[1]}"
         self.every = max(int(config.checkpoint_every_batches), 1)
         self.keep = resolve_checkpoint_keep(config.checkpoint_keep)
         self.config = config
@@ -317,9 +343,12 @@ class CollectCheckpoint:
     def due(self, cursor: int) -> bool:
         return cursor % self.every == 0
 
+    # meta keys an older checkpoint lacks, and the value it ran with
+    _ABSENT = {"process_id": 0, "process_count": 1}
+
     def _meta(self) -> Dict[str, Any]:
         """What a resume must share with the saved prefix: the reference's
-        meta keys, without the fleet's."""
+        meta keys."""
         c = self.config
         return {"n_num": self.plan.n_num, "n_hash": self.plan.n_hash,
                 "batch_rows": c.batch_rows,
@@ -328,6 +357,8 @@ class CollectCheckpoint:
                 "source_fp": self.source_fp,
                 "quantile_sketch_size": c.quantile_sketch_size,
                 "topk_capacity": c.topk_capacity, "seed": c.seed,
+                "process_id": self.pshard[0],
+                "process_count": self.pshard[1],
                 # a table is enumerated in fixed combined windows
                 "batch_enum": "window-v2" if self.table_source else None,
                 # the tracker's columns and hash coverage differ by mode
@@ -335,7 +366,8 @@ class CollectCheckpoint:
                 "profile_passes": "fused" if self.fused else "two_pass"}
 
     def save(self, state, sampler, hostagg, host_hll, cursor, frag_pos,
-             quarantine, skipped, hist_state=None, edges=None) -> None:
+             quarantine, skipped, hist_state=None, edges=None,
+             fleet_done=None) -> None:
         # the save references the tracker's spill runs by path: from now on
         # a crash must leave them on disk (the flag pickles with it)
         hostagg.unique.persistent = True
@@ -344,12 +376,18 @@ class CollectCheckpoint:
                 "frag_pos": tuple(frag_pos) if frag_pos else None,
                 "quarantine": list(quarantine.entries),
                 "skipped": sorted(skipped)}
+        if fleet_done is not None:
+            # an elastic member's finished fragments, durable with the
+            # fold state that covers them
+            blob["fleet_done"] = sorted(int(k) for k in fleet_done)
         meta = self._meta()
         meta["has_state"] = state is not None
+        if state is not None:
+            state = self.runner.host_state(state)
         if hist_state is not None:
             # the histogram fold rides the same archive; a resume bins the
             # rest of the stream on the same edges
-            state = {"a": state, "hist": hist_state}
+            state = {"a": state, "hist": self.runner.host_state(hist_state)}
             blob["singlepass_edges"] = edges.as_blob()
         with span("checkpoint"):
             ckpt.save(self.path, state, blob, cursor, meta=meta,
@@ -360,70 +398,241 @@ class CollectCheckpoint:
 
     def load(self):
         """(state, sampler, hostagg, host_hll, cursor, frag_pos,
-        quarantine entries, skipped positions, histogram state, edges) of
-        the newest good generation, after refusing a run whose batch
-        stream or sketch shapes differ from the saved prefix's."""
+        quarantine entries, skipped positions, histogram state, edges,
+        the elastic member's finished fragments or None) of the newest good
+        generation, after refusing a run whose batch stream or sketch
+        shapes differ from the saved prefix's."""
         with span("resume"):
             payload, _used = ckpt.restore_payload(self.path)
             meta, mine = payload["meta"], self._meta()
             for key in mine:
-                if meta.get(key) != mine[key]:
+                if meta.get(key, self._ABSENT.get(key)) != mine[key]:
                     raise InputError(
                         f"checkpoint {key}={meta.get(key)!r} does not match "
                         f"this run's {mine[key]!r} — the batch stream or "
                         "sketch shapes would diverge from the saved prefix")
             blob = payload["host_blob"]
-            dev = self.runner.device
+            # a mesh restores through one device's runner, then spreads
+            unit = getattr(self.runner, "runners", [self.runner])[0]
             state = hist_state = edges = None
             if meta.get("has_state"):
                 if "singlepass_edges" in blob:
                     both = ckpt.materialize(
-                        payload, {"a": self.runner.init_pass_a(),
-                                  "hist": self.runner.init_pass_b()}, dev)
+                        payload, {"a": unit.init_pass_a(),
+                                  "hist": unit.init_pass_b()}, unit.device)
                     state, hist_state = both["a"], both["hist"]
                     edges = singlepass.ProvisionalEdges.from_blob(
                         blob["singlepass_edges"])
                 else:
                     state = ckpt.materialize(
-                        payload, self.runner.init_pass_a(), dev)
+                        payload, unit.init_pass_a(), unit.device)
+            if unit is not self.runner:
+                state, hist_state = (None if st is None
+                                     else self.runner.place_state(st)
+                                     for st in (state, hist_state))
         self.last_saved = payload["cursor"]
         return (state, blob["sampler"], blob["hostagg"], blob["host_hll"],
                 payload["cursor"], blob["frag_pos"], blob["quarantine"],
-                set(blob["skipped"]), hist_state, edges)
+                set(blob["skipped"]), hist_state, edges,
+                blob.get("fleet_done"))
 
     def clear(self) -> None:
         ckpt.clear(self.path)
 
 
+# ---------------------------------------------------------------------------
+# The elastic fleet (runtime/fleet.py): claimed fragments, stolen re-scans,
+# the merges of contribution parts
+# ---------------------------------------------------------------------------
+
+def _fleet_stream(member, phase, ingest, resume_frag=None, replay=()):
+    """The batches a member scans: the adopted checkpoint's partial
+    fragment from its saved batch on, then the adopted claims whose fold
+    state died with the predecessor (from scratch), then fresh claims off
+    the manifest until it is exhausted.  One fragment at a time, so a slow
+    member claims less."""
+    if resume_frag is not None:
+        fi, bi = resume_frag
+        yield from ingest.read_fragment(fi, skip_batches=bi + 1)
+    for fi in replay:
+        yield from ingest.read_fragment(fi)
+    while True:
+        fi = member.claim_next(phase)
+        if fi is None:
+            return
+        yield from ingest.read_fragment(fi)
+
+
+def _read_fragments(ingest, frags):
+    for fi in frags:
+        yield from ingest.read_fragment(fi)
+
+
+def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
+                           batch_guard, use_host_hll):
+    """A fresh finalized pass-A part of ``frags`` scanned from scratch (a
+    stolen or fenced fragment set: the owner's partial folds died with it).
+    Returns the contribution payload."""
+    hostagg = HostAgg(plan, config)
+    sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
+                         seed=config.seed)
+    host_hll = khll.HostRegisters(plan.n_hash, config.hll_precision) \
+        if use_host_hll else None
+    state = None
+    q_entries = []
+    for hb in prefetch_prepared(
+            ingest, pad, config.hll_precision,
+            workers=resolve_prepare_workers(config.prepare_workers),
+            prep_workers=config.prep_workers, batch_guard=batch_guard,
+            full_hashes=config.exact_distinct,
+            raw_stream=_read_fragments(ingest, frags)):
+        if isinstance(hb, guard.PoisonBatch):
+            # the skip rides the part to every member's report
+            q_entries.append({"site": hb.site + "_stolen", "cursor": None,
+                              "rows": hb.rows,
+                              "frag_pos": list(hb.frag_pos)
+                              if hb.frag_pos else None,
+                              "error": hb.error})
+            continue
+        if state is None:
+            state = runner.init_pass_a(estimate_shift(hb))
+        state = runner.step_a(state, runner.put_batch(
+            hb, with_hll=host_hll is None))
+        sampler.update(hb.x, hb.nrows)
+        if host_hll is not None:
+            host_hll.update(hb.hll, hb.nrows)
+        hostagg.update(hb)
+    if state is None:
+        state = runner.init_pass_a()
+    hostagg.unique.persistent = True     # the part references the runs
+    return {"kind": "pass_a", "res_a": runner.finalize_a(state),
+            "hostagg": hostagg, "sampler": sampler, "host_hll": host_hll,
+            "quarantine": q_entries, "rows": int(hostagg.n_rows)}
+
+
+def _part_regs(part):
+    """A part's HLL registers: its host registers where the member folded
+    them on the host, else its device plane (the same format)."""
+    hh = part.get("host_hll")
+    return hh.regs if hh is not None else part["res_a"]["hll"]
+
+
+def _elastic_merge_a(member, res_a, hostagg, sampler, host_hll, quarantine,
+                     steal_scan, timeout_s):
+    """Contribute this member's finalized pass-A part (fenced), hold the
+    finish barrier (stealing dead members' fragments) and fold every part
+    with the laws the gathers use.  Returns ``(res_a, hostagg, sampler,
+    hll registers, quarantine entries, index of this member's first
+    post-contribution entry)``."""
+    hostagg.unique.persistent = True     # the part references the runs
+    q_mark = len(quarantine.entries)
+    mine = {"kind": "pass_a", "res_a": res_a, "hostagg": hostagg,
+            "sampler": sampler, "host_hll": host_hll,
+            "quarantine": list(quarantine.entries),
+            "rows": int(hostagg.n_rows)}
+    parts = member.finish("a", mine, sorted(member.claimed("a")),
+                          steal_scan, timeout_s=timeout_s)
+    regs = _part_regs(parts[0]).copy()
+    for part in parts[1:]:
+        regs = np.maximum(regs, _part_regs(part))
+    q_entries = [e for p in parts for e in (p.get("quarantine") or [])]
+    res_a = distributed.merge_pass_a_parts([p["res_a"] for p in parts])
+    hostagg = distributed.merge_host_agg_parts(
+        [p["hostagg"] for p in parts])
+    sampler = distributed.merge_sampler_parts([p["sampler"] for p in parts])
+    logger.debug("fleet_merge_a: %d parts, %d rows", len(parts),
+                 int(hostagg.n_rows))
+    return res_a, hostagg, sampler, regs, q_entries, q_mark
+
+
+def _elastic_merge_b(member, my_part, steal_scan, timeout_s):
+    """Pass B's twin: contribute, barrier, fold.  Returns ``(res_b, recount
+    vectors, Spearman rho)``, ``res_b`` and rho None for recount-only
+    parts."""
+    parts = member.finish("b", my_part, sorted(member.claimed("b")),
+                          steal_scan, timeout_s=timeout_s)
+    res_bs = [p["res_b"] for p in parts if p.get("res_b") is not None]
+    res_b = distributed.merge_pass_b_parts(res_bs) if res_bs else None
+    counts = distributed.merge_recount_parts([p["counts"] for p in parts])
+    spears = [p["spear"] for p in parts if p.get("spear") is not None]
+    rho_spear = kcorr.finalize(distributed.merge_corr_parts(spears)) \
+        if spears else None
+    logger.debug("fleet_merge_b: %d parts", len(parts))
+    return res_b, counts, rho_spear
+
+
 class GPUStatsBackend:
-    """Profile an in-memory table on one device, in two passes or, with
-    ``profile_passes="fused"``, in one."""
+    """Profile a table in two passes or, with ``profile_passes="fused"``,
+    in one: on ``device``, or row-sharded over ``devices``
+    (``runtime/mesh.py``; by default every CUDA device the process sees,
+    cut to ``mesh_devices``), as one rank of a process group
+    (``runtime/distributed.py``) or one member of an elastic fleet
+    (``runtime/fleet.py``)."""
 
     name = "gpu"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, devices=None):
         self._device = device
+        self._devices = devices
+
+    def _runner(self, config: ProfilerConfig, plan):
+        """One device's :class:`Runner`, or a :class:`MeshRunner` when the
+        devices are several."""
+        devices = self._devices
+        if devices is None:
+            if self._device is not None:
+                return Runner(config, plan.n_num, plan.n_hash, self._device)
+            devices = local_devices(config.mesh_devices)
+            if len(devices) < 2:
+                # one card, or none: resolve_device says which
+                return Runner(config, plan.n_num, plan.n_hash, None)
+        return MeshRunner(config, plan.n_num, plan.n_hash, devices)
 
     def collect(self, source: Any, config: ProfilerConfig) -> Dict[str, Any]:
         # this profile's phase seconds ride its own stats dict: drop what
         # an earlier profile left
         get_phase_report(reset=True)
         obs.configure_from_config(config)   # metrics and the JSONL sink
+        pshard = distributed.process_info()
         # a postmortem from this process names its rank
-        obs.blackbox.set_context(process_index=0, process_count=1)
+        obs.blackbox.set_context(process_index=pshard[0],
+                                 process_count=pshard[1])
+        # an elastic member pulls fragments off a shared manifest and
+        # merges contribution parts instead of joining gathers
+        elastic = resolve_elastic(config.elastic)
+        if elastic:
+            if pshard[1] > 1:
+                raise InputError(
+                    "elastic fleet mode replaces the process group (its "
+                    "gathers cannot survive a lost member) — launch "
+                    "independent processes sharing --fleet-dir instead of "
+                    "--coordinator/--num-processes")
+            if not resolve_fleet_dir(config.fleet_dir):
+                raise InputError(
+                    "elastic mode needs fleet_dir (--fleet-dir / "
+                    "TPUPROF_FLEET_DIR) on storage shared by every member")
+        multi = pshard[1] > 1
         ingest = ArrowIngest(source, config.batch_rows,
-                             columns=config.columns, nested=config.nested)
+                             columns=config.columns, nested=config.nested,
+                             process_shard=pshard)
         plan = ingest.plan
         if not plan.specs:
             return _empty_stats(config)
-        runner = Runner(config, plan.n_num, plan.n_hash, self._device)
+        runner = self._runner(config, plan)
         pad = runner.rows
         workers = resolve_prepare_workers(config.prepare_workers)
         # single-pass profiles (runtime/singlepass.py): pass A folds the
         # histograms too, on provisional edges from an artifact or the
-        # first batch
+        # first batch.  Processes and members would bin on edges nobody
+        # agreed on, so they keep two passes, as the reference does
         fused_scan = resolve_profile_passes(config.profile_passes) \
             == "fused" and plan.n_num > 0
+        if fused_scan and (multi or elastic):
+            logger.warning(
+                "profile_passes=fused is single-process only (merges "
+                "across processes need agreed bin edges) — running the "
+                "two-pass structure; results are identical")
+            fused_scan = False
         sp_seeds = singlepass.resolve_seeds(config, plan) \
             if fused_scan else None
 
@@ -440,6 +649,8 @@ class GPUStatsBackend:
             capture=quarantine.enabled)
         drain_timeout = resolve_watchdog_timeout(config.drain_timeout_s,
                                                  "TPUPROF_DRAIN_TIMEOUT_S")
+        barrier_timeout = resolve_watchdog_timeout(
+            config.barrier_timeout_s, "TPUPROF_BARRIER_TIMEOUT_S")
         skipped = set()         # stream positions pass A quarantined
 
         hostagg = HostAgg(plan, config)
@@ -456,11 +667,27 @@ class GPUStatsBackend:
                                      "skipped": len(skipped)})
 
         sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
-                             seed=config.seed)
-        # HLL registers fold on the host when the native library builds;
-        # otherwise the packed plane ships to the device scatter-max
+                             seed=config.seed, process_index=pshard[0])
+        # HLL registers fold on the host when the native library builds in
+        # every process (merges must mix like with like); otherwise the
+        # packed plane ships to the device scatter-max
+        use_host_hll = plan.n_hash > 0 and all(
+            distributed.allgather_objects(native.available()))
         host_hll = khll.HostRegisters(plan.n_hash, config.hll_precision) \
-            if plan.n_hash > 0 and native.available() else None
+            if use_host_hll else None
+
+        fleet_member = None
+        if elastic:
+            # the manifest's fingerprint pins the source and the knobs that
+            # change how it splits into batches
+            fleet_member = fleetrt.FleetMember(
+                resolve_fleet_dir(config.fleet_dir),
+                resolve_fleet_host_id(config.fleet_host_id),
+                ingest.fragment_count(),
+                f"{ingest.fingerprint()}:{config.batch_rows}"
+                f":{config.nested}",
+                liveness_timeout_s=resolve_liveness_timeout(
+                    config.liveness_timeout_s))
 
         # ---- checkpoint / resume of pass A --------------------------------
         state = None
@@ -469,22 +696,111 @@ class GPUStatsBackend:
         edges_d = None
         cursor = 0              # batches consumed from the stream
         last_frag = None        # (fragment, batch) of the last of them
+        fleet_ck_done = None    # an elastic member's saved finished set
         resume = CollectCheckpoint(
             config, plan, runner, ingest.fingerprint(),
-            table_source=ingest._table is not None, fused=fused_scan) \
-            if config.checkpoint_path else None
-        if resume is not None and resume.exists():
-            (state, sampler, hostagg, host_hll, cursor, last_frag,
-             prior_q, prior_skip, state_h, sp_edges) = resume.load()
-            # the checkpoint references the restored tracker's runs
-            hostagg.unique.persistent = True
-            # a degraded prefix stays degraded, and its skipped batches
-            # stay out of pass B
-            quarantine.seed(prior_q)
-            skipped.update(prior_skip)
-            if sp_edges is not None:
-                edges_d = tuple(runner.put_replicated(a) for a in (
-                    sp_edges.lo, sp_edges.hi, sp_edges.mean))
+            table_source=ingest._table is not None, fused=fused_scan,
+            pshard=pshard) if config.checkpoint_path else None
+        restored = resume is not None and resume.exists()
+
+        def fresh():
+            nonlocal state, state_h, sp_edges, cursor, last_frag, hostagg
+            nonlocal sampler, host_hll, fleet_ck_done, restored
+            restored = False
+            state = state_h = sp_edges = last_frag = fleet_ck_done = None
+            cursor = 0
+            quarantine.seed([])
+            skipped.clear()
+            hostagg = HostAgg(plan, config)
+            sampler = RowSampler(config.quantile_sketch_size, plan.n_num,
+                                 seed=config.seed, process_index=pshard[0])
+            host_hll = khll.HostRegisters(plan.n_hash,
+                                          config.hll_precision) \
+                if use_host_hll else None
+
+        if restored:
+            try:
+                (state, sampler, hostagg, host_hll, cursor, last_frag,
+                 prior_q, prior_skip, state_h, sp_edges,
+                 fleet_ck_done) = resume.load()
+            except Exception as exc:
+                if not multi:
+                    raise
+                # one process's unreadable chain must not end it while its
+                # peers wait in the resume barrier: it rescans its stripe,
+                # every restored accumulator reset
+                logger.warning(
+                    "process %d: checkpoint %r failed to load (%s); "
+                    "rescanning this process's stripe from zero",
+                    pshard[0], resume.path, exc)
+                fresh()
+            else:
+                # the checkpoint references the restored tracker's runs
+                hostagg.unique.persistent = True
+                # a degraded prefix stays degraded, and its skipped
+                # batches stay out of pass B
+                quarantine.seed(prior_q)
+                skipped.update(prior_skip)
+        if resume is not None and multi:
+            # the resume barrier: every process says whether it restored
+            # before any scanning starts.  A mixed group is correct (a
+            # fresh process rescans its own stripe), and said out loud
+            with span("resume_barrier", rank=pshard[0], restored=restored):
+                peers = distributed.allgather_with_watchdog(
+                    (pshard[0], restored, cursor), barrier_timeout,
+                    site="resume_barrier",
+                    heartbeat=lambda: {"rank": pshard[0],
+                                       "restored": restored,
+                                       "cursor": int(cursor)})
+            logger.debug("multihost_resume_barrier: %s", peers)
+            distributed.publish_fleet(
+                "resume_barrier",
+                metrics_path=obs.resolve_metrics_path(config),
+                quarantined=len(quarantine.entries))
+            if {r for _, r, _ in peers} == {True, False}:
+                logger.warning(
+                    "multi-process resume: processes %s restored a "
+                    "checkpoint but processes %s start from zero (their "
+                    "checkpoints are missing or were cleared) — results "
+                    "are unaffected; the fresh processes rescan their "
+                    "stripes", sorted(p for p, r, _ in peers if r),
+                    sorted(p for p, r, _ in peers if not r))
+        fleet_replay: List[int] = []
+        resume_frag = last_frag if restored else None
+        if fleet_member is not None:
+            # the join barrier: claims the adopted checkpoint covers are
+            # final; claims marked done after its last save, and claims
+            # with no checkpoint at all, are replayed from scratch
+            ck_done = set(fleet_ck_done or []) if restored else set()
+            in_progress = {resume_frag[0]} if resume_frag else set()
+            stolen_cover = sorted((ck_done | in_progress)
+                                  - fleet_member.claimed("a"))
+            if restored and stolen_cover:
+                # fragments of the restored fold were stolen while this
+                # member was down: the fold cannot subtract them, so it
+                # goes, and the still-owned claims are scanned again
+                logger.warning(
+                    "fleet member %s: fragments %s of the adopted "
+                    "checkpoint were stolen by survivors while this member "
+                    "was down — discarding the restored fold and "
+                    "rescanning the still-owned claims from zero",
+                    fleet_member.host_id, stolen_cover)
+                fresh()
+                resume_frag = None
+                ck_done, in_progress = set(), set()
+                resume.last_saved = -1
+            for k in sorted(ck_done):
+                fleet_member.mark_done("a", k)
+            fleet_replay = sorted(fleet_member.claimed("a") - ck_done
+                                  - in_progress)
+            fleet_member.undo_done("a", fleet_replay)
+            if restored:
+                logger.debug("fleet_adopt: %s at cursor %d, done %s, "
+                             "replay %s", fleet_member.host_id, cursor,
+                             sorted(ck_done), fleet_replay)
+        if sp_edges is not None:
+            edges_d = tuple(runner.put_replicated(a) for a in (
+                sp_edges.lo, sp_edges.hi, sp_edges.mean))
         with_hll = host_hll is None
         # staged groups and the prefetch queue, capped in bytes
         scan_s = stage_group(config.scan_batches, pad, plan.n_num,
@@ -511,14 +827,19 @@ class GPUStatsBackend:
 
         # ---- pass A (with the provisional histograms when fused) ---------
         # a checkpointed scan streams by (fragment, batch) positions, so a
-        # resume opens no fragment the saved prefix covers
+        # resume opens no fragment the saved prefix covers; an elastic
+        # member streams its claims
         batches = prefetch_prepared(
             ingest, pad, config.hll_precision, depth=depth, workers=workers,
             prep_workers=config.prep_workers, batch_guard=batch_guard,
             positions=resume is not None,
             resume_pos=(last_frag[0], last_frag[1] + 1)
             if last_frag is not None else None,
-            full_hashes=config.exact_distinct)
+            full_hashes=config.exact_distinct,
+            raw_stream=_fleet_stream(fleet_member, "a", ingest,
+                                     resume_frag=resume_frag,
+                                     replay=fleet_replay)
+            if fleet_member is not None else None)
         pending: List[HostBatch] = []
 
         def staged_a(group):
@@ -544,13 +865,63 @@ class GPUStatsBackend:
             the saved cursor is the folded count."""
             flush_group(pending, staged_a, one_a)
             resume.save(state, sampler, hostagg, host_hll, cursor,
-                        last_frag, quarantine, skipped, state_h, sp_edges)
+                        last_frag, quarantine, skipped, state_h, sp_edges,
+                        fleet_done=fleet_member.done("a")
+                        if fleet_member is not None else None)
+
+        # elastic done-marking: fragment k is done once a batch of a later
+        # fragment arrives (delivery is in order); the last at the end
+        cur_frag = [resume_frag[0] if resume_frag else None]
+
+        def note_frag(fp):
+            if fleet_member is None or fp is None:
+                return
+            if cur_frag[0] is not None and fp[0] != cur_frag[0]:
+                fleet_member.mark_done("a", cur_frag[0])
+            cur_frag[0] = fp[0]
+
+        def host_death(key):
+            # the kill switch of a rank or member: neither retried nor
+            # quarantined; a member leaves loudly (its heartbeat goes) so
+            # survivors steal at once
+            try:
+                faults.hit("host_death", key=key)
+            except HostDeathError:
+                if fleet_member is not None:
+                    fleet_member.depart()
+                raise
 
         with span("scan_a", cols=len(plan.specs), n_num=plan.n_num,
                   n_hash=plan.n_hash):
-            for hb in batches:
+            # the centering shift comes from the first real batch; across
+            # processes it is agreed (every process takes part, one with an
+            # empty stripe too), so the merge's rebase is the identity
+            head: List[Any] = []
+            first_hb = next(batches, None)
+            while isinstance(first_hb, guard.PoisonBatch):
+                head.append(first_hb)
+                first_hb = next(batches, None)
+            shift = estimate_shift(first_hb) if first_hb is not None \
+                else None
+            if multi:
+                # a restored process takes part too; its state keeps the
+                # shift it was built with (the merge rebases exactly)
+                shift = distributed.merge_shift_estimates(shift)
+            if first_hb is not None:
+                head.append(first_hb)
+            if state is None and shift is not None:
+                state = runner.init_pass_a(shift)
+            if fused_scan and first_hb is not None and state_h is None:
+                sp_edges = singlepass.sketch_edges(first_hb.x,
+                                                   first_hb.nrows,
+                                                   into=sp_seeds)
+                state_h = runner.init_pass_b()
+                edges_d = tuple(runner.put_replicated(a) for a in (
+                    sp_edges.lo, sp_edges.hi, sp_edges.mean))
+            for hb in itertools.chain(head, batches):
                 key = cursor        # the batch's position in the stream
                 cursor += 1
+                note_frag(hb.frag_pos)
                 if isinstance(hb, guard.PoisonBatch):
                     # failed past its retries: skipped in both passes
                     skipped.add(key)
@@ -561,14 +932,7 @@ class GPUStatsBackend:
                     if resume is not None and resume.due(cursor):
                         save()
                     continue
-                if state is None:
-                    state = runner.init_pass_a(estimate_shift(hb))
-                    if fused_scan:
-                        sp_edges = singlepass.sketch_edges(hb.x, hb.nrows,
-                                                           into=sp_seeds)
-                        state_h = runner.init_pass_b()
-                        edges_d = tuple(runner.put_replicated(a) for a in (
-                            sp_edges.lo, sp_edges.hi, sp_edges.mean))
+                host_death(key)
                 # host folds run while the device works on earlier groups
                 try:
                     faults.hit("fold", key=key)
@@ -593,6 +957,9 @@ class GPUStatsBackend:
                 elif len(pending) >= scan_s:
                     flush_group(pending, staged_a, one_a)
             flush_group(pending, staged_a, one_a)
+            if fleet_member is not None and cur_frag[0] is not None:
+                # the stream drained: the last fragment read is folded
+                fleet_member.mark_done("a", cur_frag[0])
             if state is None:
                 state = runner.init_pass_a()
             # the end of pass A: device and host memory headroom
@@ -602,24 +969,55 @@ class GPUStatsBackend:
             # stream skipped; cleared once the stats are assembled
             save()
 
-        run_pass_b = config.exact_passes and ingest.rescannable \
-            and plan.n_num > 0 and hostagg.n_rows > 0
         # the exact pass-B inputs, computed on the device (no host round
-        # trip before pass B): what K2 bins with, what a fused profile's
-        # provisional edges are held to, and what the artifact seeds carry
-        with span("merge", hosts=1):
-            bounds_d = runner.bounds_b_device(state) \
-                if plan.n_num > 0 else None
-            exact = singlepass.exact_triple(bounds_d) \
-                if bounds_d is not None else None
-            res_a = drained(runner.finalize_a, state)
+        # trip before pass B in one process): what K2 bins with, what a
+        # fused profile's provisional edges are held to, and what the
+        # artifact seeds carry.  Across processes and members they come
+        # from the merged state, so every one bins alike
+        fleet_regs = fleet_q = None
+        fleet_q_mark = 0
+        bounds_d = exact = None
+        with span("merge", hosts=pshard[1]):
+            if not (multi or elastic):
+                bounds_d = runner.bounds_b_device(state) \
+                    if plan.n_num > 0 else None
+                res_a = drained(runner.finalize_a, state)
+            else:
+                res_a = drained(runner.finalize_a, state)
+                if fleet_member is not None:
+                    def steal_scan_a(frags):
+                        return _scan_fragments_pass_a(
+                            frags, ingest, plan, pad, config, runner,
+                            batch_guard, use_host_hll)
+                    (res_a, hostagg, sampler, fleet_regs, fleet_q,
+                     fleet_q_mark) = _elastic_merge_a(
+                        fleet_member, res_a, hostagg, sampler, host_hll,
+                        quarantine, steal_scan_a, barrier_timeout)
+                else:
+                    res_a = distributed.merge_pass_a_states(res_a)
+                    hostagg = distributed.merge_host_aggs(hostagg)
+                    # one k-way spill resolve (rank 0), adopted by all
+                    distributed.resolve_unique_distributed(hostagg.unique)
+                    sampler = distributed.merge_samplers(sampler)
+                if plan.n_num > 0:
+                    bounds_d = runner.bounds_b_device(
+                        runner.place_state(res_a))
+            if bounds_d is not None:
+                exact = singlepass.exact_triple(bounds_d)
         momf = kmoments.finalize(res_a["mom"])
         rho_all = kcorr.finalize(res_a["corr"])
         probes = list(config.quantile_probes)
         quants = sampler.quantiles(probes)
         sample_vals, sample_kept = sampler.columns()
-        hll_est = khll.finalize(host_hll.regs if host_hll is not None
-                                else res_a["hll"])
+        if fleet_regs is not None:
+            hll_est = khll.finalize(fleet_regs)
+        elif host_hll is not None:
+            hll_est = khll.finalize(
+                distributed.merge_hll_registers(host_hll).regs)
+        else:
+            hll_est = khll.finalize(res_a["hll"])
+        run_pass_b = config.exact_passes and ingest.rescannable \
+            and plan.n_num > 0 and hostagg.n_rows > 0
 
         # ---- fused: which lanes the provisional edges got right ----------
         res_h = None            # the fused histograms, finalized
@@ -645,14 +1043,20 @@ class GPUStatsBackend:
                 exact_lanes = None if hits.all() else hits
 
         # ---- pass B: exact histograms + MAD + top-k recount ----------------
-        def pass_b_batches():
+        def pass_b_batches(raw_stream=None):
             """Pass B's batches without those pass A skipped; a batch that
-            fails here only is quarantined under the same budget."""
+            fails here only is quarantined under the same budget.  An
+            elastic member reads its phase-b claims (``raw_stream``)."""
+            if raw_stream is None and fleet_member is not None:
+                raw_stream = _fleet_stream(
+                    fleet_member, "b", ingest,
+                    replay=sorted(fleet_member.claimed("b")))
             for hb in prefetch_prepared(
                     ingest, pad, config.hll_precision, depth=depth,
                     hashes=False, workers=workers,
                     prep_workers=config.prep_workers,
-                    batch_guard=batch_guard, skip_keys=frozenset(skipped)):
+                    batch_guard=batch_guard, skip_keys=frozenset(skipped),
+                    raw_stream=raw_stream):
                 if isinstance(hb, guard.PoisonBatch):
                     quarantine.admit(site=hb.site + "_pass_b",
                                      error=hb.error, rows=hb.rows,
@@ -745,6 +1149,25 @@ class GPUStatsBackend:
                 if spear_state is not None:
                     spear_state = spear_one(spear_state, db, *spear_in)
 
+            def steal_scan_b(frags):
+                """A fresh finalized pass-B part of stolen fragments (the
+                bounds and candidates are the fleet's, so any member can
+                recount any fragment)."""
+                st_b = runner.init_pass_b()
+                sp_st = runner.init_spearman() \
+                    if spear_state is not None else None
+                rec = Recounter(hostagg)
+                for shb in pass_b_batches(_read_fragments(ingest, frags)):
+                    rec.update(shb)
+                    sdb = runner.put_batch(shb, with_hll=False)
+                    st_b = runner.step_b(st_b, sdb, lo_d, hi_d, mean_d)
+                    if sp_st is not None:
+                        sp_st = spear_one(sp_st, sdb, *spear_in)
+                return {"kind": "pass_b", "res_b": runner.finalize_b(st_b),
+                        "counts": rec.counts,
+                        "spear": runner.finalize_spearman(sp_st)
+                        if sp_st is not None else None}
+
             pending_b: List[HostBatch] = []
             t0_b = time.perf_counter()
             with span("scan_b", spearman=config.spearman):
@@ -756,6 +1179,20 @@ class GPUStatsBackend:
                 flush_group(pending_b, staged_b, one_b)
                 res_b = drained(runner.finalize_b, state_b) \
                     if state_b is not None else None
+                if fleet_member is not None:
+                    res_b, recounter.counts, rho_spear = _elastic_merge_b(
+                        fleet_member,
+                        {"kind": "pass_b", "res_b": res_b,
+                         "counts": recounter.counts,
+                         "spear": drained(runner.finalize_spearman,
+                                          spear_state)
+                         if spear_state is not None else None},
+                        steal_scan_b, barrier_timeout)
+                    spear_state = None  # finalized and merged above
+                elif multi:
+                    res_b = distributed.merge_pass_b_states(res_b)
+                    recounter.counts = distributed.merge_recount_arrays(
+                        recounter.counts)
             if rebin is not None:
                 # hit lanes keep their fused counts, missed lanes take the
                 # re-bin: two-pass's result, lane for lane
@@ -772,8 +1209,8 @@ class GPUStatsBackend:
             hists, mad = khistogram.finalize(
                 res_b, momf["fmin"], momf["fmax"], momf["n"], config.bins)
             if spear_state is not None:
-                rho_spear = kcorr.finalize(
-                    drained(runner.finalize_spearman, spear_state))
+                rho_spear = kcorr.finalize(distributed.merge_corr_states(
+                    drained(runner.finalize_spearman, spear_state)))
         elif adopted is not None:
             hists, mad = khistogram.finalize(
                 adopted, momf["fmin"], momf["fmax"], momf["n"], config.bins)
@@ -781,9 +1218,27 @@ class GPUStatsBackend:
                 and hostagg.n_rows > 0:
             # no numeric columns: only the top-k recount needs a rescan
             recounter = Recounter(hostagg)
+
+            def steal_recount(frags):
+                rec = Recounter(hostagg)
+                for shb in pass_b_batches(_read_fragments(ingest, frags)):
+                    rec.update(shb)
+                return {"kind": "pass_b", "res_b": None,
+                        "counts": rec.counts, "spear": None}
+
             with span("scan_b", recount_only=True):
                 for hb in pass_b_batches():
                     recounter.update(hb)
+                if fleet_member is not None:
+                    _, recounter.counts, _ = _elastic_merge_b(
+                        fleet_member,
+                        {"kind": "pass_b", "res_b": None,
+                         "counts": recounter.counts, "spear": None},
+                        steal_recount, barrier_timeout)
+                elif multi:
+                    # each process recounted its own stripe
+                    recounter.counts = distributed.merge_recount_arrays(
+                        recounter.counts)
         if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
                 and plan.n_num > 1:
             # no rank pass (exact_passes=False): estimate from the K-row
@@ -799,10 +1254,24 @@ class GPUStatsBackend:
             # the pass-B bounds a later fused profile of this source seeds
             # its edges from (artifacts seal them); private, never exported
             stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
-        if quarantine.entries:
+        q_entries = list(quarantine.entries)
+        if fleet_member is not None:
+            # the fleet's pass-A skips rode the parts, in part order; this
+            # member's later (pass-B) entries follow
+            q_entries = list(fleet_q or []) + q_entries[fleet_q_mark:]
+        elif multi:
+            # every process gathers every stripe's skips (symmetric)
+            q_entries = [e for part in
+                         distributed.allgather_objects(q_entries)
+                         for e in part]
+        if q_entries:
             # degraded runs only: a clean run's stats and HTML are as
             # before the guard existed
-            stats["_quarantine"] = list(quarantine.entries)
+            stats["_quarantine"] = q_entries
+        if multi and config.unique_spill_dir:
+            # a shared spill dir: no process deletes runs another one may
+            # still be reading
+            distributed.allgather_objects("unique-cleanup-barrier")
         # the spill runs go before the checkpoint: a crash between the two
         # leaves a checkpoint whose missing runs demote on resume, never
         # runs that no checkpoint references
@@ -819,12 +1288,18 @@ class GPUStatsBackend:
         if snap is not None:
             stats["_obs"] = snap
         obs.finalize(reason="collect")
-        if obs.enabled():
-            obs.fleet.write_fleet(obs.resolve_metrics_path(config),
-                                  [obs.registry().to_wire()],
-                                  reason="collect",
-                                  quarantined_by_host=[
-                                      len(quarantine.entries)])
+        if fleet_member is not None:
+            # the members' wires ride the fleet dir; the live leader
+            # writes the dump labelled by member id (no gather a dead
+            # member could stall)
+            fleet_member.publish(obs.resolve_metrics_path(config),
+                                 reason="collect")
+            fleet_member.close()
+        elif multi or obs.enabled():
+            # symmetric: every process reaches this line
+            distributed.publish_fleet(
+                "collect", metrics_path=obs.resolve_metrics_path(config),
+                quarantined=len(quarantine.entries))
         return stats
 
 

@@ -14,6 +14,15 @@ scan every ``--checkpoint-every`` batches and resumes from PATH when it
 exists.  ``--exact-distinct`` (with ``--unique-spill-dir``) and
 ``--parity`` count every column's distinct values exactly.
 
+Several processes: the same command with ``--coordinator HOST:PORT
+--num-processes N --process-id I`` in each joins a gloo group, scans its
+stripe of the dataset's fragments on the CUDA devices it sees, and process
+0 writes the report (all three flags or none; ``--parity`` then needs a
+shared ``--unique-spill-dir``).  ``--elastic --fleet-dir DIR`` runs an
+independent member of an elastic fleet instead (``--fleet-host-id``,
+``--liveness-timeout``); a fleet directory that cannot be trusted exits 7,
+an injected host death 8.
+
 Telemetry: ``--metrics-json PATH`` streams JSONL events into PATH and
 writes the final Prometheus text to ``PATH.prom`` (and the fleet-of-one
 view to ``PATH.fleet.prom``); ``--metrics-interval`` adds periodic
@@ -230,6 +239,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "expiry exits with a heartbeat snapshot "
                          "instead of hanging (default: "
                          "TPUPROF_DRAIN_TIMEOUT_S, else off)")
+    ft.add_argument("--barrier-timeout", type=float, default=None,
+                    metavar="SEC",
+                    help="watchdog deadline on the multi-process resume "
+                         "barrier, and the gloo group's timeout "
+                         "(default: TPUPROF_BARRIER_TIMEOUT_S, else off)")
+    fleet = p.add_argument_group(
+        "elastic fleet", "work-stealing membership: launch N independent "
+        "processes sharing --fleet-dir; each pulls fragments from the "
+        "shared manifest, survivors steal a dead member's fragments and "
+        "finish with correct stats, and a restarted member presenting the "
+        "same --fleet-host-id adopts its predecessor's claims and "
+        "checkpoint.  Mutually exclusive with --coordinator")
+    fleet.add_argument("--elastic", action="store_true", default=None,
+                       help="enable elastic membership (default: "
+                            "TPUPROF_ELASTIC, else off)")
+    fleet.add_argument("--fleet-dir", metavar="DIR",
+                       help="shared coordination directory (manifest, "
+                            "claims, heartbeats, contributions) on "
+                            "storage every member sees (default: "
+                            "TPUPROF_FLEET_DIR)")
+    fleet.add_argument("--fleet-host-id", metavar="ID",
+                       help="stable member identity — pin per slot so "
+                            "a restart adopts its predecessor's work "
+                            "(default: TPUPROF_FLEET_HOST_ID, else "
+                            "hostname-pid)")
+    fleet.add_argument("--liveness-timeout", type=float, default=None,
+                       metavar="SEC",
+                       help="heartbeat staleness before a member is "
+                            "declared dead and its fragments stolen "
+                            "(default: TPUPROF_LIVENESS_TIMEOUT_S, "
+                            "else 10)")
+    dist = p.add_argument_group(
+        "multi-process", "launch the same command in every process; each "
+        "scans its own fragment stripe on the CUDA devices it sees "
+        "(CUDA_VISIBLE_DEVICES), the states merge over a gloo group, and "
+        "process 0 writes the complete report")
+    dist.add_argument("--coordinator", metavar="HOST:PORT",
+                      help="rendezvous address of the gloo group (process "
+                           "0 listens there), or an init URL such as "
+                           "file:///shared/rendezvous")
+    dist.add_argument("--num-processes", type=int, metavar="N",
+                      help="total number of participating processes")
+    dist.add_argument("--process-id", type=int, metavar="I",
+                      help="this process's rank in [0, N)")
 
     d = sub.add_parser(
         "diff", help="compare two stats artifacts and report per-column "
@@ -264,9 +317,10 @@ def cmd_profile(args: argparse.Namespace) -> int:
     from tpuprof_torch import obs
     from tpuprof_torch.api import ProfileReport
     from tpuprof_torch.config import ProfilerConfig
-    from tpuprof_torch.errors import (CorruptCheckpointError, InputError,
-                                      PoisonBatchError, WatchdogTimeout,
-                                      exit_code)
+    from tpuprof_torch.errors import (CorruptCheckpointError,
+                                      CorruptManifestError, HostDeathError,
+                                      InputError, PoisonBatchError,
+                                      WatchdogTimeout, exit_code)
     from tpuprof_torch.obs import blackbox
     from tpuprof_torch.obs.spans import span
     from tpuprof_torch.runtime.runner import resolve_device
@@ -276,11 +330,33 @@ def cmd_profile(args: argparse.Namespace) -> int:
     # SIGUSR1 dump its ring, and every failure below leaves a bundle
     blackbox.install_signal_handlers()
 
+    multi = args.coordinator is not None \
+        or args.num_processes is not None or args.process_id is not None
+    if multi:
+        if args.coordinator is None or args.num_processes is None \
+                or args.process_id is None:
+            _error("multi-process needs all three of --coordinator, "
+                   "--num-processes and --process-id")
+            return 2
+        if args.parity and not args.unique_spill_dir:
+            # the derived dir is local to each process: the merge could
+            # not adopt the peers' runs, and the exact counts --parity
+            # promises would fall back to estimates
+            _error("multi-process --parity needs --unique-spill-dir on "
+                   "storage shared by all processes (the derived TMPDIR "
+                   "dir is local)")
+            return 2
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
         _error(exc)
         return 2
+    if multi:
+        from tpuprof_torch.config import resolve_watchdog_timeout
+        from tpuprof_torch.runtime.distributed import initialize
+        initialize(args.coordinator, args.num_processes, args.process_id,
+                   timeout_s=resolve_watchdog_timeout(
+                       args.barrier_timeout, "TPUPROF_BARRIER_TIMEOUT_S"))
     columns = None
     if args.columns is not None:
         # "" parses to an empty tuple, which ProfilerConfig rejects: never
@@ -298,6 +374,10 @@ def cmd_profile(args: argparse.Namespace) -> int:
             max_quarantined=args.max_quarantined,
             quarantine_log=args.quarantine_log,
             drain_timeout_s=args.drain_timeout,
+            barrier_timeout_s=args.barrier_timeout,
+            elastic=args.elastic, fleet_dir=args.fleet_dir,
+            fleet_host_id=args.fleet_host_id,
+            liveness_timeout_s=args.liveness_timeout,
             pass_b_kernel=args.pass_b_kernel,
             profile_passes=args.profile_passes,
             seed_edges=args.seed_edges,
@@ -356,9 +436,11 @@ def cmd_profile(args: argparse.Namespace) -> int:
                     _error(exc)
                     return 2
                 except (PoisonBatchError, WatchdogTimeout,
-                        CorruptCheckpointError) as exc:
-                    # the ingest guard ran out, or no checkpoint
-                    # generation is readable: one line, its own exit code
+                        CorruptCheckpointError, CorruptManifestError,
+                        HostDeathError) as exc:
+                    # the ingest guard ran out, no checkpoint generation is
+                    # readable, the fleet directory cannot be trusted or
+                    # this member was killed: one line, its own exit code
                     # and a bundle whose last entries name the site
                     _error(exc)
                     postmortem(exc)
@@ -368,16 +450,23 @@ def cmd_profile(args: argparse.Namespace) -> int:
                     # batch and dispatch context it cannot show
                     postmortem(exc)
                     raise
-            with span("render"):
-                report.to_file(args.output)
-            if config.artifact_path:
-                from tpuprof_torch.artifact import write_artifact
-                write_artifact(config.artifact_path,
-                               stats=report.description, config=config,
-                               source=str(args.source))
+            # every process holds the whole merged stats; only rank 0
+            # renders and writes
+            write_output = not multi or args.process_id == 0
+            if write_output:
+                with span("render"):
+                    report.to_file(args.output)
+                if config.artifact_path:
+                    from tpuprof_torch.artifact import write_artifact
+                    write_artifact(config.artifact_path,
+                                   stats=report.description, config=config,
+                                   source=str(args.source))
     finally:
         if ticker is not None:
             ticker.stop()
+        if multi:
+            from tpuprof_torch.runtime.distributed import shutdown
+            shutdown()
     elapsed = time.perf_counter() - t0
     if args.metrics_json:
         # the final snapshot holds the render span the collect's could
@@ -388,10 +477,11 @@ def cmd_profile(args: argparse.Namespace) -> int:
 
     table = report.description["table"]
     rate = table["n"] / elapsed if elapsed > 0 else float("nan")
+    wrote = args.output if write_output else "(report written by host 0)"
     print(f"{PROG}: {table['n']:,} rows x {table['nvar']} cols -> "
-          f"{args.output} in {elapsed:.2f}s ({rate:,.0f} rows/s)",
+          f"{wrote} in {elapsed:.2f}s ({rate:,.0f} rows/s)",
           file=sys.stderr)
-    if args.stats_json:
+    if args.stats_json and write_output:
         with open(args.stats_json, "w") as fh:
             json.dump(report.to_json_dict(), fh, indent=2)
     return 0

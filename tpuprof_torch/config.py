@@ -26,19 +26,12 @@ UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
 UNIQUE_BUDGET_RAM_SHARE = 0.25
 UNIQUE_BUDGET_CAP_ROWS = 1 << 28
 
-_FLEET = "multi-GPU and fleet"
 _SERVE = "serve"
 
 # field -> the later slice that ports it
 _LATER = {
     "backend": "a CPU oracle backend",
-    "mesh_devices": _FLEET,
     "compile_cache_dir": _SERVE,
-    "barrier_timeout_s": _FLEET,
-    "elastic": _FLEET,
-    "fleet_dir": _FLEET,
-    "fleet_host_id": _FLEET,
-    "liveness_timeout_s": _FLEET,
     "serve_workers": _SERVE,
     "serve_queue_depth": _SERVE,
     "serve_tenant_quota": _SERVE,
@@ -187,15 +180,23 @@ class ProfilerConfig:
                                             # (kernels/fused.py); 0 never
                                             # synchronizes for telemetry
 
+    # ---- devices, processes, the elastic fleet ----------------------------
+    mesh_devices: Optional[int] = None      # CUDA devices one process
+                                            # shards a scan over (None:
+                                            # every device it sees)
+    barrier_timeout_s: Optional[float] = None  # watchdog on the cross-
+                                               # process barriers and the
+                                               # gloo group's timeout
+    elastic: Optional[bool] = None          # elastic fleet membership
+                                            # (runtime/fleet.py; resolve_*)
+    fleet_dir: Optional[str] = None         # the fleet's shared directory
+    fleet_host_id: Optional[str] = None     # this member's stable id
+    liveness_timeout_s: Optional[float] = None  # heartbeat staleness after
+                                                # which a member is dead
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
     backend: str = "auto"
-    mesh_devices: Optional[int] = None
     compile_cache_dir: Optional[str] = None
-    barrier_timeout_s: Optional[float] = None
-    elastic: Optional[bool] = None
-    fleet_dir: Optional[str] = None
-    fleet_host_id: Optional[str] = None
-    liveness_timeout_s: Optional[float] = None
     serve_workers: Optional[int] = None
     serve_queue_depth: Optional[int] = None
     serve_tenant_quota: Optional[int] = None
@@ -271,6 +272,16 @@ class ProfilerConfig:
             raise ValueError("max_quarantined must be >= 0 (or None)")
         if self.drain_timeout_s is not None and self.drain_timeout_s <= 0:
             raise ValueError("drain_timeout_s must be > 0 (or None = off)")
+        if self.barrier_timeout_s is not None \
+                and self.barrier_timeout_s <= 0:
+            raise ValueError(
+                "barrier_timeout_s must be > 0 (or None = off)")
+        if self.liveness_timeout_s is not None \
+                and self.liveness_timeout_s <= 0:
+            raise ValueError("liveness_timeout_s must be > 0 (or None)")
+        if self.mesh_devices is not None and self.mesh_devices < 1:
+            raise ValueError("mesh_devices must be >= 1 (or None = every "
+                             "device the process sees)")
         if self.metrics_interval < 0:
             raise ValueError("metrics_interval must be >= 0")
         if self.metrics_max_bytes is not None \
@@ -532,12 +543,58 @@ def resolve_checkpoint_keep(value: Optional[int] = None) -> int:
 
 def resolve_watchdog_timeout(value: Optional[float], var: str
                              ) -> Optional[float]:
-    """A watchdog deadline (``drain_timeout_s``): the config value, else
+    """A watchdog deadline (``drain_timeout_s``, ``barrier_timeout_s``):
+    the config value, else
     the env var ``var``, else None (the call runs unwatched)."""
     if value is not None:
         return float(value) if value > 0 else None
     env = _env_float(var)
     return env if env and env > 0 else None
+
+
+def resolve_elastic(value: Optional[bool] = None) -> bool:
+    """Elastic fleet membership (``runtime/fleet.py``): the config value,
+    else ``TPUPROF_ELASTIC`` ("", "0", "false" and "no" are off), else
+    off."""
+    if value is not None:
+        return bool(value)
+    env = os.environ.get("TPUPROF_ELASTIC")
+    if env is not None:
+        return env not in ("", "0", "false", "no")
+    return False
+
+
+def resolve_fleet_dir(value: Optional[str] = None) -> Optional[str]:
+    """The fleet's shared directory (manifest, claims, heartbeats,
+    contribution parts): the config value, else ``TPUPROF_FLEET_DIR``, else
+    None.  Elastic runs need one on storage every member sees."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_FLEET_DIR") or None
+
+
+def resolve_fleet_host_id(value: Optional[str] = None) -> str:
+    """This member's stable identity: the config value, else
+    ``TPUPROF_FLEET_HOST_ID``, else ``<hostname>-<pid>``.  A restarted
+    member presenting the same id adopts its predecessor's claims and
+    checkpoint, so a deployment pins it per slot."""
+    if value:
+        return str(value)
+    env = os.environ.get("TPUPROF_FLEET_HOST_ID")
+    if env:
+        return env
+    import socket
+    return f"{socket.gethostname()}-{os.getpid()}"
+
+
+def resolve_liveness_timeout(value: Optional[float] = None) -> float:
+    """Heartbeat staleness after which a fleet member is dead and its
+    unfinished fragments may be stolen: the config value, else
+    ``TPUPROF_LIVENESS_TIMEOUT_S``, else 10 seconds."""
+    if value is not None:
+        return float(value)
+    env = _env_float("TPUPROF_LIVENESS_TIMEOUT_S")
+    return env if env and env > 0 else 10.0
 
 
 def resolve_metrics_max_bytes(value: Optional[int] = None) -> Optional[int]:

@@ -8,7 +8,10 @@ class its call sites raised before, so existing ``except`` clauses hold:
 ``TransientError`` (``OSError``, the retryable class), ``PoisonBatchError``
 (a batch failed past the retry and quarantine budgets; carries the
 quarantine manifest) and ``WatchdogTimeout`` (a watched blocking call
-overran its deadline; carries the site and a heartbeat snapshot).
+overran its deadline; carries the site and a heartbeat snapshot).  The
+multi-GPU slice adds ``CorruptManifestError`` (a fleet directory's manifest,
+claim or contribution part failed its integrity check, or another package
+wrote it) and ``HostDeathError`` (the injected ``host_death`` fault).
 """
 
 from typing import Any, Dict, List, Optional
@@ -43,6 +46,26 @@ class PoisonBatchError(RuntimeError):
         self.manifest = list(manifest or [])
 
 
+class CorruptManifestError(ValueError):
+    """A fleet-directory artifact (the fragment manifest, a claim, a
+    contribution part; ``runtime/fleet.py``) failed its integrity check:
+    truncated or undecodable bytes, a CRC32 mismatch, or a schema this
+    package cannot trust (the reference's manifest among them).  Never a
+    raw ``EOFError`` or ``UnpicklingError``."""
+
+
+class HostDeathError(RuntimeError):
+    """This process's part in the fleet was killed by the ``host_death``
+    fault site.  Carries the call number at death."""
+
+    def __init__(self, site: str, at_call: int):
+        super().__init__(
+            f"injected host death at {site!r} (call {at_call}) — this "
+            "process stops participating in the fleet")
+        self.site = site
+        self.at_call = at_call
+
+
 class WatchdogTimeout(TimeoutError):
     """A watched blocking call overran its deadline."""
 
@@ -59,7 +82,8 @@ class WatchdogTimeout(TimeoutError):
 # the reference's codes (``tpuprof/errors.py`` ``_EXIT_CODES``) for the
 # classes the port has
 _EXIT_CODES = ((CorruptCheckpointError, 3), (CorruptArtifactError, 6),
-               (WatchdogTimeout, 4), (PoisonBatchError, 5), (InputError, 2))
+               (CorruptManifestError, 7), (WatchdogTimeout, 4),
+               (PoisonBatchError, 5), (HostDeathError, 8), (InputError, 2))
 
 
 def exit_code(exc: BaseException) -> int:

@@ -531,7 +531,8 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
                       batch_guard=None, skip_keys=frozenset(),
                       positions: bool = False,
                       resume_pos: Optional[Tuple[int, int]] = None,
-                      full_hashes: bool = False) -> Iterator:
+                      full_hashes: bool = False,
+                      raw_stream=None) -> Iterator:
     """Prepared batches in stream order, ``workers`` prepares in flight.
 
     A reader thread enumerates the raw batches and queues prepare futures
@@ -552,6 +553,11 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     ``resume_pos=(fi, done)`` the first ``fi`` fragments are never opened
     and fragment ``fi``'s first ``done`` batches are skipped unprepared
     (zero-copy slices of a table).
+
+    ``raw_stream``, an iterator of ``(fragment, batch, record batch)``,
+    replaces the ingest's own enumeration (an elastic member's claimed
+    fragments, ``ArrowIngest.read_fragment``): it is pulled as the queue
+    drains, positions are stamped and the guard keys on them.
 
     ``full_hashes`` (``config.exact_distinct``) has every batch keep its
     numeric and date columns' 64-bit hashes, about 9 bytes a row a column
@@ -594,6 +600,12 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
 
     def reader():
         try:
+            if raw_stream is not None:
+                for fi, bi, rb in raw_stream:
+                    if not _put(pool.submit(_prep, rb, (fi, bi),
+                                            (fi, bi))):
+                        return
+                return
             if positions:
                 start, done = resume_pos or (0, 0)
                 for fi, bi, rb in ingest.raw_batches_positioned(start):
@@ -676,13 +688,17 @@ class ArrowIngest:
     ``batch_rows`` rows: in-memory tables in fixed windows, datasets
     through their scanner with the projection pushed into it.
     ``max_retries`` bounds the re-reads of one fragment after an
-    ``OSError``."""
+    ``OSError``.  ``process_shard=(i, n)`` stripes a dataset's fragments
+    over ``n`` processes: this one reads fragments i, i+n, i+2n, ... (an
+    in-memory table cannot be striped)."""
 
     def __init__(self, source: Any, batch_rows: int,
                  columns: Optional[Sequence[str]] = None,
-                 nested: str = "stringify", max_retries: int = 2):
+                 nested: str = "stringify", max_retries: int = 2,
+                 process_shard: Tuple[int, int] = (0, 1)):
         self.batch_rows = int(batch_rows)
         self.max_retries = int(max_retries)
+        self.process_shard = (int(process_shard[0]), int(process_shard[1]))
         if isinstance(source, pd.DataFrame):
             if columns is not None:
                 validate_projection(columns, source.columns)
@@ -735,9 +751,15 @@ class ArrowIngest:
         skipping the batches already delivered (batch edges within a
         fragment are the same either way)."""
         if self._dataset is None:
-            yield from self._table_windows()
+            yield from (rb for _fi, _bi, rb in
+                        self.raw_batches_positioned())
             return
         delivered = 0
+        if self.process_shard[1] > 1:
+            # a stripe reads its fragments one by one
+            for _fi, _bi, rb in self.raw_batches_positioned():
+                yield rb
+            return
         try:
             for rb in self._dataset.to_batches(batch_size=self.batch_rows,
                                                columns=self._columns):
@@ -766,29 +788,74 @@ class ArrowIngest:
         A table is one fragment of :meth:`raw_batches`'s windows (zero-copy
         slices until a window's chunks combine).  A fragment whose read
         raises ``OSError`` is read again, up to ``max_retries`` times,
-        skipping the batches it already gave; then the error stands."""
+        skipping the batches it already gave; then the error stands.  Under
+        ``process_shard`` the fragments are this process's stripe, numbered
+        within it."""
         if self._dataset is None:
+            if self.process_shard[1] != 1:
+                raise ValueError(
+                    "multi-process profiling requires a file-backed "
+                    "dataset (each process streams its own fragments); "
+                    "got an in-memory table")
             if skip_fragments < 1:
                 for bi, rb in enumerate(self._table_windows()):
                     yield 0, bi, rb
             return
-        for fi, fragment in enumerate(self._dataset.get_fragments()):
+        for fi, fragment in enumerate(self._my_fragments()):
             if fi < skip_fragments:
                 continue
-            delivered = 0
-            for attempt in range(self.max_retries + 1):
-                try:
-                    for bi, rb in enumerate(fragment.to_batches(
-                            batch_size=self.batch_rows,
-                            columns=self._columns)):
-                        if bi < delivered:
-                            continue        # given before the failure
-                        yield fi, bi, rb
-                        delivered = bi + 1
-                    break
-                except OSError:
-                    if attempt == self.max_retries:
-                        raise
+            yield from self._fragment_batches(fi, fragment)
+
+    def _my_fragments(self):
+        from tpuprof_torch.runtime.distributed import assign_fragments
+        return assign_fragments(self._dataset.get_fragments(),
+                                *self.process_shard)
+
+    def _fragment_batches(self, fi: int, fragment, skip_batches: int = 0
+                          ) -> Iterator[Tuple[int, int, pa.RecordBatch]]:
+        """``(fi, batch, record batch)`` of one fragment from batch
+        ``skip_batches`` on, re-read after an ``OSError`` as
+        :meth:`raw_batches_positioned` says."""
+        delivered = int(skip_batches)
+        for attempt in range(self.max_retries + 1):
+            try:
+                for bi, rb in enumerate(fragment.to_batches(
+                        batch_size=self.batch_rows, columns=self._columns)):
+                    if bi < delivered:
+                        continue        # skipped, or given before a failure
+                    yield fi, bi, rb
+                    delivered = bi + 1
+                break
+            except OSError:
+                if attempt == self.max_retries:
+                    raise
+
+    def fragment_count(self) -> int:
+        """The fragments of the whole source, not of this process's stripe
+        (an elastic fleet's units of work); a table is one."""
+        if self._dataset is None:
+            return 1
+        return sum(1 for _ in self._dataset.get_fragments())
+
+    def read_fragment(self, fi: int, skip_batches: int = 0
+                      ) -> Iterator[Tuple[int, int, pa.RecordBatch]]:
+        """The batches of fragment ``fi`` of the whole source, whatever
+        the stripe (an elastic member's pull unit), from batch
+        ``skip_batches`` on."""
+        if self._dataset is None:
+            if fi != 0:
+                raise ValueError(
+                    f"an in-memory table has one fragment; got {fi}")
+            for _fi, bi, rb in self.raw_batches_positioned():
+                if bi >= skip_batches:
+                    yield fi, bi, rb
+            return
+        for k, fragment in enumerate(self._dataset.get_fragments()):
+            if k == fi:
+                yield from self._fragment_batches(fi, fragment,
+                                                  skip_batches)
+                return
+        raise ValueError(f"the dataset has no fragment {fi}")
 
     def fingerprint(self) -> str:
         """The source's identity (the reference's recipe): the projected

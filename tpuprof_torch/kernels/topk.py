@@ -6,12 +6,13 @@ frequency above n/k is kept; when a column's distinct count never exceeds
 the capacity, counts are exact.  The store keys on the 64-bit value hashes
 that ingest computes anyway; values ride in a parallel object array and are
 touched only when a new key is appended.  Pass B recounts the surviving
-candidates exactly.
+candidates exactly.  ``merge`` (summaries of several processes) keys on the
+values, as the reference's does.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -28,7 +29,7 @@ class MisraGries:
     """One column's frequent-values summary (value -> count)."""
 
     __slots__ = ("capacity", "_index", "_counts", "_values", "offset",
-                 "overflowed")
+                 "overflowed", "_merged")
 
     def __init__(self, capacity: int):
         self.capacity = int(capacity)
@@ -37,11 +38,21 @@ class MisraGries:
         self._values = np.zeros(0, dtype=object)      # aligned with _index
         self.offset = 0          # total decrement applied (error bound)
         self.overflowed = False  # True once any eviction happened
+        self._merged = False     # True once merge() ran: the hash index
+                                 # may hold another process's keys
+
+    def _check_foldable(self) -> None:
+        if getattr(self, "_merged", False):
+            raise RuntimeError(
+                "MisraGries: a batch fold after merge() — the hash index "
+                "may hold another process's keys; fold batches first, "
+                "merge summaries last")
 
     def update_batch(self, values: np.ndarray, counts: np.ndarray,
                      hashes: Optional[np.ndarray] = None) -> None:
         """Fold pre-aggregated (unique values, counts) from one batch in;
         ``hashes`` is the aligned uint64 key array from ingest."""
+        self._check_foldable()
         counts = np.asarray(counts, dtype=np.int64)
         if hashes is None:
             hashes = _fallback_hashes(values)
@@ -68,6 +79,7 @@ class MisraGries:
         ``src`` of ``hashes`` and is called only for new entries that
         survive the compaction (ingest's row-hash path never builds a
         dictionary of the batch)."""
+        self._check_foldable()
         self._update_core(np.asarray(hashes, dtype=np.uint64),
                           np.asarray(counts, dtype=np.int64), resolver)
 
@@ -110,6 +122,39 @@ class MisraGries:
         self._counts = arr[keep] - kth
         self._values = self._values[keep]
         return keep[new_start:]
+
+    def merge(self, other: "MisraGries") -> None:
+        """Fold another summary in, keyed on the values (the two may come
+        from processes whose hash implementations differ); a store past its
+        capacity compacts.  Batch folds refuse to run afterwards."""
+        self._merged = True
+        if len(other._index):
+            pos = pd.Index(self._values).get_indexer(other._values)
+            hit = np.flatnonzero(pos >= 0)
+            self._counts[pos[hit]] += other._counts[hit]
+            miss = np.flatnonzero(pos < 0)
+            if miss.size:
+                self._index = self._index.append(pd.Index(
+                    other._index.to_numpy()[miss], copy=False))
+                self._counts = np.concatenate([self._counts,
+                                               other._counts[miss]])
+                self._values = np.concatenate([self._values,
+                                               other._values[miss]])
+                if len(self._index) > self.capacity:
+                    self._compact()
+        self.offset += other.offset
+        self.overflowed |= other.overflowed
+
+    def __getstate__(self) -> Dict[str, object]:
+        return {k: getattr(self, k) for k in self.__slots__
+                if hasattr(self, k)}
+
+    def __setstate__(self, state) -> None:
+        if isinstance(state, tuple):        # the default __slots__ form
+            state = {**(state[0] or {}), **(state[1] or {})}
+        state.setdefault("_merged", False)
+        for k, v in state.items():
+            setattr(self, k, v)
 
     @property
     def exact(self) -> bool:

@@ -39,9 +39,12 @@ and emits a ``unique_spill`` event; the ``tpuprof_unique_partitions`` and
 ``tpuprof_unique_spill_pending`` gauges show the partition count and the
 writes queued on the io tier.
 
-The reference's cross-host laws (``merge``, ``disown_runs``,
-``claim_runs``, ``seed_resolution`` and the ``_end_counting`` they use)
-come with the multi-GPU slice.
+Across processes (``runtime/distributed.py``, ``runtime/fleet.py``) the
+reference's laws apply: ``merge`` adopts a peer's runs (present here only
+when the spill dir is shared storage) and folds its live chunks,
+``disown_runs``/``claim_runs`` move the run files' ownership to the merged
+copy, and ``seed_resolution`` lets every process adopt rank 0's verdicts
+instead of re-reading the shared runs.
 """
 
 from __future__ import annotations
@@ -795,6 +798,106 @@ class UniqueTracker:
         self._resolve_memo[name] = (
             key, status, distinct if count or status == UNIQUE else None)
         return status, self._resolve_memo[name][2]
+
+    # -- the cross-process laws (the reference's) ---------------------------
+
+    def disown_runs(self) -> None:
+        """Give up the run files' ownership: this instance's GC no longer
+        deletes them.  Called on the original tracker after a merge across
+        processes, before the caller rebinds to the merged copy
+        (:meth:`claim_runs`)."""
+        self._owned = []
+
+    def claim_runs(self) -> None:
+        """Own every run file this tracker references (the merged copy of
+        a gather, which unpickled with none), so an error between the merge
+        and :meth:`cleanup` orphans nothing.  Several processes claiming the
+        same shared paths is fine: deletion is idempotent."""
+        self._owned = [p for runs in self._runs.values()
+                       for p, _rows in runs]
+
+    def _end_counting(self, name: str) -> None:
+        """Take a column out of counting mode, settling its claim from all
+        it counted (duplicates may survive only in ``_fed``) and leaving the
+        buffer in the canonical form the probed paths expect."""
+        if not self._counting.get(name, False):
+            return
+        dup = False
+        if self.status.get(name) == UNIQUE:
+            try:
+                self._compact_buffer(name)
+                _st, cnt = self._resolve_spilled(name, count=True)
+                dup = cnt is not None and cnt < self._fed.get(name, cnt)
+            except Exception:   # noqa: BLE001 — the claim cannot be affirmed
+                self._counting[name] = False
+                self._demote(name, OVERFLOW)
+                return
+        self._counting[name] = False
+        if dup:
+            self._demote(name, DUP)
+
+    def seed_resolution(self, statuses: Dict[str, str],
+                        counts: Optional[Dict[str, int]] = None) -> None:
+        """Adopt another process's ``resolve()`` verdicts (and exact counts)
+        for still-spilled columns, memoized on the current run and row state
+        so a later change still invalidates them."""
+        counts = counts or {}
+        for name, st in statuses.items():
+            if self._runs.get(name) and (
+                    self.status.get(name) == UNIQUE
+                    or self._counting.get(name)):
+                self._resolve_memo[name] = (self._canonical_key(name),
+                                            st, counts.get(name))
+
+    def merge(self, other: "UniqueTracker") -> None:
+        """Fold a peer's tracker in (the reference's law): runs are
+        adopted, live chunks fold as batches, a DUP on either side is
+        final, an OVERFLOW or a clash of hash implementations demotes."""
+        self._drain_spills()
+        other._drain_spills()
+        for name, ost in other.status.items():
+            if name not in self.status:
+                continue
+            okind = other._kind.get(name, "")
+            mkind = self._kind.get(name, "")
+            kind_clash = bool(okind and mkind and okind != mkind)
+            counting = self._counting.get(name, False) \
+                and other._counting.get(name, False)
+            if not counting:
+                # leaving counting mode: both sides settle their claims
+                # and normalize their buffers first
+                self._end_counting(name)
+                other._end_counting(name)
+                ost = other.status[name]
+            if counting and not kind_clash \
+                    and OVERFLOW not in (self.status[name], ost):
+                # counting goes on: adopt the runs, fold the chunks, and
+                # keep the claim law count == fed across the merge
+                if other._runs.get(name):
+                    self._runs[name].extend(other._runs[name])
+                if okind and not mkind:
+                    self._kind[name] = okind
+                if DUP in (self.status[name], ost):
+                    self.status[name] = DUP
+                fed_before = self._fed.get(name, 0)
+                for c in other._chunks[name]:
+                    self.update(name, c, hash_kind=okind)
+                self._fed[name] = fed_before + other._fed.get(name, 0)
+                continue
+            if DUP in (self.status[name], ost):
+                self._demote(name, DUP)
+            elif OVERFLOW in (self.status[name], ost) or kind_clash:
+                self._demote(name, OVERFLOW)
+            else:
+                # the peer's runs were validated present here when it
+                # unpickled (shared storage); cross-process duplicates
+                # surface in resolve()'s hash-range merge
+                if other._runs.get(name):
+                    self._runs[name].extend(other._runs[name])
+                if okind and not mkind:
+                    self._kind[name] = okind
+                for c in other._chunks[name]:
+                    self.update(name, c, hash_kind=okind)
 
     def cleanup(self) -> None:
         """Delete every spill run (idempotent; call once the profile is

@@ -1,12 +1,14 @@
 """Fleet-wide metric aggregation, the host half (OBSERVABILITY.md "fleet
 view").
 
-Counterpart of ``tpuprof/obs/fleet.py`` without the gather across ranks
-(``write_fleet_labeled`` and the collective that feeds :func:`write_fleet`
-come with the port's multi-GPU slice).  A single process publishes a fleet
-of one: the backend hands :func:`write_fleet` its own registry's wire form
-(``MetricsRegistry.to_wire()``), which writes ``<metrics_path>.fleet.prom``
-and emits a ``fleet_snapshot`` event.
+Counterpart of ``tpuprof/obs/fleet.py``.  Every process's registry wire
+(``MetricsRegistry.to_wire()``) reaches rank 0 through the gloo gather of
+``runtime/distributed.publish_fleet``, which hands them to
+:func:`write_fleet` (gauges labelled ``host="<rank>"``); a single process
+publishes a fleet of one the same way.  An elastic fleet's wires ride its
+shared directory keyed by member id (``runtime/fleet.FleetMember.publish``)
+into :func:`write_fleet_labeled`.  Either writes
+``<metrics_path>.fleet.prom`` and emits a ``fleet_snapshot`` event.
 
 Merge laws (the reference's ``tests/test_fleet.py``):
 
@@ -58,6 +60,28 @@ def merge_wires(wires: List[Dict[str, Any]]) -> metrics.MetricsRegistry:
     for i, wire in enumerate(wires):
         merged.merge_wire(wire, host=str(i))
     return merged
+
+
+def write_fleet_labeled(metrics_path: Optional[str],
+                        wires_by_host: Dict[str, Dict[str, Any]],
+                        reason: str = "collect") -> Optional[str]:
+    """:func:`write_fleet` for wires keyed by a stable member id (an
+    elastic fleet's), so the ``host=`` labels survive membership churn: a
+    survivor's dump still names a dead member's series by its id."""
+    merged = metrics.MetricsRegistry(enabled=True)
+    for host in sorted(wires_by_host):
+        merged.merge_wire(wires_by_host[host], host=host)
+    snap = merged.snapshot()
+    events.emit("fleet_snapshot", reason=reason,
+                hosts=len(wires_by_host), snapshot=snap)
+    if not metrics_path:
+        return None
+    path = fleet_prom_path(metrics_path)
+    try:
+        _atomic_text_write(path, merged.render_text())
+    except OSError:
+        return None         # the fleet dump must never fail the profile
+    return path
 
 
 def write_fleet(metrics_path: Optional[str],

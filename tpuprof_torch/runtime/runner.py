@@ -302,16 +302,17 @@ class Runner:
 
     def bounds_b_device(self, state: State):
         """(lo, hi, mean) float32 pass-B inputs computed on the device from
-        the pass-A state, the reference's device recipe: finite min/max
-        and shift + s1/n, non-finite entries set to 0."""
-        mom = state["mom"]
-        n = mom["n"].to(torch.float32)
-        lo = torch.where(torch.isfinite(mom["fmin"]), mom["fmin"], 0.0)
-        hi = torch.where(torch.isfinite(mom["fmax"]), mom["fmax"], 0.0)
-        mean = torch.where(n > 0, mom["shift"] + mom["s1"]
-                           / torch.clamp_min(n, 1.0), 0.0)
-        mean = torch.where(torch.isfinite(mean), mean, 0.0)
-        return lo.contiguous(), hi.contiguous(), mean.contiguous()
+        the pass-A state (:func:`bounds_from_state`)."""
+        return bounds_from_state(state)
+
+    def place_state(self, state) -> State:
+        """A state (numpy or tensors, e.g. a merged or restored one) on
+        this runner's device."""
+        return state_from_numpy(state_to_numpy(state), self.device)
+
+    def host_state(self, state: State) -> Dict[str, Any]:
+        """The state as numpy arrays (what a checkpoint saves)."""
+        return state_to_numpy(state)
 
     def wait_ready(self, state: State, timeout_s=None, heartbeat=None):
         """Wait for the device work that ``state`` depends on, under the
@@ -336,6 +337,20 @@ class Runner:
 
     def finalize_spearman(self, state: State) -> Dict[str, Any]:
         return state_to_numpy(state)
+
+
+def bounds_from_state(state: State):
+    """(lo, hi, mean) float32 pass-B inputs from a pass-A state, on its
+    device, the reference's device recipe: finite min/max and shift +
+    s1/n, non-finite entries set to 0."""
+    mom = state["mom"]
+    n = mom["n"].to(torch.float32)
+    lo = torch.where(torch.isfinite(mom["fmin"]), mom["fmin"], 0.0)
+    hi = torch.where(torch.isfinite(mom["fmax"]), mom["fmax"], 0.0)
+    mean = torch.where(n > 0, mom["shift"] + mom["s1"]
+                       / torch.clamp_min(n, 1.0), 0.0)
+    mean = torch.where(torch.isfinite(mean), mean, 0.0)
+    return lo.contiguous(), hi.contiguous(), mean.contiguous()
 
 
 def state_to_numpy(state):

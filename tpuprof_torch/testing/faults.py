@@ -21,6 +21,13 @@ Sites the port wires:
 ``checkpoint_write``  one checkpoint save (``runtime/checkpoint.py``):
                    raise at the write, or ``truncate@M`` to tear it
 ``artifact_write`` one artifact write (``artifact/store.py``): the same
+``barrier``        the watched cross-process gather
+                   (``runtime/distributed.allgather_with_watchdog``)
+``resume_barrier`` the watchdog site of the multi-process resume barrier
+``fleet_publish``  the watchdog site of ``publish_fleet``'s gather
+``fleet_finish``   the watchdog site of an elastic member's finish barrier
+``host_death``     per-batch kill switch of a rank or elastic member
+                   (pass A's fold loop): ``host_death:@k``
 =================  ========================================================
 
 Spec grammar, ``site:mode`` pairs separated by commas, e.g.
@@ -39,10 +46,11 @@ Spec grammar, ``site:mode`` pairs separated by commas, e.g.
 * ``sleep=S`` — delay S seconds on every call; ``sleep=S@M`` only on the
   M-th;
 * ``truncate@M`` — for the byte-writing sites: :func:`mangle` keeps the
-  first half of the M-th write's bytes (a torn write that still renames).
-
-The reference's ``@M`` (host death) serves a site of a later slice and
-raises ``ValueError`` here.
+  first half of the M-th write's bytes (a torn write that still renames);
+* ``@M`` — host death: raise :class:`HostDeathError` on the M-th call
+  (first attempts for keyed sites) and never again.  Each process carries
+  its own ``TPUPROF_FAULTS``, so ``host_death:@k`` kills that one rank or
+  member after k batches.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from tpuprof_torch.errors import TransientError
+from tpuprof_torch.errors import HostDeathError, TransientError
 
 _ENV_SPEC = "TPUPROF_FAULTS"
 _ENV_SEED = "TPUPROF_FAULTS_SEED"
@@ -73,9 +81,10 @@ class _Rule:
         if mode == "transient":
             self.kind = "transient"
         elif mode.startswith("@"):
-            raise ValueError(
-                f"fault mode {mode!r} serves a site the PyTorch port does "
-                "not have yet (host death)")
+            self.kind, self.count = "death", 1
+            self.start = int(mode[1:])
+            if self.start < 1:
+                raise ValueError(f"death call number must be >=1: {mode!r}")
         elif mode.startswith("sleep="):
             self.kind = "sleep"
             rest = mode[len("sleep="):]
@@ -188,6 +197,10 @@ class FaultPlan:
                     raise TransientError(
                         f"injected transient fault at {site!r} "
                         f"(key={key!r}, first attempt)")
+            elif rule.kind == "death":
+                if (first or key is None) and n == rule.start:
+                    self._record(site)
+                    raise HostDeathError(site, n)
             elif (first or key is None) and in_window:   # window, fatal
                 self._record(site)
                 if rule.kind == "fatal":
