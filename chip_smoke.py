@@ -8,13 +8,14 @@ Run from the repository root:
     python3 chip_smoke.py --only exact     # build + phase 9
     python3 chip_smoke.py --only obs       # build + phase 10 (telemetry)
     python3 chip_smoke.py --only fleet     # build + phase 11 (multi-GPU)
+    python3 chip_smoke.py --only serve     # build + phase 12 (the daemon)
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact, obs, fleet (phases 3 to 11) and k2big (phase 3's check of K2's
+exact, obs, fleet, serve (phases 3 to 12) and k2big (phase 3's check of K2's
 device-memory body alone); ``--kernels-only`` and ``--ingest-only`` are its
 short forms.
 
@@ -203,7 +204,25 @@ Phases, each fatal on failure:
    ``a`` stealing its fragments, equal to phase 5's profile.  Each child
    (``--fleet-child SPEC``) reports its launch counts, phase seconds and
    process wall;
-12. one JSON line of per-kernel numbers, the card's name and power limit,
+12. profile-as-a-service, on the first two files of phase 5's Parquet
+   directory (524,288 rows, a depth cut): a ``ProfileScheduler`` with two
+   workers on the card takes 4 concurrent jobs of two tenants (200 and 20
+   columns; each job's stats and HTML, the footer's wall line left out,
+   equal to the one-shot ``ProfileReport``; K1 and K2 the sum of the jobs'
+   batches; jobs 3 and 4 on cached runners), a fused job (K4), two
+   identical submits that coalesce onto one computation, a repeat answered
+   by the read tier with no launch, a ``serve_job`` hang that the
+   watchdog fails with exit code 4 and the next job equal;
+   ``memory_reserved`` after the last job no higher than after job 2 plus
+   one staged group.  Then daemon A (``python -m tpuprof_torch serve
+   --compile-cache EMPTY_A --aot-cache-dir SPOOL/aot``) answers a
+   ``submit`` child's job, builds with nvcc, saves the store's entry and
+   drains on SIGTERM with exit 0; daemon B restarts on a second empty
+   build directory with the same store: no nvcc build, its prewarmer
+   loaded, its job's stats equal to A's byte for byte, and a job file in
+   the reference's ``tpuprof-serve-job-v1`` format answered.  It prints
+   each latency, the nvcc and prewarm seconds and ``memory_reserved``;
+13. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -3961,6 +3980,371 @@ def phase_fleet(torch, rehearsal: bool, card: str, cli=None) -> None:
           "the clean members')", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: profile-as-a-service
+# ---------------------------------------------------------------------------
+
+SERVE_LINE = (r"served (\d+) jobs \((\d+) done, (\d+) failed, (\d+) "
+              r"rejected\) · p50 ([\d.]+)s p99 ([\d.]+)s · runner cache "
+              r"(\d+)/(\d+) hits · nvcc builds (\d+) \(([\d.]+)s\) · store "
+              r"loaded (\d+) saved (\d+) corrupt (\d+)"
+              r"(?: · prewarm loaded (\d+) missed (\d+) failed (\d+) in "
+              r"([\d.]+)s)?")
+SUBMIT_LINE = (r"job (\S+): ([\d,]+) rows x (\d+) cols -> .* in ([\d.]+)s "
+               r"\(queued ([\d.]+)s\)")
+
+
+def without_footer(html: str) -> str:
+    """A report page with its footer's scan line (rows/s and phase wall
+    seconds) left out: what two runs of one profile share."""
+    import re
+    return re.sub(r"(?: · )?" + FOOTER, "", html)
+
+
+class Daemon:
+    """``python -m tpuprof_torch serve ARGS`` from the checkout, its stderr
+    collected line by line while it runs."""
+
+    def __init__(self, args):
+        import threading
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuprof_torch", "serve", *args],
+            cwd=root, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, pattern: str, timeout: float):
+        """The first stderr line matching ``pattern`` (fails on timeout or
+        when the daemon exits first)."""
+        import re
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in list(self.lines):
+                m = re.search(pattern, line)
+                if m:
+                    return m
+            require(self.proc.poll() is None,
+                    f"serve exited {self.proc.returncode} before "
+                    f"{pattern!r}: {self.lines[-5:]}")
+            time.sleep(0.05)
+        fail(f"serve: no {pattern!r} in {timeout} s: {self.lines[-5:]}")
+
+    def stop(self, timeout: float = 300):
+        """SIGTERM, then the exit code and the closing line's match."""
+        import re
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"serve did not drain in {timeout} s")
+        self._reader.join(timeout=30)
+        m = next((re.search(SERVE_LINE, ln) for ln in self.lines
+                  if re.search(SERVE_LINE, ln)), None)
+        require(rc == 0 and m is not None,
+                f"serve: exit {rc} (expected 0 after SIGTERM): "
+                f"{self.lines[-5:]}")
+        return m, time.perf_counter() - self.t0
+
+
+def submit_child(spool: str, source: str, stats: str, batch: int,
+                 timeout: float = 600):
+    """``python -m tpuprof_torch submit`` one job and wait: (job id, its
+    latency in the daemon, the child's wall seconds)."""
+    import re
+    rc, err, mods, secs = child(["submit", spool, source, "--stats-json",
+                                 stats, "--batch-rows", str(batch),
+                                 "--timeout", str(timeout)],
+                                timeout=timeout + 60)
+    m = next((re.search(SUBMIT_LINE, ln) for ln in err
+              if re.search(SUBMIT_LINE, ln)), None)
+    require(rc == 0 and m is not None, f"submit: exit {rc}: {err[-5:]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "submit: the child loaded jax or tpuprof")
+    return m.group(1), float(m.group(4)), secs
+
+
+def phase_serve(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """Profile-as-a-service on phase 5's Parquet directory: a
+    ``ProfileScheduler`` with two workers on the card (4 concurrent jobs
+    of two tenants equal to the one-shot profiles, launch totals the sum
+    of their batches; a repeat job on a cached runner; a fused job; two
+    coalesced submits and a read-tier answer with no launch; a hung job
+    the watchdog fails and the next job; device memory flat), then two
+    daemons as children: A builds with nvcc and saves the store, B
+    restarts on an empty build directory, runs no nvcc, prewarms from the
+    store and answers the same job byte for byte, and a job file in the
+    reference's wire format."""
+    import atexit
+    import shutil
+    import tempfile
+    import threading
+
+    import pyarrow.dataset as pads
+
+    from tpuprof_torch import ProfileReport
+    from tpuprof_torch.serve import (JOB_SCHEMA, RESULT_SCHEMA,
+                                     ProfileScheduler, process_cache,
+                                     read_result, wait_result, write_job)
+    from tpuprof_torch.serve.jobs import DONE, FAILED
+    from tpuprof_torch.testing import faults
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    atexit.register(shutil.rmtree, tmp, True)
+    # the hung job's postmortem bundle lands here, not in the checkout
+    os.environ["TPUPROF_POSTMORTEM_DIR"] = tmp
+    if cli is None:
+        head_dir, _, batch = cli_directory(rehearsal, tmp)
+    else:
+        head_dir, _, batch = cli
+    # a depth cut for the script's time: the first 2 of the 4 files
+    head_dir = half_directory(head_dir)
+    dev = {"device": "cpu"} if rehearsal else {}
+    dev_args = ["--device", "cpu"] if rehearsal else []
+    ds = pads.dataset(head_dir)
+    n, cols = ds.count_rows(), len(ds.schema.names)
+    nb = -(-n // batch)
+    proj = [f"c{i:04d}" for i in range(0, 200, 10)]
+
+    # ---- one-shot references on the card ---------------------------------
+    t0 = time.perf_counter()
+    one = {}
+    for label, kw in (("full", {}), ("proj", {"columns": proj})):
+        rep = ProfileReport(head_dir, batch_rows=batch, **dev, **kw)
+        rep.to_file(f"{tmp}/one-{label}.html")
+        with open(f"{tmp}/one-{label}.html", encoding="utf-8") as fh:
+            page = without_footer(fh.read())
+        # through JSON text once, as a job's --stats-json file goes
+        one[label] = (json.dumps(json.loads(json.dumps(
+            rep.to_json_dict())), sort_keys=True), page)
+    print(f"serve one-shot: two ProfileReports in "
+          f"{time.perf_counter() - t0:.3f} s on {card}", flush=True)
+    process_cache().clear()
+
+    sched = ProfileScheduler(workers=2, read_cache="on", **dev)
+
+    def job(label, tenant="t1", outputs=True, **kw):
+        cfg = {"batch_rows": batch, **kw}
+        if label == "proj":
+            cfg["columns"] = proj
+        out = {}
+        if outputs:
+            stem = f"{tmp}/{label}-{time.perf_counter_ns()}"
+            out = {"stats_json": f"{stem}.json", "output": f"{stem}.html"}
+        return sched.submit(source=head_dir, tenant=tenant,
+                            config_kwargs=cfg, **out)
+
+    def check_equal(j, label):
+        require(j.state == DONE, f"serve {j.id}: {j.state} {j.error}")
+        with open(j.stats_json) as fh:
+            got = json.dumps(json.load(fh), sort_keys=True)
+        with open(j.output, encoding="utf-8") as fh:
+            page = without_footer(fh.read())
+        want_json, want_html = one[label]
+        require(got == want_json,
+                f"serve {j.id}: stats differ from the one-shot {label}")
+        require(page == want_html,
+                f"serve {j.id}: HTML differs from the one-shot {label}")
+
+    def wait_all(jobs, timeout=600):
+        for j in jobs:
+            sched.wait(j, timeout=timeout)
+
+    # ---- 4 concurrent jobs of two tenants --------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    four = [job("full", "t1"), job("proj", "t1"), job("full", "t2"),
+            job("proj", "t2")]
+    wait_all(four[:2])
+    mem2 = torch.cuda.memory_reserved() if not rehearsal else 0
+    wait_all(four[2:])
+    four_s = time.perf_counter() - t0
+    counts = read_counts()
+    for j, label in zip(four, ("full", "proj", "full", "proj")):
+        check_equal(j, label)
+    # jobs 3 and 4 repeat jobs 1 and 2's keys: their runners were cached
+    require(four[2].cache_hit is True and four[3].cache_hit is True,
+            f"serve repeat keys: cache_hit {four[2].cache_hit} "
+            f"{four[3].cache_hit}")
+    if not rehearsal:
+        require(counts["fused_a"] == 4 * nb and counts["hist_b"] == 4 * nb,
+                f"serve 4 jobs: K1 {counts['fused_a']}, K2 "
+                f"{counts['hist_b']}; expected {4 * nb} each")
+    lat = ", ".join(f"{j.seconds:.3f}" for j in four)
+    print(f"serve 4 concurrent jobs (200, 20, 200, 20 columns x {n:,} "
+          f"rows, tenants t1/t2, 2 workers): {four_s:.3f} s; latencies "
+          f"{lat} s; K1 {counts['fused_a']} K2 {counts['hist_b']} "
+          f"(4 x {nb} batches); each equal to its one-shot (stats and "
+          f"HTML); jobs 3 and 4 on cached runners; memory_reserved after "
+          f"job 2 {mem2} B on {card}", flush=True)
+
+    # ---- a fused job ------------------------------------------------------
+    zero_counts()
+    fz = job("full", profile_passes="fused")
+    wait_all([fz])
+    check_equal(fz, "full")
+    counts = read_counts()
+    if not rehearsal:
+        require(counts["fused_ab"] == nb,
+                f"serve fused: K4 {counts['fused_ab']}, expected {nb}")
+    print(f"serve fused job: {fz.seconds:.3f} s, K4 {counts['fused_ab']} "
+          f"K2 {counts['hist_b']}, equal to the two-pass one-shot",
+          flush=True)
+
+    # ---- two identical submits coalesce; a repeat is a read-tier answer ---
+    zero_counts()
+    a, b = job("full", outputs=False), job("full", outputs=False)
+    wait_all([a, b])
+    counts = read_counts()
+    require(a.state == DONE and b.state == DONE
+            and b.coalesced_with == a.id and a.result == b.result,
+            f"serve coalesce: {a.to_wire()} {b.to_wire()}")
+    if not rehearsal:
+        require(counts["fused_a"] == nb and counts["hist_b"] == nb,
+                f"serve coalesce: K1 {counts['fused_a']} K2 "
+                f"{counts['hist_b']}; one job's is {nb}")
+    pair = counts
+    zero_counts()
+    c = job("full", outputs=False)
+    counts = read_counts()
+    require(c.state == DONE and c.read_cache == "hit"
+            and c.result == a.result, f"serve read tier: {c.to_wire()}")
+    require(not any(counts.values()),
+            f"serve read tier: launches {counts}")
+    print(f"serve coalesced pair: one computation ({a.seconds:.3f} s, "
+          f"K1 {pair['fused_a']} K2 {pair['hist_b']}); read-tier answer "
+          f"in {c.seconds * 1e3:.3f} ms with no launch on {card}",
+          flush=True)
+
+    # ---- a hung job fails on the watchdog, the next one runs ---------------
+    faults.configure("serve_job:sleep=8@1")
+    try:
+        hung = job("full", job_timeout_s=3.0)
+        wait_all([hung])
+    finally:
+        faults.reset()
+    require(hung.state == FAILED and hung.exit_code == 4,
+            f"serve hung job: {hung.to_wire()}")
+    after = job("full")
+    wait_all([after])
+    check_equal(after, "full")
+    # the abandoned body still profiles on the card: let it end before
+    # memory is read
+    deadline = time.monotonic() + 120
+    while any(t.name.startswith("tpuprof-torch-watchdog-serve_job")
+              for t in threading.enumerate()):
+        require(time.monotonic() < deadline,
+                "serve: the abandoned job body did not end")
+        time.sleep(0.1)
+    st = sched.stats()
+    sched.shutdown()
+    print(f"serve hung job: FAILED exit 4 after {hung.seconds:.3f} s "
+          f"(job_timeout_s 3); the next job DONE in {after.seconds:.3f} s "
+          f"and equal; warm p50 {st['p50_s']} s p99 {st['p99_s']} s over "
+          f"{st['done']} done jobs; runner cache {st['cache']}",
+          flush=True)
+    if not rehearsal:
+        mem_last = torch.cuda.memory_reserved()
+        group = 8 * batch * cols * (4 + 2) + 8 * batch
+        require(mem_last <= mem2 + group,
+                f"serve memory: reserved {mem_last} B after the last job, "
+                f"{mem2} B after job 2 (+ one staged group {group} B)")
+        print(f"serve memory_reserved: {mem2} B after job 2, {mem_last} B "
+              f"after the last job (bound + {group} B) on {card}",
+              flush=True)
+
+    # ---- daemons as child processes: cold build, then a warm restart -----
+    spool = f"{tmp}/spool"
+    store = f"{spool}/aot"
+    d = Daemon([spool, "--compile-cache", f"{tmp}/build_a",
+                "--aot-cache-dir", store, *dev_args])
+    # the submit child starts beside the daemon: the job waits in the
+    # spool, and the two processes' starts overlap
+    sub = []
+    client = threading.Thread(target=lambda: sub.append(submit_child(
+        spool, head_dir, f"{tmp}/da.json", batch)))
+    client.start()
+    d.wait_for(r"serving .* on ", 300)
+    start_a = time.perf_counter() - d.t0
+    client.join(timeout=700)
+    require(bool(sub), "daemon A: the submit child did not finish")
+    jid_a, cold_a, sub_a = sub[0]
+    m, wall_a = d.stop()
+    builds_a, nvcc_a = int(m.group(9)), float(m.group(10))
+    if not rehearsal:
+        require(builds_a >= 2 and int(m.group(12)) >= 1,
+                f"daemon A: nvcc builds {builds_a}, store saved "
+                f"{m.group(12)}; expected builds and a saved entry")
+    print(f"daemon A: ready in {start_a:.3f} s, cold first job "
+          f"{cold_a:.3f} s (submit child {sub_a:.3f} s), nvcc builds "
+          f"{builds_a} taking {nvcc_a:.3f} s, store saved {m.group(12)}, "
+          f"drained on SIGTERM with exit 0 after {wall_a:.3f} s on {card}",
+          flush=True)
+
+    d = Daemon([spool, "--compile-cache", f"{tmp}/build_b",
+                "--aot-cache-dir", store, *dev_args])
+    d.wait_for(r"serving .* on ", 300)
+    start_b = time.perf_counter() - d.t0
+    # in process: a second submit child would only pay the start again
+    jid_b = write_job(spool, head_dir, stats_json=f"{tmp}/db.json",
+                      config_kwargs={"batch_rows": batch})
+    res_b = wait_result(spool, jid_b, timeout=600)
+    require(res_b.get("status") == "done", f"daemon B: {res_b}")
+    cold_b = res_b["seconds"]
+    # a job file as the reference's client writes it (tpuprof-serve-job-v1)
+    ref_id = "reference-client-job"
+    ref_job = {"schema": JOB_SCHEMA, "id": ref_id, "tenant": "default",
+               "source": os.path.abspath(head_dir), "output": None,
+               "stats_json": None, "artifact": None,
+               "config": {"backend": "tpu", "batch_rows": batch}}
+    with open(f"{spool}/tmp/.{ref_id}.json", "w") as fh:
+        json.dump(ref_job, fh)
+    os.replace(f"{spool}/tmp/.{ref_id}.json", f"{spool}/jobs/{ref_id}.json")
+    t0 = time.perf_counter()
+    res = None
+    while res is None and time.perf_counter() - t0 < 600:
+        res = read_result(spool, ref_id)
+        time.sleep(0.05)
+    require(res is not None and res.get("schema") == RESULT_SCHEMA
+            and res.get("status") == "done" and res.get("rows") == n
+            and res.get("cols") == cols,
+            f"daemon B: the reference-format job's result {res}")
+    pw = d.wait_for(r"prewarm done: loaded (\d+) missed (\d+) failed "
+                    r"(\d+) in ([\d.]+)s", 300)
+    m, wall_b = d.stop()
+    with open(f"{tmp}/da.json", "rb") as fa, open(f"{tmp}/db.json",
+                                                  "rb") as fb:
+        require(fa.read() == fb.read(),
+                "daemon B: its job's stats differ from daemon A's")
+    builds_b = int(m.group(9))
+    require(builds_b == 0, f"daemon B: {builds_b} nvcc builds, expected 0")
+    require(int(pw.group(1)) >= 1 and int(pw.group(3)) == 0,
+            f"daemon B: prewarm {pw.group(0)}")
+    if not rehearsal:
+        require(int(m.group(11)) >= 1,
+                f"daemon B: store loaded {m.group(11)}, expected >= 1")
+    print(f"daemon B (empty build dir, the same store): ready in "
+          f"{start_b:.3f} s, cold first job {cold_b:.3f} s, nvcc builds "
+          f"0, store loaded {m.group(11)}, "
+          f"prewarm loaded {pw.group(1)} in {pw.group(4)} s, stats equal "
+          f"to daemon A's byte for byte; the reference-format job "
+          f"answered ({res['rows']:,} x {res['cols']}, {res['seconds']} "
+          f"s, {RESULT_SCHEMA}); exit 0 after {wall_b:.3f} s on {card}",
+          flush=True)
+
+
 def directory_truth(path: str):
     """pandas' ``nunique`` of every column of a Parquet directory, made once
     a process (phases 9 and 11 hold exact counts to it)."""
@@ -3992,7 +4376,7 @@ def glob_runs(path: str):
 
 
 PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
-          "exact", "obs", "fleet")
+          "exact", "obs", "fleet", "serve")
 
 
 def main(argv=None) -> int:
@@ -4001,7 +4385,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 11), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 12), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -4118,6 +4502,8 @@ def main(argv=None) -> int:
         timed(phase_obs, torch, rehearsal, card, k1_ms, cli)
     if "fleet" in only:
         timed(phase_fleet, torch, rehearsal, card, cli)
+    if "serve" in only:
+        timed(phase_serve, torch, rehearsal, card, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

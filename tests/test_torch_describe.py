@@ -241,15 +241,34 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("artifact_keep", 3), ("compile_cache_dir", "/nonexistent/cc"),
-    ("backend", "cpu"), ("job_timeout_s", 5.0),
-    ("aot_cache_dir", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
-    ("serve_http_port", 2), ("serve_workers", 2)])
+    ("artifact_keep", 3), ("breaker_threshold", 3),
+    ("backend", "cpu"), ("watch_every_s", 5.0),
+    ("serve_auth_file", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
+    ("serve_http_port", 2), ("serve_max_connections", 2)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         ProfilerConfig.from_kwargs(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,bad", [
+    ("compile_cache_dir", "/nonexistent/cc", None),
+    ("job_timeout_s", 5.0, 0.0), ("aot_cache_dir", "/nonexistent", None),
+    ("aot_cache", "off", "maybe"), ("aot_prewarm", 2, -1),
+    ("serve_workers", 2, 0), ("serve_queue_depth", 4, 0),
+    ("serve_tenant_quota", 1, -1), ("serve_backlog", 3, -1),
+    ("serve_drain_timeout_s", 1.5, -1.0), ("read_cache", "off", "no"),
+    ("read_cache_entries", 8, 0), ("read_cache_bytes", 4096, 0)])
+def test_serve_config_fields_accepted(field, value, bad):
+    """The serve slice's fields are accepted, with the reference's checks:
+    the same values raise ValueError in both packages."""
+    assert getattr(ProfilerConfig(**{field: value}), field) == value
+    assert getattr(RefConfig(**{field: value}), field) == value
+    if bad is not None:
+        for cls in (ProfilerConfig, RefConfig):
+            with pytest.raises(ValueError, match=field):
+                cls(**{field: bad})
 
 
 @pytest.mark.parametrize("field,value,bad", [
@@ -324,8 +343,9 @@ def test_port_imports_no_jax_and_no_reference():
     """A describe run in a fresh process, a checkpointed one, a wide one
     (the XLA twin and the exact rank tier), a ``StreamingProfiler``
     checkpointed and restored, a ``resume_profiler`` from a fold-state
-    artifact and an ``exact_distinct`` describe that spills load neither
-    jax nor any module of the reference package."""
+    artifact, an ``exact_distinct`` describe that spills, ``import
+    tpuprof_torch.serve`` and a job of its scheduler load neither jax nor
+    any module of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np, pandas as pd
@@ -384,6 +404,16 @@ def test_port_imports_no_jax_and_no_reference():
             assert stats["variables"]["c"]["distinct_count"] == 2
             assert stats["variables"]["x"]["distinct_count"] == 100
             assert os.listdir(tmp) == []
+        import tpuprof_torch.serve
+        from tpuprof_torch.serve import ProfileScheduler
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "t.parquet")
+            df.to_parquet(path)
+            sched = ProfileScheduler(workers=1, device="cpu")
+            job = sched.submit(source=path, config_kwargs={
+                "batch_rows": 32, "backend": "tpu"})
+            assert sched.wait(job, timeout=120).state == "done", job.error
+            sched.shutdown(timeout=120)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "tpuprof" or m.startswith("tpuprof."))

@@ -3,8 +3,8 @@
 The registry gives the same bytes for the same calls (``render_text``,
 ``snapshot``, ``to_wire``, ``merge_wire`` of two hosts' wires, a skewed
 ladder included), and behaves the same disabled, on a kind mismatch and
-under threads; the port registers the reference's 49 pipeline instruments
-with the reference's kinds; spans nest per thread with the reference's
+under threads; the port registers the reference's 49 pipeline instruments,
+the fleet's and the serve daemon's with the reference's kinds; spans nest per thread with the reference's
 paths and depths; the JSONL sink rotates as the reference's; ``RateEMA``,
 ``registry_progress_line`` and the config resolvers agree; the flight
 recorder keeps the reference's ring, bundle and signal semantics; memory
@@ -33,14 +33,17 @@ import tpuprof.artifact.incremental  # noqa: F401
 import tpuprof.ingest.prep  # noqa: F401
 import tpuprof.kernels.unique  # noqa: F401
 import tpuprof.obs as ref_obs
+import tpuprof.runtime.aot  # noqa: F401
 import tpuprof.runtime.checkpoint  # noqa: F401
 import tpuprof.runtime.fleet  # noqa: F401
 import tpuprof.runtime.guard  # noqa: F401
 import tpuprof.runtime.singlepass  # noqa: F401
 import tpuprof.runtime.stream  # noqa: F401
+import tpuprof.serve.server  # noqa: F401
 import tpuprof_torch  # noqa: F401  (imports every module of the port)
 import tpuprof_torch.artifact.drift  # noqa: F401
 import tpuprof_torch.artifact.incremental  # noqa: F401
+import tpuprof_torch.serve  # noqa: F401
 from test_obs_smoke import EVENT_SCHEMA
 from tpuprof import config as ref_config
 from tpuprof.obs import blackbox as ref_blackbox
@@ -98,6 +101,22 @@ INSTRUMENTS = (
 FLEET_INSTRUMENTS = (
     "tpuprof_fleet_rebalances_total", "tpuprof_fragments_stolen_total",
     "tpuprof_fleet_fragments_claimed", "tpuprof_fleet_fragments_done",
+)
+# the serve daemon's (serve/cache.py, serve/scheduler.py, serve/server.py)
+# and the store of built kernel libraries' (runtime/aot.py)
+SERVE_INSTRUMENTS = (
+    "tpuprof_serve_compile_cache_hits_total",
+    "tpuprof_serve_compile_cache_misses_total",
+    "tpuprof_read_cache_hits_total", "tpuprof_read_cache_misses_total",
+    "tpuprof_read_cache_evictions_total", "tpuprof_read_cache_demotes_total",
+    "tpuprof_read_cache_bytes", "tpuprof_read_cache_entries",
+    "tpuprof_serve_requests_total", "tpuprof_serve_queue_depth",
+    "tpuprof_serve_active_jobs", "tpuprof_serve_job_seconds",
+    "tpuprof_coalesced_jobs_total", "tpuprof_requests_shed_total",
+    "tpuprof_deadline_expired_total", "tpuprof_serve_jobs_claimed",
+    "tpuprof_serve_jobs_stolen_total", "tpuprof_serve_drain_seconds",
+    "tpuprof_aot_cache_hits_total", "tpuprof_aot_cache_misses_total",
+    "tpuprof_aot_load_seconds", "tpuprof_aot_save_seconds",
 )
 
 
@@ -280,9 +299,11 @@ def test_the_49_instruments_with_the_reference_kinds():
     mine = {n: i.kind for n, i in metrics.registry()._instruments.items()}
     ref = {n: i.kind for n, i in ref_metrics.registry()._instruments.items()}
     assert len(INSTRUMENTS) == len(set(INSTRUMENTS)) == 49
-    assert set(mine) == set(INSTRUMENTS) | set(FLEET_INSTRUMENTS)
-    assert {n: ref[n] for n in INSTRUMENTS + FLEET_INSTRUMENTS} == mine
-    for name in INSTRUMENTS + FLEET_INSTRUMENTS:
+    every = INSTRUMENTS + FLEET_INSTRUMENTS + SERVE_INSTRUMENTS
+    assert len(every) == len(set(every)) == 49 + 4 + 22
+    assert set(mine) == set(every)
+    assert {n: ref[n] for n in every} == mine
+    for name in every:
         a = metrics.registry()._instruments[name]
         b = ref_metrics.registry()._instruments[name]
         assert getattr(a, "buckets", None) == getattr(b, "buckets", None)

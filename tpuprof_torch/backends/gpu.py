@@ -62,7 +62,7 @@ import pandas as pd
 import pyarrow as pa
 import torch
 
-from tpuprof_torch import native, obs, schema
+from tpuprof_torch import _build, native, obs, schema
 from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_checkpoint_keep, resolve_elastic,
                                   resolve_fleet_dir, resolve_fleet_host_id,
@@ -94,8 +94,8 @@ from tpuprof_torch.runtime import checkpoint as ckpt
 from tpuprof_torch.runtime import distributed
 from tpuprof_torch.runtime import fleet as fleetrt
 from tpuprof_torch.runtime import guard, singlepass
-from tpuprof_torch.runtime.mesh import MeshRunner, local_devices
-from tpuprof_torch.runtime.runner import Runner
+from tpuprof_torch.runtime.mesh import local_devices
+from tpuprof_torch.serve.cache import acquire_runner
 from tpuprof_torch.testing import faults
 
 logger = logging.getLogger("tpuprof_torch")
@@ -577,22 +577,29 @@ class GPUStatsBackend:
 
     def _runner(self, config: ProfilerConfig, plan):
         """One device's :class:`Runner`, or a :class:`MeshRunner` when the
-        devices are several."""
+        devices are several, through the runner cache's acquire seam
+        (``serve/cache.py``: a repeat shape reuses its runner, and a miss
+        consults the store of built kernel libraries)."""
         devices = self._devices
         if devices is None:
             if self._device is not None:
-                return Runner(config, plan.n_num, plan.n_hash, self._device)
-            devices = local_devices(config.mesh_devices)
-            if len(devices) < 2:
-                # one card, or none: resolve_device says which
-                return Runner(config, plan.n_num, plan.n_hash, None)
-        return MeshRunner(config, plan.n_num, plan.n_hash, devices)
+                devices = [self._device]
+            else:
+                devices = local_devices(config.mesh_devices)
+                if len(devices) < 2:
+                    # one card, or none: resolve_device says which
+                    devices = None
+        return acquire_runner(config, plan.n_num, plan.n_hash, devices)
 
     def collect(self, source: Any, config: ProfilerConfig) -> Dict[str, Any]:
         # this profile's phase seconds ride its own stats dict: drop what
         # an earlier profile left
         get_phase_report(reset=True)
         obs.configure_from_config(config)   # metrics and the JSONL sink
+        if config.compile_cache_dir:
+            # the process's nvcc build directory (as the reference's
+            # field points jax's compilation cache, process-wide)
+            _build.set_build_dir(config.compile_cache_dir)
         pshard = distributed.process_info()
         # a postmortem from this process names its rank
         obs.blackbox.set_context(process_index=pshard[0],

@@ -1,7 +1,10 @@
 """Command line of the port: ``python -m tpuprof_torch profile data.parquet
--o report.html`` and ``python -m tpuprof_torch diff A.json B.json``.
+-o report.html``, ``python -m tpuprof_torch diff A.json B.json``, and the
+resident daemon ``python -m tpuprof_torch serve SPOOL`` with its client
+``python -m tpuprof_torch submit SPOOL data.parquet``.
 
-Counterpart of the ``profile`` and ``diff`` verbs of ``tpuprof/cli.py``,
+Counterpart of the ``profile``, ``diff``, ``serve`` and ``submit`` verbs of
+``tpuprof/cli.py``,
 with the same flag names and defaults for what the port runs.  ``--device``
 stands where the reference has ``--backend``: the profile runs on the first
 CUDA device unless ``--device cpu`` asks for the kernels' plain versions,
@@ -32,6 +35,17 @@ error or an unexpected exception leaves a flight-recorder bundle,
 ``tpuprof-postmortem-<pid>.json`` (in ``TPUPROF_POSTMORTEM_DIR``, else the
 working directory), and names it on stderr; SIGUSR1 dumps one and goes on,
 SIGTERM dumps one and ends the process.
+
+The daemon (``serve``) runs its jobs on ``cuda:0`` unless ``--device cpu``,
+and refuses to start without CUDA.  It answers ``submit`` jobs dropped into
+its spool directory, keeps runners and loaded kernel libraries warm, and
+stores the built libraries under ``SPOOL/aot`` (``--aot-cache-dir``) so a
+restarted daemon runs no nvcc.  SIGTERM drains it (running jobs finish,
+results flush) and it exits 0.  ``--compile-cache DIR`` names the directory
+nvcc builds into (``--no-compile-cache``: a directory private to the
+process, removed at exit).  The HTTP edge of the reference (``serve
+--http``, ``submit --url`` and the edge's flags) is a later slice: those
+flags exit 2 with one line that says so.
 """
 
 from __future__ import annotations
@@ -203,6 +217,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "batches, dispatches, recent rows/s) to stderr "
                         "every few seconds (implies metrics; interval = "
                         "--metrics-interval, default 5s)")
+    _add_build_cache_flags(p)
     ft = p.add_argument_group(
         "fault tolerance", "retry transient prepare failures, skip poison "
         "batches instead of dying, keep fallback checkpoint generations, "
@@ -284,6 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
     dist.add_argument("--process-id", type=int, metavar="I",
                       help="this process's rank in [0, N)")
 
+    _add_serve_parser(sub)
+    _add_submit_parser(sub)
+
     d = sub.add_parser(
         "diff", help="compare two stats artifacts and report per-column "
                      "drift (PSI/KS from stored histograms, distinct/"
@@ -309,8 +327,218 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# the reference's HTTP-edge flags: parsed so that they can be refused with
+# one line naming the slice that ports them
+_LATER_3B = "serve 3b (the HTTP edge)"
+
+
+def _add_build_cache_flags(p: argparse.ArgumentParser,
+                           aot_default: str = "TPUPROF_AOT_CACHE_DIR, "
+                           "else off") -> None:
+    """``--compile-cache``/``--no-compile-cache`` and the store of built
+    kernel libraries' ``--aot-cache-dir``/``--aot-cache``."""
+    p.add_argument("--aot-cache-dir", metavar="DIR", default=None,
+                   help="store of built kernel libraries: after a runner's "
+                        "libraries are built they are packed here (keyed "
+                        "by runner key + environment fingerprint), and a "
+                        "later process of the same key adopts them with "
+                        f"no nvcc run (default: {aot_default})")
+    p.add_argument("--aot-cache", default=None, choices=("on", "off"),
+                   help="the store's switch: 'off' never reads or writes "
+                        "an entry even with a dir configured (default: "
+                        "TPUPROF_AOT_CACHE, else on)")
+    cache = p.add_mutually_exclusive_group()
+    cache.add_argument(
+        "--compile-cache", metavar="DIR", default=None,
+        help="directory nvcc builds the kernel libraries into (default: "
+             "TPUPROF_TORCH_BUILD_DIR, else build/tpuprof_torch/ beside "
+             "the package)")
+    cache.add_argument(
+        "--no-compile-cache", action="store_true",
+        help="build into a directory private to this process, removed "
+             "at exit: nothing shared is written")
+
+
+def _add_serve_parser(sub) -> None:
+    s = sub.add_parser(
+        "serve", help="resident profile daemon: hold the card, the warm "
+                      "runners and the loaded kernel libraries, and "
+                      "answer `submit` jobs from a spool directory")
+    s.add_argument("spool", help="spool directory (jobs/ + results/); "
+                                 "clients on this host — or shared "
+                                 "storage — drop requests here")
+    s.add_argument("--device", default=None,
+                   help="torch device the jobs run on (default: cuda:0, "
+                        "which must exist; 'cpu' runs the kernels' plain "
+                        "PyTorch versions)")
+    s.add_argument("--serve-workers", type=int, default=None, metavar="N",
+                   help="concurrent jobs on the card (host prep of job B "
+                        "overlaps job A's launches; default: "
+                        "TPUPROF_SERVE_WORKERS, else 2)")
+    s.add_argument("--serve-queue-depth", type=int, default=None,
+                   metavar="N",
+                   help="admission bound: jobs queued beyond the running "
+                        "set before submits REJECT (default: "
+                        "TPUPROF_SERVE_QUEUE_DEPTH, else 32)")
+    s.add_argument("--serve-tenant-quota", type=int, default=None,
+                   metavar="N",
+                   help="per-tenant queued+running cap; 0 = unlimited "
+                        "(default: TPUPROF_SERVE_TENANT_QUOTA, else 0)")
+    s.add_argument("--job-timeout", type=float, default=None,
+                   dest="job_timeout_s", metavar="SEC",
+                   help="per-job watchdog: a profile running past SEC "
+                        "fails with exit code 4 and frees its worker "
+                        "(default: TPUPROF_JOB_TIMEOUT_S, else off)")
+    fleet = s.add_argument_group(
+        "serve fleet", "N daemons with --claim-jobs sharing ONE spool "
+        "claim jobs atomically, heartbeat, and steal a dead peer's "
+        "unanswered jobs")
+    fleet.add_argument("--claim-jobs", action="store_true",
+                       help="claim spool jobs atomically so N daemons "
+                            "can share one spool")
+    fleet.add_argument("--daemon-id", metavar="ID",
+                       help="stable daemon identity for claims and "
+                            "heartbeats (default: TPUPROF_FLEET_HOST_ID, "
+                            "else hostname-pid)")
+    fleet.add_argument("--liveness-timeout", type=float, default=None,
+                       metavar="SEC",
+                       help="heartbeat staleness before a fleet daemon is "
+                            "declared dead and its claimed jobs stolen "
+                            "(default: TPUPROF_LIVENESS_TIMEOUT_S, else "
+                            "10)")
+    overload = s.add_argument_group(
+        "overload + drain", "admission shed past a backlog budget (the "
+        "read tier keeps answering) and the SIGTERM drain budget")
+    overload.add_argument(
+        "--serve-backlog", type=int, default=None, metavar="N",
+        help="shed budget: uncacheable submits are rejected once N "
+             "compute jobs are queued; 0 = off (default: "
+             "TPUPROF_SERVE_BACKLOG, else 0)")
+    overload.add_argument(
+        "--serve-drain-timeout", type=float, default=None,
+        dest="serve_drain_timeout_s", metavar="SEC",
+        help="graceful-drain budget on SIGTERM: running jobs get SEC to "
+             "finish and flush (default: TPUPROF_SERVE_DRAIN_TIMEOUT_S, "
+             "else 30)")
+    edge = s.add_argument_group(
+        "HTTP edge", f"not in the port yet ({_LATER_3B}): each of these "
+        "exits 2")
+    edge.add_argument("--http", type=int, default=None,
+                      dest="serve_http_port", metavar="PORT")
+    edge.add_argument("--serve-auth-file", metavar="PATH")
+    edge.add_argument("--breaker-threshold", type=int, default=None,
+                      metavar="N")
+    edge.add_argument("--breaker-cooldown", type=float, default=None,
+                      dest="breaker_cooldown_s", metavar="SEC")
+    edge.add_argument("--serve-max-connections", type=int, default=None,
+                      metavar="N")
+    edge.add_argument("--serve-conn-timeout", type=float, default=None,
+                      dest="serve_conn_timeout_s", metavar="SEC")
+    edge.add_argument("--serve-max-header-bytes", type=int, default=None,
+                      metavar="B")
+    edge.add_argument("--serve-max-body-bytes", type=int, default=None,
+                      metavar="B")
+    aot = s.add_argument_group(
+        "restart-to-warm (the store of built kernel libraries)",
+        "after a runner's kernel libraries are built they are packed into "
+        "SPOOL/aot keyed by runner key + environment fingerprint; a "
+        "RESTARTED daemon adopts them with no nvcc run and warms its "
+        "hottest keys in the background")
+    aot.add_argument("--aot-prewarm", type=int, default=None, metavar="K",
+                     help="adopt and warm the manifest's K hottest runner "
+                          "keys at startup, in the background (0 = lazy "
+                          "loads only; default: TPUPROF_AOT_PREWARM, "
+                          "else 4)")
+    _add_build_cache_flags(aot, aot_default="TPUPROF_AOT_CACHE_DIR, "
+                           "else SPOOL/aot")
+    read = s.add_argument_group(
+        "read-path tier (result cache + coalescing)", "terminal answers "
+        "keyed by (source fingerprint, config fingerprint): a repeat "
+        "submit of an unchanged source is answered with no launch, and "
+        "N concurrent identical submits collapse onto ONE compute")
+    read.add_argument("--read-cache", default=None, choices=("on", "off"),
+                      help="'off' disables the result cache AND "
+                           "coalescing (default: TPUPROF_READ_CACHE, "
+                           "else on)")
+    read.add_argument("--read-cache-entries", type=int, default=None,
+                      metavar="N",
+                      help="LRU entry cap on the result cache (default: "
+                           "TPUPROF_READ_CACHE_ENTRIES, else 512)")
+    read.add_argument("--read-cache-bytes", type=int, default=None,
+                      metavar="B",
+                      help="LRU byte cap on cached answers (default: "
+                           "TPUPROF_READ_CACHE_BYTES, else 64 MiB)")
+    s.add_argument("--once", action="store_true",
+                   help="answer the spool's current jobs, then exit "
+                        "(CI / cron mode; default: serve until SIGTERM)")
+    s.add_argument("--poll-interval", type=float, default=0.2,
+                   metavar="SEC", help="spool scan cadence")
+    s.add_argument("--metrics-json", metavar="PATH",
+                   help="stream serve + pipeline JSONL events here and "
+                        "dump PATH.prom on exit")
+    s.add_argument("--metrics-interval", type=float, default=0.0,
+                   metavar="SEC",
+                   help="with --metrics-json: periodic snapshot cadence")
+    s.add_argument("--progress", action="store_true",
+                   help="one-line pipeline status to stderr every few "
+                        "seconds")
+
+
+def _add_submit_parser(sub) -> None:
+    u = sub.add_parser(
+        "submit", help="hand one profile job to a running `serve` daemon "
+                       "through its spool directory and (by default) "
+                       "wait for the result")
+    u.add_argument("spool", nargs="?", default=None,
+                   help="the daemon's spool directory")
+    u.add_argument("source", nargs="?", default=None,
+                   help="Parquet file/directory path")
+    u.add_argument("--url", metavar="http://HOST:PORT",
+                   help=f"not in the port yet ({_LATER_3B}): exits 2")
+    u.add_argument("-o", "--output", default=None,
+                   help="output HTML path (default: none — use "
+                        "--stats-json or --artifact for machine "
+                        "consumers)")
+    u.add_argument("--tenant", default="default",
+                   help="quota bucket this job bills against")
+    u.add_argument("--bins", type=int, default=None)
+    u.add_argument("--batch-rows", type=int, default=None)
+    u.add_argument("--columns", metavar="A,B,C",
+                   help="profile only these columns")
+    u.add_argument("--single-pass", action="store_true",
+                   help="one scan only (sketch-derived histograms)")
+    u.add_argument("--stats-json", metavar="PATH",
+                   help="dump the tpuprof-stats-v1 JSON here")
+    u.add_argument("--artifact", metavar="PATH",
+                   help="persist a CRC-sealed stats artifact here")
+    u.add_argument("--config-json", metavar="JSON|@FILE",
+                   help="extra ProfilerConfig kwargs as inline JSON or "
+                        "@path-to-file (unknown keys REJECT)")
+    u.add_argument("--no-wait", action="store_true",
+                   help="enqueue and print the job id without waiting")
+    u.add_argument("--timeout", type=float, default=None, metavar="SEC",
+                   help="give up waiting after SEC (the job keeps "
+                        "running in the daemon)")
+    u.add_argument("--deadline-ms", type=int, default=None, metavar="MS",
+                   help="answer-within budget the DAEMON enforces: a job "
+                        "still queued MS milliseconds after submit is "
+                        "never started (DeadlineExceededError, exit code "
+                        "11)")
+
+
 def _error(msg) -> None:
     print(f"{PROG}: error: {msg}", file=sys.stderr)
+
+
+def _apply_build_dir(args: argparse.Namespace) -> None:
+    """``--compile-cache`` / ``--no-compile-cache``: where this process's
+    nvcc builds go (an explicit directory, else ``TPUPROF_TORCH_BUILD_DIR``,
+    else ``build/tpuprof_torch/``)."""
+    from tpuprof_torch import _build
+    if args.no_compile_cache:
+        _build.use_private_build_dir()
+    elif args.compile_cache:
+        _build.set_build_dir(args.compile_cache)
 
 
 def cmd_profile(args: argparse.Namespace) -> int:
@@ -351,6 +579,7 @@ def cmd_profile(args: argparse.Namespace) -> int:
     except (RuntimeError, ValueError) as exc:
         _error(exc)
         return 2
+    _apply_build_dir(args)
     if multi:
         from tpuprof_torch.config import resolve_watchdog_timeout
         from tpuprof_torch.runtime.distributed import initialize
@@ -399,7 +628,8 @@ def cmd_profile(args: argparse.Namespace) -> int:
             else None,
             metrics_path=args.metrics_json,
             metrics_interval=args.metrics_interval,
-            metrics_max_bytes=args.metrics_max_bytes)
+            metrics_max_bytes=args.metrics_max_bytes,
+            aot_cache_dir=args.aot_cache_dir, aot_cache=args.aot_cache)
     except ValueError as exc:
         _error(exc)
         return 2
@@ -521,10 +751,238 @@ def cmd_diff(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    import os
+    import signal
+    import threading
+
+    from tpuprof_torch import _build, obs
+    from tpuprof_torch.config import (resolve_aot_cache,
+                                      resolve_aot_cache_dir,
+                                      resolve_read_cache,
+                                      resolve_read_cache_bytes,
+                                      resolve_read_cache_entries)
+    from tpuprof_torch.obs import blackbox
+    from tpuprof_torch.runtime import aot
+    from tpuprof_torch.runtime.runner import resolve_device
+    from tpuprof_torch.serve import ServeDaemon
+
+    edge = [flag for flag, value in (
+        ("--http", args.serve_http_port),
+        ("--serve-auth-file", args.serve_auth_file),
+        ("--breaker-threshold", args.breaker_threshold),
+        ("--breaker-cooldown", args.breaker_cooldown_s),
+        ("--serve-max-connections", args.serve_max_connections),
+        ("--serve-conn-timeout", args.serve_conn_timeout_s),
+        ("--serve-max-header-bytes", args.serve_max_header_bytes),
+        ("--serve-max-body-bytes", args.serve_max_body_bytes))
+        if value is not None]
+    if edge:
+        _error(f"{', '.join(edge)}: not in the PyTorch port yet (later "
+               f"slice: {_LATER_3B}); the spool daemon serves without it")
+        return 2
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as exc:
+        _error(exc)
+        return 2
+    # SIGUSR1 postmortems carry the live job queue (the scheduler's
+    # dump-time context provider)
+    blackbox.install_signal_handlers()
+    _apply_build_dir(args)
+    ticker = None
+    if args.metrics_json or args.progress:
+        obs.configure(enabled=True, jsonl_path=args.metrics_json)
+        interval = args.metrics_interval or (5.0 if args.progress else 0.0)
+        if interval > 0:
+            ticker = obs.Ticker(interval, progress=args.progress,
+                                snapshots=bool(args.metrics_json)).start()
+    try:
+        # the daemon's store defaults to SPOOL/aot: a restarted daemon
+        # adopts its built libraries instead of re-running nvcc
+        aot_dir = None
+        if resolve_aot_cache(args.aot_cache) == "on":
+            aot_dir = resolve_aot_cache_dir(args.aot_cache_dir) \
+                or os.path.join(args.spool, "aot")
+        daemon = ServeDaemon(
+            args.spool, poll_interval=args.poll_interval,
+            claim_jobs=args.claim_jobs, daemon_id=args.daemon_id,
+            liveness_timeout_s=args.liveness_timeout,
+            drain_timeout_s=args.serve_drain_timeout_s,
+            aot_cache_dir=aot_dir, aot_cache=args.aot_cache,
+            aot_prewarm=args.aot_prewarm, device=device,
+            workers=args.serve_workers,
+            queue_depth=args.serve_queue_depth,
+            tenant_quota=args.serve_tenant_quota,
+            job_timeout_s=args.job_timeout_s,
+            read_cache=resolve_read_cache(args.read_cache),
+            read_cache_entries=resolve_read_cache_entries(
+                args.read_cache_entries),
+            read_cache_bytes=resolve_read_cache_bytes(
+                args.read_cache_bytes),
+            serve_backlog=args.serve_backlog)
+    except ValueError as exc:
+        if ticker is not None:
+            ticker.stop()
+        _error(exc)
+        return 2
+    sched = daemon.scheduler
+    if aot_dir:
+        print(f"{PROG}: kernel library store at {aot_dir} (prewarming "
+              f"{daemon.prewarmer.top_k if daemon.prewarmer else 0} "
+              "hottest keys)", file=sys.stderr, flush=True)
+    if daemon.prewarmer is not None:
+        def _prewarmed(pw=daemon.prewarmer):
+            pw.wait()
+            st = pw.status()
+            print(f"{PROG}: prewarm done: loaded {st['loaded']} missed "
+                  f"{st['missed']} failed {st['failed']} in "
+                  f"{st['seconds']}s", file=sys.stderr, flush=True)
+        threading.Thread(target=_prewarmed, daemon=True,
+                         name="tpuprof-torch-prewarm-report").start()
+
+    # a daemon drains on SIGTERM (running jobs finish, results and the
+    # .prom dump flush, exit 0), overriding the flight recorder's
+    # dump-and-die, which is right for a crashed profile but turns a
+    # routine stop into a signal death; SIGUSR1 keeps dump-and-continue
+    def _graceful(signum, frame):
+        blackbox.record("signal", name="SIGTERM", action="drain")
+        daemon.stop_event.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _graceful)
+    except (ValueError, OSError):
+        pass                    # not the main thread: rely on stop_event
+    print(f"{PROG}: serving {args.spool} on {sched.device} — "
+          f"{sched.workers} workers, queue depth {sched._queue.depth}, "
+          f"tenant quota {sched._queue.tenant_quota or 'unlimited'}"
+          + (" (once)" if args.once else ""), file=sys.stderr, flush=True)
+    try:
+        daemon.run(once=args.once)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        daemon.close()
+        # the store's background saves finish before the closing line
+        aot.wait_pending_saves()
+        if ticker is not None:
+            ticker.stop()
+        if args.metrics_json:
+            obs.finalize(reason="serve")
+            with open(args.metrics_json + ".prom", "w") as fh:
+                fh.write(obs.registry().render_text())
+    st = sched.stats()
+    pw = daemon.prewarmer.status() if daemon.prewarmer else None
+    print(f"{PROG}: served {st['requests']} jobs "
+          f"({st['done']} done, {st['failed']} failed, "
+          f"{st['rejected']} rejected) · p50 {st['p50_s']}s "
+          f"p99 {st['p99_s']}s · runner cache "
+          f"{st['cache']['hits']}/"
+          f"{st['cache']['hits'] + st['cache']['misses']} hits · "
+          f"nvcc builds {_build.builds.get('nvcc', 0)} "
+          f"({_build.build_seconds.get('nvcc', 0.0):.3f}s) · store "
+          f"loaded {aot.counts['loaded']} saved {aot.counts['saved']} "
+          f"corrupt {aot.counts['corrupt']}"
+          + (f" · prewarm loaded {pw['loaded']} missed {pw['missed']} "
+             f"failed {pw['failed']} in {pw['seconds']}s" if pw else ""),
+          file=sys.stderr, flush=True)
+    return 0
+
+
+def _parse_config_json(raw) -> dict:
+    """``--config-json JSON|@FILE``: a dict of extra ProfilerConfig kwargs.
+    Raises ValueError in the CLI's bad-request convention."""
+    if not raw:
+        return {}
+    try:
+        if raw.startswith("@"):
+            with open(raw[1:]) as fh:
+                extra = json.load(fh)
+        else:
+            extra = json.loads(raw)
+    except OSError as exc:
+        raise ValueError(str(exc)) from exc
+    if not isinstance(extra, dict):
+        raise ValueError("must be a JSON object")
+    return extra
+
+
+def cmd_submit(args: argparse.Namespace) -> int:
+    # the spool half of the reference's submit: it writes a job file and
+    # polls for the result, and creates no CUDA context (torch is never
+    # imported here)
+    from tpuprof_torch.errors import CorruptResultError, exit_code
+    from tpuprof_torch.serve.server import wait_result, write_job
+
+    if args.url:
+        _error(f"--url: not in the PyTorch port yet (later slice: "
+               f"{_LATER_3B}); submit through the daemon's spool "
+               "directory")
+        return 2
+    if args.spool is None or args.source is None:
+        _error("submit needs the daemon's spool directory and a source "
+               "path")
+        return 2
+    config = {}
+    if args.bins is not None:
+        config["bins"] = args.bins
+    if args.batch_rows is not None:
+        config["batch_rows"] = args.batch_rows
+    if args.columns is not None:
+        config["columns"] = tuple(c.strip() for c in args.columns.split(",")
+                                  if c.strip())
+    if args.single_pass:
+        config["exact_passes"] = False
+    try:
+        config.update(_parse_config_json(args.config_json))
+    except ValueError as exc:
+        _error(f"--config-json: {exc}")
+        return 2
+    # a relative --deadline-ms budget resolves to an absolute wall clock
+    # HERE, at submit time: the wait in the spool is what it bounds
+    deadline_unix_ms = (int((time.time() + args.deadline_ms / 1000.0)
+                            * 1000)
+                        if args.deadline_ms is not None else None)
+    job_id = write_job(args.spool, args.source, output=args.output,
+                       tenant=args.tenant, stats_json=args.stats_json,
+                       artifact=args.artifact, config_kwargs=config,
+                       deadline_unix_ms=deadline_unix_ms)
+    if args.no_wait:
+        print(job_id)
+        return 0
+    try:
+        result = wait_result(args.spool, job_id, timeout=args.timeout)
+    except CorruptResultError as exc:
+        _error(exc)
+        return exit_code(exc)
+    except TimeoutError as exc:
+        _error(exc)
+        return 4                # the watchdog-shaped failure
+    status = result.get("status")
+    if status == "done":
+        rows = result.get("rows")
+        rows_s = f"{rows:,}" if isinstance(rows, int) else "?"
+        print(f"{PROG}: job {job_id}: {rows_s} rows "
+              f"x {result.get('cols', '?')} cols -> "
+              f"{result.get('output') or args.stats_json or '(no output)'}"
+              f" in {result.get('seconds', 0)}s "
+              f"(queued {result.get('queue_seconds', 0)}s)",
+              file=sys.stderr)
+        return 0
+    _error(f"job {job_id} {status}: {result.get('error', 'unknown')}")
+    if status == "rejected":
+        return 2                # the CLI's bad-request convention
+    return int(result.get("exit_code") or 1)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "profile":
         return cmd_profile(args)
+    if args.command == "serve":
+        return cmd_serve(args)
+    if args.command == "submit":
+        return cmd_submit(args)
     return cmd_diff(args)
 
 

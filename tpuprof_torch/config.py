@@ -26,39 +26,32 @@ UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
 UNIQUE_BUDGET_RAM_SHARE = 0.25
 UNIQUE_BUDGET_CAP_ROWS = 1 << 28
 
-_SERVE = "serve"
+# the serve slice's second half: the HTTP edge and what only it builds (the
+# breaker, the drift watch, the warehouse and its retention)
+_SERVE_3B = "serve 3b: the HTTP edge, the breaker, the drift watch and " \
+    "the warehouse"
 
 # field -> the later slice that ports it
 _LATER = {
     "backend": "a CPU oracle backend",
-    "compile_cache_dir": _SERVE,
-    "serve_workers": _SERVE,
-    "serve_queue_depth": _SERVE,
-    "serve_tenant_quota": _SERVE,
-    "serve_http_port": _SERVE,
-    "serve_auth_file": _SERVE,
-    "serve_backlog": _SERVE,
-    "serve_drain_timeout_s": _SERVE,
-    "breaker_threshold": _SERVE,
-    "breaker_cooldown_s": _SERVE,
-    "serve_max_connections": _SERVE,
-    "serve_conn_timeout_s": _SERVE,
-    "serve_max_header_bytes": _SERVE,
-    "serve_max_body_bytes": _SERVE,
-    "job_timeout_s": _SERVE,
-    "watch_every_s": _SERVE,
-    "warehouse_dir": _SERVE,
-    "warehouse_format": _SERVE,
-    "aot_cache_dir": _SERVE,
-    "aot_cache": _SERVE,
-    "aot_prewarm": _SERVE,
-    "read_cache": _SERVE,
-    "read_cache_entries": _SERVE,
-    "read_cache_bytes": _SERVE,
-    "artifact_keep": _SERVE,
+    "serve_http_port": _SERVE_3B,
+    "serve_auth_file": _SERVE_3B,
+    "breaker_threshold": _SERVE_3B,
+    "breaker_cooldown_s": _SERVE_3B,
+    "serve_max_connections": _SERVE_3B,
+    "serve_conn_timeout_s": _SERVE_3B,
+    "serve_max_header_bytes": _SERVE_3B,
+    "serve_max_body_bytes": _SERVE_3B,
+    "watch_every_s": _SERVE_3B,
+    "warehouse_dir": _SERVE_3B,
+    "warehouse_format": _SERVE_3B,
+    "artifact_keep": _SERVE_3B,
     "use_pallas": "none: the port always runs its kernels on CUDA",
     "use_fused": "none: the port always runs its kernels on CUDA",
 }
+
+AOT_CACHE_MODES = ("on", "off")
+READ_CACHE_MODES = ("on", "off")
 
 # the largest Spearman CDF grid (G) the kernels K5/K6 take: each column's
 # grid sits in shared memory.  The backend clamps ``spearman_grid`` to it,
@@ -194,32 +187,42 @@ class ProfilerConfig:
     liveness_timeout_s: Optional[float] = None  # heartbeat staleness after
                                                 # which a member is dead
 
+    # ---- the serve daemon (tpuprof_torch/serve, runtime/aot.py) -----------
+    compile_cache_dir: Optional[str] = None  # where nvcc builds the kernel
+                                             # libraries (resolve_*)
+    serve_workers: Optional[int] = None     # concurrent jobs (resolve_*)
+    serve_queue_depth: Optional[int] = None  # jobs queued before submits
+                                             # reject
+    serve_tenant_quota: Optional[int] = None  # per-tenant queued+running
+                                              # cap (0: unlimited)
+    serve_backlog: Optional[int] = None     # queued compute jobs past which
+                                            # uncacheable submits shed
+                                            # (0: off)
+    serve_drain_timeout_s: Optional[float] = None  # SIGTERM drain budget
+    job_timeout_s: Optional[float] = None   # per-job watchdog of a served
+                                            # profile (None: off)
+    aot_cache_dir: Optional[str] = None     # the store of built kernel
+                                            # libraries (runtime/aot.py)
+    aot_cache: Optional[str] = None         # "on" | "off" (resolve_*)
+    aot_prewarm: Optional[int] = None       # hottest store keys a daemon
+                                            # warms at start
+    read_cache: Optional[str] = None        # "on" | "off": the read tier
+    read_cache_entries: Optional[int] = None  # its LRU entry cap
+    read_cache_bytes: Optional[int] = None  # its LRU payload-bytes cap
+
     # ---- reference fields a later slice ports (see _LATER) ----------------
     backend: str = "auto"
-    compile_cache_dir: Optional[str] = None
-    serve_workers: Optional[int] = None
-    serve_queue_depth: Optional[int] = None
-    serve_tenant_quota: Optional[int] = None
     serve_http_port: Optional[int] = None
     serve_auth_file: Optional[str] = None
-    serve_backlog: Optional[int] = None
-    serve_drain_timeout_s: Optional[float] = None
     breaker_threshold: Optional[int] = None
     breaker_cooldown_s: Optional[float] = None
     serve_max_connections: Optional[int] = None
     serve_conn_timeout_s: Optional[float] = None
     serve_max_header_bytes: Optional[int] = None
     serve_max_body_bytes: Optional[int] = None
-    job_timeout_s: Optional[float] = None
     watch_every_s: Optional[float] = None
     warehouse_dir: Optional[str] = None
     warehouse_format: Optional[str] = None
-    aot_cache_dir: Optional[str] = None
-    aot_cache: Optional[str] = None
-    aot_prewarm: Optional[int] = None
-    read_cache: Optional[str] = None
-    read_cache_entries: Optional[int] = None
-    read_cache_bytes: Optional[int] = None
     artifact_keep: Optional[int] = None
     use_pallas: Optional[bool] = None
     use_fused: Optional[bool] = None
@@ -282,6 +285,46 @@ class ProfilerConfig:
         if self.mesh_devices is not None and self.mesh_devices < 1:
             raise ValueError("mesh_devices must be >= 1 (or None = every "
                              "device the process sees)")
+        if self.job_timeout_s is not None and self.job_timeout_s <= 0:
+            raise ValueError("job_timeout_s must be > 0 (or None = off)")
+        if self.aot_cache is not None \
+                and self.aot_cache not in AOT_CACHE_MODES:
+            raise ValueError(
+                f"aot_cache={self.aot_cache!r} — use one of "
+                f"{AOT_CACHE_MODES} (or None for the "
+                "TPUPROF_AOT_CACHE/default resolution)")
+        if self.aot_prewarm is not None and self.aot_prewarm < 0:
+            raise ValueError("aot_prewarm must be >= 0 (0 = no "
+                             "prewarm; or None)")
+        if self.serve_workers is not None and self.serve_workers < 1:
+            raise ValueError("serve_workers must be >= 1 (or None)")
+        if self.serve_queue_depth is not None \
+                and self.serve_queue_depth < 1:
+            raise ValueError("serve_queue_depth must be >= 1 (or None)")
+        if self.serve_tenant_quota is not None \
+                and self.serve_tenant_quota < 0:
+            raise ValueError(
+                "serve_tenant_quota must be >= 0 (0 = unlimited; or "
+                "None)")
+        if self.serve_backlog is not None and self.serve_backlog < 0:
+            raise ValueError(
+                "serve_backlog must be >= 0 (0 = shedding off; or None)")
+        if self.serve_drain_timeout_s is not None \
+                and self.serve_drain_timeout_s < 0:
+            raise ValueError(
+                "serve_drain_timeout_s must be >= 0 (or None)")
+        if self.read_cache is not None \
+                and self.read_cache not in READ_CACHE_MODES:
+            raise ValueError(
+                f"read_cache={self.read_cache!r} — use one of "
+                f"{READ_CACHE_MODES} (or None for the "
+                "TPUPROF_READ_CACHE/default resolution)")
+        if self.read_cache_entries is not None \
+                and self.read_cache_entries < 1:
+            raise ValueError("read_cache_entries must be >= 1 (or None)")
+        if self.read_cache_bytes is not None \
+                and self.read_cache_bytes < 1:
+            raise ValueError("read_cache_bytes must be >= 1 (or None)")
         if self.metrics_interval < 0:
             raise ValueError("metrics_interval must be >= 0")
         if self.metrics_max_bytes is not None \
@@ -647,3 +690,123 @@ def resolve_seed_edges(value: Optional[str] = None) -> Optional[str]:
     if value:
         return str(value)
     return os.environ.get("TPUPROF_SEED_EDGES") or None
+
+
+# ---------------------------------------------------------------------------
+# the serve daemon (tpuprof_torch/serve) and the store of built kernel
+# libraries (runtime/aot.py): the reference's resolvers and env twins
+# ---------------------------------------------------------------------------
+
+def resolve_serve_workers(value: Optional[int] = None) -> int:
+    """Serve worker threads, the jobs that run at once: the config value,
+    else ``TPUPROF_SERVE_WORKERS``, else 2."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_SERVE_WORKERS")
+    return max(env, 1) if env is not None else 2
+
+
+def resolve_serve_queue_depth(value: Optional[int] = None) -> int:
+    """The admission queue's bound (jobs waiting beyond the running set):
+    the config value, else ``TPUPROF_SERVE_QUEUE_DEPTH``, else 32.  A
+    submit past it is rejected at once."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_SERVE_QUEUE_DEPTH")
+    return max(env, 1) if env is not None else 32
+
+
+def resolve_serve_tenant_quota(value: Optional[int] = None) -> int:
+    """A tenant's queued+running cap: the config value, else
+    ``TPUPROF_SERVE_TENANT_QUOTA``, else 0 (unlimited)."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_SERVE_TENANT_QUOTA")
+    return max(env, 0) if env is not None else 0
+
+
+def resolve_job_timeout(value: Optional[float] = None) -> Optional[float]:
+    """The per-job watchdog of the serve daemon: a job running past this
+    many seconds fails with :class:`WatchdogTimeout` (exit code 4) and its
+    worker is freed.  The config value, else ``TPUPROF_JOB_TIMEOUT_S``,
+    else None (off)."""
+    return resolve_watchdog_timeout(value, "TPUPROF_JOB_TIMEOUT_S")
+
+
+def resolve_serve_backlog(value: Optional[int] = None) -> int:
+    """The shed budget: past this many queued compute jobs an uncacheable
+    submit is shed while the read tier keeps answering.  The config value,
+    else ``TPUPROF_SERVE_BACKLOG``, else 0 (off: only the queue depth
+    applies)."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_SERVE_BACKLOG")
+    return max(env, 0) if env is not None else 0
+
+
+def resolve_serve_drain_timeout(value: Optional[float] = None) -> float:
+    """How long a stopping daemon lets its running jobs finish: the config
+    value, else ``TPUPROF_SERVE_DRAIN_TIMEOUT_S``, else 30 seconds."""
+    if value is not None:
+        return max(float(value), 0.0)
+    env = _env_float("TPUPROF_SERVE_DRAIN_TIMEOUT_S")
+    return max(env, 0.0) if env is not None else 30.0
+
+
+def resolve_aot_cache_dir(value: Optional[str] = None) -> Optional[str]:
+    """The store of built kernel libraries (``runtime/aot.py``): the config
+    value, else ``TPUPROF_AOT_CACHE_DIR``, else None (no store; the serve
+    daemon defaults it to ``SPOOL/aot``)."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_AOT_CACHE_DIR") or None
+
+
+def _mode(value: Optional[str], field: str, var: str, modes) -> str:
+    for cand, origin in ((value, field), (os.environ.get(var), var)):
+        if cand:
+            if cand not in modes:
+                raise ValueError(f"{origin}={cand!r} — use one of {modes}")
+            return cand
+    return "on"
+
+
+def resolve_aot_cache(value: Optional[str] = None) -> str:
+    """The store's switch: the config value, else ``TPUPROF_AOT_CACHE``,
+    else ``on``.  ``off`` never reads or writes an entry."""
+    return _mode(value, "aot_cache", "TPUPROF_AOT_CACHE", AOT_CACHE_MODES)
+
+
+def resolve_aot_prewarm(value: Optional[int] = None) -> int:
+    """How many of the store manifest's hottest keys a starting daemon
+    warms in the background: the config value, else
+    ``TPUPROF_AOT_PREWARM``, else 4; 0 warms none."""
+    if value is not None:
+        return max(int(value), 0)
+    env = _env_int("TPUPROF_AOT_PREWARM")
+    return max(env, 0) if env is not None else 4
+
+
+def resolve_read_cache(value: Optional[str] = None) -> str:
+    """The read tier's switch (the result cache and coalescing): the config
+    value, else ``TPUPROF_READ_CACHE``, else ``on``."""
+    return _mode(value, "read_cache", "TPUPROF_READ_CACHE",
+                 READ_CACHE_MODES)
+
+
+def resolve_read_cache_entries(value: Optional[int] = None) -> int:
+    """The result cache's entry cap: the config value, else
+    ``TPUPROF_READ_CACHE_ENTRIES``, else 512."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_READ_CACHE_ENTRIES")
+    return max(env, 1) if env is not None else 512
+
+
+def resolve_read_cache_bytes(value: Optional[int] = None) -> int:
+    """The result cache's payload-bytes cap: the config value, else
+    ``TPUPROF_READ_CACHE_BYTES``, else 64 MiB."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_READ_CACHE_BYTES")
+    return max(env, 1) if env is not None else 64 << 20

@@ -5,7 +5,10 @@ use into shared libraries with a plain C interface, loaded with ctypes.
 :func:`build_all` starts every nvcc at once (one process per source) so a
 cold start pays the slowest build, not the sum; :func:`library` then loads
 those builds, or builds a single kernel at its first use when nothing
-called :func:`build_all`.
+called :func:`build_all`.  :func:`library_paths` names the files a set of
+kernels loads from, which the store of built libraries
+(``runtime/aot.py``) packs and adopts; :func:`build` builds a set of them
+at once (the store's background save).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import ctypes
 import os
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable
 
 from tpuprof_torch import _build
 
@@ -33,18 +36,37 @@ def _command():
     return _build.nvcc_command(["-Xptxas", "-v"])
 
 
+def library_paths(names: Iterable[str]) -> Dict[str, str]:
+    """{kernel: the library file it loads from} in this process's build
+    directory (the file's name is a digest of its sources and command)."""
+    cmd = _command()
+    return {name: _build.library_path(SOURCES[name], cmd)
+            for name in sorted(names)}
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Build the libraries of ``names`` that are not built yet, all nvcc
+    processes started together, under the lock :func:`library` builds
+    under (one build of a file at a time in this process).  Returns
+    {name: seconds until its build finished}."""
+    cmd = _command()
+    with _lock:
+        t0 = time.perf_counter()
+        started = {name: _build.start_build(SOURCES[name], cmd)
+                   for name in sorted(names)}
+        took = {}
+        for name, (out, proc) in started.items():
+            log = _build.finish_build(out, proc)
+            if log:
+                build_logs[name] = log
+            took[name] = time.perf_counter() - t0
+    return took
+
+
 def build_all() -> Dict[str, float]:
     """Build every kernel library that is not built yet, all nvcc processes
     started together.  Returns {name: seconds until its build finished}."""
-    cmd = _command()
-    t0 = time.perf_counter()
-    started = {name: _build.start_build(src, cmd)
-               for name, src in SOURCES.items()}
-    took = {}
-    for name, (out, proc) in started.items():
-        build_logs[name] = _build.finish_build(out, proc)
-        took[name] = time.perf_counter() - t0
-    return took
+    return build(SOURCES)
 
 
 def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 import time
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -70,6 +71,8 @@ launches_wide = 0       # K3
 launches_spear = 0      # K5
 launches_rank = 0       # K6
 launches_ab = 0         # K4
+# the counts are read-modify-writes: serve workers launch from two threads
+_count_lock = threading.Lock()
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -502,7 +505,8 @@ def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             pcounts.data_ptr(), partial.data_ptr(), sums.data_ptr(),
             counts.data_ptr(), P.data_ptr(), S1.data_ptr(), S2.data_ptr(),
             N.data_ptr(), _stream(dev))
-    launches += 1
+    with _count_lock:
+        launches += 1
     _k.check(status, "fused_a (K1)", lib)
     return sums, counts, P, S1, S2, N
 
@@ -534,7 +538,8 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             psums.data_ptr(), pcounts.data_ptr(), partial.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), P.data_ptr(), S1.data_ptr(),
             S2.data_ptr(), N.data_ptr(), _stream(dev))
-    launches_wide += 1
+    with _count_lock:
+        launches_wide += 1
     _k.check(status, "fused_wide (K3)", lib)
     return sums, counts, P, S1, S2, N
 
@@ -566,7 +571,8 @@ def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             _rank_scale(G), gram_s, gram_rows, _half(xt).data_ptr(),
             ranks.data_ptr(), partial.data_ptr(), P.data_ptr(),
             S1.data_ptr(), S2.data_ptr(), N.data_ptr(), _stream(dev))
-    launches_spear += 1
+    with _count_lock:
+        launches_spear += 1
     _k.check(status, "spear (K5)", lib)
     return P, S1, S2, N
 
@@ -588,7 +594,8 @@ def rank_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
         status = lib.tpt_rank(
             xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
             _rank_scale(G), out.data_ptr(), _stream(xt.device))
-    launches_rank += 1
+    with _count_lock:
+        launches_rank += 1
     _k.check(status, "rank (K6)", lib)
     return out
 
@@ -650,7 +657,8 @@ def tiles_ab_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             sums.data_ptr(), counts.data_ptr(), P.data_ptr(),
             S1.data_ptr(), S2.data_ptr(), N.data_ptr(), hcounts.data_ptr(),
             absdev.data_ptr(), _stream(dev))
-    launches_ab += 1
+    with _count_lock:
+        launches_ab += 1
     _k.check(status, "fused_ab (K4)", lib)
     return sums, counts, P, S1, S2, N, hcounts, absdev
 
@@ -675,9 +683,10 @@ def _half(xt: torch.Tensor) -> torch.Tensor:
         return torch.full((xt.shape[0],), 0.5, dtype=_F32)
     half = _halves.get(xt.device)
     if half is None:
-        half = torch.full((MAX_FUSED_COLS_WIDE,), 0.5,
-                          dtype=_F32).to(xt.device)
-        _halves[xt.device] = half
+        # two threads may both fill it: the first stored wins, and both
+        # are the same constant
+        half = _halves.setdefault(xt.device, torch.full(
+            (MAX_FUSED_COLS_WIDE,), 0.5, dtype=_F32).to(xt.device))
     return half[:xt.shape[0]]
 
 

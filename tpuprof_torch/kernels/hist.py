@@ -24,6 +24,7 @@ construction (``floor(t) >= b  <=>  t >= b``), so one kernel serves both.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -36,6 +37,8 @@ KERNELS = ("cumulative", "legacy")
 SHARED_MAX_BINS = 8192
 
 launches = 0            # K2 launches in this process (see module docstring)
+# the counts are read-modify-writes: serve workers launch from two threads
+_count_lock = threading.Lock()
 
 _TARGET_BLOCKS = 4 * 132
 _THREADS = 256
@@ -143,7 +146,8 @@ def histogram_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             xt.data_ptr(), row_valid.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), mean.data_ptr(), C, R, nbins, n_s, rows,
             counts.data_ptr(), pdev.data_ptr(), absdev.data_ptr(), stream)
-    launches += 1
+    with _count_lock:
+        launches += 1
     _k.check(status, "hist_b (K2)", lib)
     return counts, absdev
 

@@ -149,6 +149,13 @@ def _read_small(path: str) -> Optional[str]:
         return None
 
 
+# the reference's public names of the three arbiters (the serve daemon's
+# fleet claims, serve/server.py, use them on whole jobs)
+atomic_write = _atomic_write
+excl_create = _excl_create
+read_small = _read_small
+
+
 def write_part_bytes(payload: Dict[str, Any]) -> bytes:
     """Serialize one contribution part: a header pickle carrying the
     payload CRC32 + length, then the raw payload pickle — the same

@@ -68,8 +68,8 @@ from tpuprof_torch.obs import metrics as _obs_metrics
 from tpuprof_torch.obs.progress import RateEMA, fmt_rate
 from tpuprof_torch.runtime import checkpoint as ckpt
 from tpuprof_torch.runtime import guard, singlepass
-from tpuprof_torch.runtime.runner import (Runner, state_from_numpy,
-                                          state_to_numpy)
+from tpuprof_torch.runtime.runner import state_from_numpy, state_to_numpy
+from tpuprof_torch.serve.cache import acquire_runner
 from tpuprof_torch.testing import faults
 
 _BATCHES_FOLDED = _obs_metrics.counter(
@@ -158,8 +158,9 @@ class StreamingProfiler:
         self.arrow_schema = arrow_schema
         self.plan = ColumnPlan.from_schema(arrow_schema,
                                            nested=self.config.nested)
-        self.runner = Runner(self.config, self.plan.n_num,
-                             self.plan.n_hash, device)
+        # through the runner cache's acquire seam, as every profile
+        self.runner = acquire_runner(self.config, self.plan.n_num,
+                                     self.plan.n_hash, [device])
         self.hostagg = HostAgg(self.plan, self.config)
         self.sampler = RowSampler(self.config.quantile_sketch_size,
                                   self.plan.n_num, seed=self.config.seed)

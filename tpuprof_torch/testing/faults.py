@@ -28,6 +28,13 @@ Sites the port wires:
 ``fleet_finish``   the watchdog site of an elastic member's finish barrier
 ``host_death``     per-batch kill switch of a rank or elastic member
                    (pass A's fold loop): ``host_death:@k``
+``serve_job``      one served job's run (``serve/scheduler.py``, keyed by
+                   the job id): fails that job, the daemon keeps serving;
+                   ``sleep=S`` (or ``sleep=S@M``) here feeds the job
+                   watchdog
+``aot_load``       the start of a load from the store of built kernel
+                   libraries (``runtime/aot.py``): a raising load demotes
+                   loudly to an nvcc build, never fails the profile
 =================  ========================================================
 
 Spec grammar, ``site:mode`` pairs separated by commas, e.g.
