@@ -9,13 +9,15 @@ Run from the repository root:
     python3 chip_smoke.py --only obs       # build + phase 10 (telemetry)
     python3 chip_smoke.py --only fleet     # build + phase 11 (multi-GPU)
     python3 chip_smoke.py --only serve     # build + phase 12 (the daemon)
+    python3 chip_smoke.py --only edge      # build + phase 13 (HTTP edge)
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact, obs, fleet, serve (phases 3 to 12) and k2big (phase 3's check of K2's
+exact, obs, fleet, serve, edge (phases 3 to 13) and k2big (phase 3's check
+of K2's
 device-memory body alone); ``--kernels-only`` and ``--ingest-only`` are its
 short forms.
 
@@ -222,7 +224,24 @@ Phases, each fatal on failure:
    loaded, its job's stats equal to A's byte for byte, and a job file in
    the reference's ``tpuprof-serve-job-v1`` format answered.  It prints
    each latency, the nvcc and prewarm seconds and ``memory_reserved``;
-13. one JSON line of per-kernel numbers, the card's name and power limit,
+13. the HTTP edge, the drift watch, the warehouse and the CPU oracle, on
+   the same two files: a ``serve --http 0 --serve-auth-file`` child (401
+   without the token; a job over HTTP whose stats and HTML equal the
+   one-shot; 304 on ``If-None-Match``; healthz 200; ``/metrics`` with
+   ``tpuprof_http_requests_total``; request p50/p99; a ``submit --url``
+   child exiting 0 with equal stats; a closed port exiting 9); in
+   process, an edge over a daemon on the card answering ``/v1/query`` for
+   20 columns computed (K1 and K2 one a batch, equal to the one-shot
+   ``columns=`` profile), then from its cache and, once the watch wrote a
+   generation, from the warehouse, both with no launch; a fused
+   ``DriftWatcher`` of 3 cycles (cycle 1 equal to two-pass, cycles 2-3 K4
+   a batch, K2 none, every lane a hit, no alert) and a drifted cycle whose
+   alert ``GET /v1/watch/<key>/alerts`` serves; ``history`` over the 4
+   generations and ``backtest`` reproducing the live alert; every
+   generation's footer flipped: the breaker opens and the query is
+   computed, then ``breaker_open``, both right; ``describe(mixed,
+   backend="cpu")`` with no launch, held to the engine's stats;
+14. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -4345,6 +4364,452 @@ def phase_serve(torch, rehearsal: bool, card: str, cli=None) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the HTTP edge, the query pushdown, the drift watch, the
+# warehouse and the CPU oracle
+# ---------------------------------------------------------------------------
+
+EDGE_LINE = r"http edge on (http://[\d.]+:\d+)"
+
+
+def http_call(method: str, url: str, body=None, token=None, headers=None,
+              timeout: float = 600):
+    """One exchange: (status, the body decoded from JSON or raw bytes, the
+    response headers, seconds)."""
+    import urllib.error
+    import urllib.request
+    hdrs = dict(headers or {})
+    data = None
+    if body is not None:
+        data = json.dumps(body).encode()
+        hdrs["Content-Type"] = "application/json"
+    if token:
+        hdrs["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(url, data=data, headers=hdrs,
+                                 method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw, status, h = resp.read(), resp.status, resp.headers
+    except urllib.error.HTTPError as exc:
+        raw, status, h = exc.read(), exc.code, exc.headers
+    secs = time.perf_counter() - t0
+    try:
+        doc = json.loads(raw) if raw else None
+    except ValueError:
+        doc = raw
+    return status, doc, h, secs
+
+
+def pcts(samples):
+    """(p50, p99) in milliseconds."""
+    a = np.asarray(samples) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def flip_footers(root: str) -> int:
+    """Flip one byte of every columnar generation's footer (the Parquet
+    length and magic) under ``root``: each read of one then fails."""
+    n = 0
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name.endswith(".stats.parquet"):
+                with open(os.path.join(dirpath, name), "r+b") as fh:
+                    blob = fh.read()
+                    fh.seek(len(blob) - 5)
+                    fh.write(bytes([blob[-5] ^ 0xFF]))
+                n += 1
+    return n
+
+
+def oracle_check(a, b, what: str) -> None:
+    """The engine's stats ``a`` against the oracle's ``b`` at the
+    reference's oracle-parity tolerances: the same kinds and field sets,
+    exact counts, means at rel 1e-4, min/max at float32's rounding,
+    distinct counts exact unless the engine says it estimated them
+    (``distinct_approx``), then within 10% (the HyperLogLog at precision
+    11 errs 2.3% per standard deviation)."""
+    from tpuprof_torch import schema
+    va, vb = a["variables"], b["variables"]
+    require(list(va) == list(vb), f"{what}: column sets differ")
+    for name, x in vb.items():
+        y = va[name]
+        require(y["type"] == x["type"] and set(y) == set(x),
+                f"{what}: {name} kind or fields differ")
+        for fld in ("count", "n_missing"):
+            require(y[fld] == x[fld], f"{what}: {name}.{fld}")
+        d = x.get("distinct_count")
+        slack = 0.1 * d if d is not None and y.get("distinct_approx") \
+            else 0
+        require(d is None or abs(y["distinct_count"] - d) <= slack,
+                f"{what}: {name}.distinct_count {y['distinct_count']} vs "
+                f"{d} (approx {y.get('distinct_approx')})")
+        if x["type"] != schema.NUM:
+            continue
+        require(np.isclose(y["mean"], x["mean"], rtol=1e-4),
+                f"{what}: {name}.mean {y['mean']} vs {x['mean']}")
+        for fld in ("min", "max"):
+            require(np.isclose(y[fld], x[fld], rtol=1e-6, atol=0),
+                    f"{what}: {name}.{fld} {y[fld]} vs {x[fld]}")
+
+
+def phase_edge(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """The HTTP edge, the query pushdown, the drift watch, the warehouse
+    and the CPU oracle on the first two files of phase 5's directory.  A
+    ``serve --http 0 --serve-auth-file`` child answers a job over HTTP
+    (401 without the token; stats and HTML equal to the one-shot; 304 on
+    a repeat with If-None-Match; healthz; /metrics), a ``submit --url``
+    child (exit 0, equal stats) and a closed port (exit 9).  In process,
+    an edge over a daemon on the card answers ``/v1/query`` from its three
+    tiers (computed: K1 and K2 a batch; cache and warehouse: no launch),
+    a fused ``DriftWatcher`` (cycle 1 equal to two-pass; cycles 2-3 K4
+    alone, every lane a hit; a drifted cycle's alert served over HTTP),
+    the ``history`` and ``backtest`` verbs, the breaker over a rotten
+    warehouse; then ``describe(backend="cpu")`` launches nothing."""
+    import atexit
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    import pyarrow.dataset as pads
+    import pyarrow.parquet as pq
+
+    from tpuprof_torch import ProfileReport, describe
+    from tpuprof_torch import cli as port_cli
+    from tpuprof_torch.artifact import read_artifact
+    from tpuprof_torch.runtime import singlepass
+    from tpuprof_torch.serve import (DriftWatcher, HttpEdge, ServeDaemon,
+                                     wait_result_http)
+    from tpuprof_torch.serve.breaker import CircuitBreaker
+    from tpuprof_torch.serve.watch import source_key
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-edge-")
+    atexit.register(shutil.rmtree, tmp, True)
+    os.environ["TPUPROF_POSTMORTEM_DIR"] = tmp
+    if cli is None:
+        head_dir, _, batch = cli_directory(rehearsal, tmp)
+    else:
+        head_dir, _, batch = cli
+    head_dir = half_directory(head_dir)
+    dev = {"device": "cpu"} if rehearsal else {}
+    dev_args = ["--device", "cpu"] if rehearsal else []
+    ds = pads.dataset(head_dir)
+    n, cols = ds.count_rows(), len(ds.schema.names)
+    nb = -(-n // batch)
+    n_num = cols                        # every column is float32
+    proj = [f"c{i:04d}" for i in range(0, 200, 10)]
+    token = "tok-smoke"
+    auth = f"{tmp}/tokens"
+    with open(auth, "w") as fh:
+        fh.write(f"{token} smoke\n")
+
+    # the watched source: the two files, hard-linked, so a drifted copy
+    # can replace them later at the same path (the watch's key)
+    watched = f"{tmp}/watched"
+    os.makedirs(watched)
+    for name in sorted(os.listdir(head_dir)):
+        os.link(os.path.join(head_dir, name), os.path.join(watched, name))
+    old = time.time() - 60
+    os.utime(watched, (old, old))
+
+    # the daemon child starts first: its start (the interpreter, torch, the
+    # card's context) overlaps the one-shot references below
+    spool = f"{tmp}/spool"
+    d = Daemon([spool, "--http", "0", "--serve-auth-file", auth,
+                *dev_args])
+
+    # ---- one-shot references on the card ---------------------------------
+    t0 = time.perf_counter()
+    rep = ProfileReport(head_dir, batch_rows=batch, **dev)
+    rep.to_file(f"{tmp}/one.html")
+    with open(f"{tmp}/one.html", encoding="utf-8") as fh:
+        one_html = without_footer(fh.read())
+    one_json = json.dumps(json.loads(json.dumps(rep.to_json_dict())),
+                          sort_keys=True)
+    oneshot_s = time.perf_counter() - t0
+    narrow = ProfileReport(watched, batch_rows=batch, columns=tuple(proj),
+                           **dev).description["variables"]
+    print(f"edge one-shot: {n:,} x {cols} in {oneshot_s:.3f} s, then the "
+          f"20-column narrow profile, on {card}", flush=True)
+
+    # ---- the daemon child: a job over HTTP ---------------------------------
+    url = d.wait_for(EDGE_LINE, 300).group(1)
+    d.wait_for(r"serving .* on ", 300)
+    start_s = time.perf_counter() - d.t0
+    s401, doc401, h401, _ = http_call(
+        "POST", url + "/v1/jobs", {"source": head_dir})
+    require(s401 == 401 and h401.get("WWW-Authenticate") == "Bearer",
+            f"edge: no token answered {s401} {doc401}")
+    stem = f"{tmp}/http-job"
+    s, doc, _, _ = http_call("POST", url + "/v1/jobs", {
+        "source": head_dir, "stats_json": f"{stem}.json",
+        "output": f"{stem}.html", "config": {"batch_rows": batch}},
+        token=token)
+    require(s == 202 and doc.get("tenant") == "smoke",
+            f"edge: POST /v1/jobs answered {s} {doc}")
+    jid = doc["id"]
+    res = wait_result_http(url, jid, timeout=600, token=token)
+    require(res.get("status") == "done", f"edge job: {res}")
+    with open(f"{stem}.json") as fh:
+        got = json.dumps(json.load(fh), sort_keys=True)
+    with open(f"{stem}.html", encoding="utf-8") as fh:
+        page = without_footer(fh.read())
+    require(got == one_json, "edge job: stats differ from the one-shot")
+    require(page == one_html, "edge job: HTML differs from the one-shot")
+    s1, _, h1, _ = http_call("GET", f"{url}/v1/results/{jid}", token=token)
+    s2, body2, h2, _ = http_call("GET", f"{url}/v1/results/{jid}",
+                                 token=token,
+                                 headers={"If-None-Match": h1["ETag"]})
+    require((s1, s2, body2) == (200, 304, None) and h2["ETag"] == h1["ETag"],
+            f"edge: results {s1}, If-None-Match {s2}")
+    sh, hz, _, _ = http_call("GET", url + "/v1/healthz")
+    require(sh == 200 and hz["status"] == "ready", f"edge healthz: {hz}")
+    sm, prom, _, _ = http_call("GET", url + "/metrics")
+    require(sm == 200 and b"tpuprof_http_requests_total" in prom,
+            "edge: /metrics lacks tpuprof_http_requests_total")
+    lat = {"results": [], "healthz": []}
+    for _ in range(10 if rehearsal else 50):
+        lat["results"].append(http_call(
+            "GET", f"{url}/v1/results/{jid}", token=token)[3])
+        lat["healthz"].append(http_call("GET", url + "/v1/healthz")[3])
+    (r50, r99), (h50, h99) = pcts(lat["results"]), pcts(lat["healthz"])
+    print(f"edge child: ready in {start_s:.3f} s; 401 without the token; "
+          f"job over HTTP {res['seconds']} s (queued "
+          f"{res['queue_seconds']} s), stats and HTML equal to the "
+          f"one-shot; 304 on If-None-Match; GET /v1/results p50 {r50:.3f} "
+          f"ms p99 {r99:.3f} ms, /v1/healthz p50 {h50:.3f} ms p99 "
+          f"{h99:.3f} ms ({len(lat['results'])} each) on {card}",
+          flush=True)
+    rc, err, mods, sub_s = child(
+        ["submit", "--url", url, head_dir, "--token", token,
+         "--stats-json", f"{tmp}/url.json", "--batch-rows", str(batch),
+         "--timeout", "600"], timeout=700)
+    m = next((re.search(SUBMIT_LINE, ln) for ln in err
+              if re.search(SUBMIT_LINE, ln)), None)
+    require(rc == 0 and m is not None, f"submit --url: exit {rc}: "
+            f"{err[-5:]}")
+    require(not mods & {"jax", "jaxlib", "tpuprof"},
+            "submit --url: the child loaded jax or tpuprof")
+    with open(f"{tmp}/url.json") as fh:
+        require(json.dumps(json.load(fh), sort_keys=True) == one_json,
+                "submit --url: stats differ from the one-shot")
+    warm_http = float(m.group(4))
+    closed = socket_free_port()
+    with contextlib.redirect_stderr(io.StringIO()) as cap:
+        rc9 = port_cli.main(["submit", "--url",
+                             f"http://127.0.0.1:{closed}", head_dir])
+    require(rc9 == 9 and "cannot reach" in cap.getvalue(),
+            f"submit --url to a closed port: exit {rc9}")
+    m, wall = d.stop()
+    require(int(m.group(2)) == 2, f"edge child: {m.group(0)}")
+    print(f"edge child: submit --url exit 0 in {sub_s:.3f} s (its job "
+          f"{warm_http} s, stats equal); a closed port exit 9; drained on "
+          f"SIGTERM, exit 0 after {wall:.3f} s", flush=True)
+
+    # ---- in process: the query tiers ---------------------------------------
+    spool2 = f"{tmp}/spool2"
+    breaker = CircuitBreaker(threshold=1, cooldown_s=3600)
+    daemon = ServeDaemon(spool2, poll_interval=0.05, claim_jobs=True,
+                         daemon_id="smoke", workers=1, read_cache="on",
+                         **dev)
+    edge = HttpEdge(daemon, port=0, auth_file=auth, breaker=breaker).start()
+    runner = threading.Thread(target=daemon.run, daemon=True)
+    runner.start()
+    counts_seen = {}
+
+    def query(stats, tier, launches):
+        zero_counts()
+        s, doc, h, secs = http_call("POST", edge.url + "/v1/query", {
+            "source": watched, "cols": proj, "stats": stats,
+            "config": {"batch_rows": batch}}, token=token)
+        c = read_counts()
+        require(s == 200 and h["X-Tpuprof-Provenance"] == tier,
+                f"query {stats}: {s} {h.get('X-Tpuprof-Provenance')} "
+                f"(expected {tier}): {doc}")
+        if not rehearsal:
+            want = {k: 0 for k in c}
+            want.update(launches)
+            require(c == want, f"query {tier}: launches {c}, want {want}")
+        counts_seen[tier] = c
+        return doc, secs
+
+    try:
+        q1, q1_s = query(["mean", "std", "min", "max"], "computed",
+                         {"fused_a": nb, "hist_b": nb})
+        for col in proj:
+            for st in ("mean", "std", "min", "max"):
+                require(q1["columns"][col][st] == narrow[col][st],
+                        f"query computed: {col}.{st} "
+                        f"{q1['columns'][col][st]} vs {narrow[col][st]}")
+        q2, q2_s = query(["mean", "std", "min", "max"], "cache", {})
+        require(q2 == q1, "query cache: a different answer")
+
+        # ---- the fused drift watch ---------------------------------------
+        in_proc = daemon.scheduler.submit(
+            source=head_dir, config_kwargs={"batch_rows": batch},
+            stats_json=f"{tmp}/inproc.json")
+        daemon.scheduler.wait(in_proc, timeout=600)
+        require(in_proc.state == "done", f"in-process job: {in_proc.error}")
+        watcher = DriftWatcher(
+            spool2, [watched], daemon.scheduler, every_s=0, keep=4,
+            config_kwargs={"batch_rows": batch, "profile_passes": "fused"})
+        w = watcher.watches[0]
+        cyc = []
+        for i in range(3):
+            zero_counts()
+            h0 = (singlepass.edge_hits, singlepass.edge_misses,
+                  singlepass.rebins)
+            rec = watcher.run_cycle(w)
+            c = read_counts()
+            hits = singlepass.edge_hits - h0[0]
+            misses = singlepass.edge_misses - h0[1]
+            rebins = singlepass.rebins - h0[2]
+            require(rec["status"] == "ok", f"watch cycle {i + 1}: {rec}")
+            cyc.append((rec["seconds"], c["fused_ab"], c["hist_b"], hits,
+                        misses, rebins))
+            if i == 0:
+                art = read_artifact(w.artifact_path(1))
+                require(json.dumps(art.stats, sort_keys=True) == one_json,
+                        "watch cycle 1 (fused) differs from two-pass")
+            else:
+                require(hits == n_num and misses == 0 and rebins == 0,
+                        f"watch cycle {i + 1}: hits {hits} misses "
+                        f"{misses} rebins {rebins}")
+                if not rehearsal:
+                    require(c["fused_ab"] == nb and c["hist_b"] == 0
+                            and c["fused_a"] == 0,
+                            f"watch cycle {i + 1}: launches {c}")
+        require(not w.alerts, f"watch: alerts on undrifted cycles "
+                f"{w.alerts}")
+        q3, q3_s = query(["mean"], "warehouse", {})
+        full = json.loads(one_json)["variables"]
+        require(q3["generation"] == 3 and all(
+            q3["columns"][c]["mean"] == full[c]["mean"] for c in proj),
+            f"query warehouse: {q3.get('generation')}")
+
+        # ---- a drifted cycle, its alert over HTTP ------------------------
+        for name in sorted(os.listdir(watched)):
+            path = os.path.join(watched, name)
+            t = pq.read_table(path)
+            for i in range(10):
+                t = t.set_column(i, t.field(i), pa_add(t.column(i), 100.0))
+            os.unlink(path)
+            pq.write_table(t, path, row_group_size=batch)
+        zero_counts()
+        rec = watcher.run_cycle(w)
+        c4 = read_counts()
+        require(rec["status"] == "drift" and w.alerts
+                and w.alerts[-1]["kind"] == "drift",
+                f"watch drifted cycle: {rec} {w.alerts}")
+        key = source_key(watched)
+        s, feed, _, _ = http_call("GET", f"{edge.url}/v1/watch/{key}/alerts",
+                                  token=token)
+        require(s == 200 and feed and feed[-1]["kind"] == "drift"
+                and feed[-1]["cycle"] == 4, f"alerts feed: {s} {feed}")
+        gens = sorted(os.listdir(f"{spool2}/warehouse/{key}"))
+        require(len(gens) == 4, f"warehouse: {gens}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = port_cli.main(["history", watched, "--spool", spool2,
+                                "--col", proj[0], "--json"])
+        hist_doc = json.loads(out.getvalue())
+        require(rc == 0 and hist_doc["generations"] == 4
+                and [e["generation"] for e in hist_doc["series"]]
+                == [1, 2, 3, 4], f"history: exit {rc} {hist_doc}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = port_cli.main(["backtest", watched, "--spool", spool2,
+                                "--json"])
+        bt = json.loads(out.getvalue())
+        live = [(a["cycle"], a["severity"], a["columns"])
+                for a in w.alerts if a["kind"] == "drift"]
+        replay = [(a["cycle"], a["severity"], a["columns"])
+                  for a in bt["alerts"]]
+        require(rc == 0 and replay == live,
+                f"backtest: {replay} vs the live alerts {live}")
+
+        # ---- the breaker over a rotten warehouse -------------------------
+        drifted = ProfileReport(watched, batch_rows=batch,
+                                columns=tuple(proj),
+                                **dev).description["variables"]
+        rotten = flip_footers(f"{spool2}/warehouse")
+        q5, q5_s = query(["mean", "max"], "computed",
+                         {"fused_a": nb, "hist_b": nb})
+        require(breaker.state(os.path.abspath(watched)) == "open",
+                "breaker: not open after a rotten warehouse")
+        q6, q6_s = query(["max"], "breaker_open",
+                         {"fused_a": nb, "hist_b": nb})
+        for col in proj:
+            require(q5["columns"][col]["mean"] == drifted[col]["mean"]
+                    and q6["columns"][col]["max"] == drifted[col]["max"],
+                    f"query past the breaker: {col} differs")
+        _, hz2, _, _ = http_call("GET", edge.url + "/v1/healthz")
+        require(os.path.abspath(watched) in hz2["breaker"]["open"],
+                f"healthz breaker: {hz2['breaker']}")
+    finally:
+        edge.close()
+        daemon.stop_event.set()
+        runner.join(timeout=60)
+        daemon.close(timeout=120)
+    print(f"edge query tiers (20 of {cols} columns x {n:,} rows): computed "
+          f"{q1_s:.4f} s (K1 {counts_seen['computed']['fused_a']} K2 "
+          f"{counts_seen['computed']['hist_b']}), cache {q2_s:.4f} s, "
+          f"warehouse {q3_s:.4f} s (no launch in either); rotten "
+          f"warehouse ({rotten} generations): computed {q5_s:.4f} s, then "
+          f"breaker_open {q6_s:.4f} s, both equal to the one-shot; HTTP "
+          f"job {res['seconds']} s cold / {warm_http} s warm against "
+          f"{in_proc.seconds:.3f} s in process on {card}", flush=True)
+    print(f"edge watch (fused, {n:,} x {cols}): cycle seconds "
+          + ", ".join(f"{c[0]:.3f}" for c in cyc)
+          + f"; cycle 1 K4 {cyc[0][1]} K2 {cyc[0][2]} (equal to two-pass), "
+          f"cycles 2-3 K4 {cyc[1][1]}/{cyc[2][1]} K2 {cyc[1][2]}/"
+          f"{cyc[2][2]} hits {cyc[1][3]}/{cyc[2][3]} of {n_num} lanes; "
+          f"drifted cycle {rec['seconds']:.3f} s (K4 {c4['fused_ab']} K2 "
+          f"{c4['hist_b']}) alerted on {len(feed[-1]['columns'])} columns, "
+          f"served over HTTP; history 4 generations; backtest reproduced "
+          f"{len(live)} live alert(s) on {card}", flush=True)
+
+    # ---- the CPU oracle launches nothing ----------------------------------
+    mixed = mixed_frame(2000 if rehearsal else 200_000, seed=3)
+    t0 = time.perf_counter()
+    eng = describe(mixed, batch_rows=batch, **dev)
+    eng_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    ora = describe(mixed, backend="cpu")
+    ora_s = time.perf_counter() - t0
+    require(not any(read_counts().values()),
+            f"oracle: launches {read_counts()}")
+    oracle_check(eng, ora, "oracle vs engine")
+    print(f"edge oracle: describe(backend='cpu') of {len(mixed):,} x "
+          f"{mixed.shape[1]} mixed in {ora_s:.3f} s with no launch, the "
+          f"engine {eng_s:.3f} s on {card}; kinds, fields and counts equal, "
+          f"means within 1e-4", flush=True)
+    print(f"phase 13 (edge) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def pa_add(column, value: float):
+    """``column + value`` of a float32 Arrow column, as float32."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    return pc.add(column, pa.scalar(value, pa.float32()))
+
+
+def socket_free_port() -> int:
+    """A localhost port nothing listens on."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def directory_truth(path: str):
     """pandas' ``nunique`` of every column of a Parquet directory, made once
     a process (phases 9 and 11 hold exact counts to it)."""
@@ -4376,7 +4841,7 @@ def glob_runs(path: str):
 
 
 PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
-          "exact", "obs", "fleet", "serve")
+          "exact", "obs", "fleet", "serve", "edge")
 
 
 def main(argv=None) -> int:
@@ -4385,7 +4850,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 12), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 13), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -4504,6 +4969,8 @@ def main(argv=None) -> int:
         timed(phase_fleet, torch, rehearsal, card, cli)
     if "serve" in only:
         timed(phase_serve, torch, rehearsal, card, cli)
+    if "edge" in only:
+        timed(phase_edge, torch, rehearsal, card, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

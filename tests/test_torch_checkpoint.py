@@ -313,10 +313,15 @@ def test_resume_skips_completed_fragments_io(tmp_path, monkeypatch):
             str(root / f"p{i}.parquet"))
     opened = []
     real = port_arrow.ArrowIngest.raw_batches_positioned
+    # the scan a record belongs to: the crashed scan's reader thread may
+    # still be reading ahead while the resumed scan starts, and what it
+    # opens then is not the resume's
+    scan = [0]
 
     def spy(self, skip_fragments=0):
+        mine = scan[0]
         for fi, bi, rb in real(self, skip_fragments):
-            if not opened or opened[-1] != fi:
+            if mine == scan[0] and (not opened or opened[-1] != fi):
                 opened.append(fi)
             yield fi, bi, rb
 
@@ -327,6 +332,7 @@ def test_resume_skips_completed_fragments_io(tmp_path, monkeypatch):
     with pytest.raises(Exception, match="injected"):
         _port(str(root), **_ck(tmp_path, checkpoint_every_batches=4))
     faults.reset()
+    scan[0] += 1
     opened.clear()
     resumed = _port(str(root), **_ck(tmp_path, checkpoint_every_batches=4))
     # saved at cursor 8 = fragment 3 batch 1: fragments 0-2 stay closed

@@ -213,10 +213,12 @@ def _verb_actions(parser, verb):
             if a.dest != "help"}
 
 
-@pytest.mark.parametrize("verb", ["profile", "diff"])
+@pytest.mark.parametrize("verb", ["profile", "diff", "serve", "watch",
+                                  "submit", "history", "backtest"])
 def test_flags_mirror_the_reference(verb):
-    """Every flag the port offers has the reference's name, default,
-    choices and type; ``--device`` stands where ``--backend`` is."""
+    """Every flag of the reference is the port's, with its name, default,
+    choices and type; ``--device`` stands beside ``--backend`` in the verbs
+    that run a profile."""
     ref = _verb_actions(ref_cli.build_parser(), verb)
     mine = _verb_actions(cli.build_parser(), verb)
     for dest, act in mine.items():
@@ -227,10 +229,10 @@ def test_flags_mirror_the_reference(verb):
                 act.nargs, act.const) == \
             (r.option_strings, r.default, r.choices, r.type, r.nargs,
              r.const), dest
-    if verb == "diff":
-        assert set(mine) == set(ref)
+    if verb in ("profile", "serve", "watch"):
+        assert set(mine) == set(ref) | {"device"}
     else:
-        assert "backend" in ref and "backend" not in mine
+        assert set(mine) == set(ref)
 
 
 @pytest.mark.parametrize("case", ["unknown_column", "missing_path",

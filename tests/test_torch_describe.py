@@ -241,15 +241,31 @@ def test_default_device_without_cuda_raises(fixture_df, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("artifact_keep", 3), ("breaker_threshold", 3),
-    ("backend", "cpu"), ("watch_every_s", 5.0),
-    ("serve_auth_file", "/nonexistent"), ("warehouse_dir", "/nonexistent"),
-    ("serve_http_port", 2), ("serve_max_connections", 2)])
+    ("use_pallas", True), ("use_pallas", False), ("use_fused", True),
+    ("use_fused", False)])
 def test_unported_config_fields_raise(field, value):
+    """Only the reference's Pallas/XLA switches are refused: they mean
+    nothing on CUDA."""
     with pytest.raises(NotImplementedError, match=field):
         ProfilerConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         ProfilerConfig.from_kwargs(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,bad", [
+    ("artifact_keep", 3, 0), ("breaker_threshold", 3, 0),
+    ("backend", "cpu", "gpu0"), ("watch_every_s", 5.0, -1.0),
+    ("serve_auth_file", "/nonexistent", None),
+    ("warehouse_dir", "/nonexistent", None),
+    ("serve_http_port", 2, 70000), ("serve_max_connections", 2, 0)])
+def test_edge_watch_warehouse_fields_accepted(field, value, bad):
+    """The HTTP edge's, the watch's, the warehouse's and the oracle's
+    fields run in the port (they raised NotImplementedError before it
+    ported them) and validate as the reference's do."""
+    assert getattr(ProfilerConfig(**{field: value}), field) == value
+    if bad is not None:
+        with pytest.raises(ValueError):
+            ProfilerConfig(**{field: bad})
 
 
 @pytest.mark.parametrize("field,value,bad", [

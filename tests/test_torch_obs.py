@@ -39,11 +39,15 @@ import tpuprof.runtime.fleet  # noqa: F401
 import tpuprof.runtime.guard  # noqa: F401
 import tpuprof.runtime.singlepass  # noqa: F401
 import tpuprof.runtime.stream  # noqa: F401
+import tpuprof.serve.breaker  # noqa: F401
 import tpuprof.serve.server  # noqa: F401
+import tpuprof.warehouse  # noqa: F401
 import tpuprof_torch  # noqa: F401  (imports every module of the port)
 import tpuprof_torch.artifact.drift  # noqa: F401
 import tpuprof_torch.artifact.incremental  # noqa: F401
 import tpuprof_torch.serve  # noqa: F401
+import tpuprof_torch.serve.breaker  # noqa: F401
+import tpuprof_torch.warehouse  # noqa: F401
 from test_obs_smoke import EVENT_SCHEMA
 from tpuprof import config as ref_config
 from tpuprof.obs import blackbox as ref_blackbox
@@ -117,6 +121,19 @@ SERVE_INSTRUMENTS = (
     "tpuprof_serve_jobs_stolen_total", "tpuprof_serve_drain_seconds",
     "tpuprof_aot_cache_hits_total", "tpuprof_aot_cache_misses_total",
     "tpuprof_aot_load_seconds", "tpuprof_aot_save_seconds",
+)
+# the HTTP edge's (serve/http.py), the breaker's, the drift watch's and the
+# warehouse's (columnar, history, backtest)
+EDGE_INSTRUMENTS = (
+    "tpuprof_http_requests_total", "tpuprof_http_request_seconds",
+    "tpuprof_query_pushdown_total", "tpuprof_breaker_transitions_total",
+    "tpuprof_watch_cycles_total", "tpuprof_drift_alerts_total",
+    "tpuprof_watch_cycle_seconds", "tpuprof_watch_artifact_fallbacks_total",
+    "tpuprof_warehouse_writes_total", "tpuprof_warehouse_reads_total",
+    "tpuprof_warehouse_corrupt_total", "tpuprof_warehouse_write_seconds",
+    "tpuprof_warehouse_bytes", "tpuprof_history_queries_total",
+    "tpuprof_history_query_seconds", "tpuprof_warehouse_fallbacks_total",
+    "tpuprof_backtests_total", "tpuprof_backtest_seconds",
 )
 
 
@@ -299,8 +316,9 @@ def test_the_49_instruments_with_the_reference_kinds():
     mine = {n: i.kind for n, i in metrics.registry()._instruments.items()}
     ref = {n: i.kind for n, i in ref_metrics.registry()._instruments.items()}
     assert len(INSTRUMENTS) == len(set(INSTRUMENTS)) == 49
-    every = INSTRUMENTS + FLEET_INSTRUMENTS + SERVE_INSTRUMENTS
-    assert len(every) == len(set(every)) == 49 + 4 + 22
+    every = INSTRUMENTS + FLEET_INSTRUMENTS + SERVE_INSTRUMENTS \
+        + EDGE_INSTRUMENTS
+    assert len(every) == len(set(every)) == 49 + 4 + 22 + 18
     assert set(mine) == set(every)
     assert {n: ref[n] for n in every} == mine
     for name in every:

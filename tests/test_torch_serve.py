@@ -291,7 +291,7 @@ def test_scheduler_refuses_without_cuda(monkeypatch):
     ({"bogus": 1}, "unknown config options"),
     ({"backend": "cpu"}, "serve jobs run the gpu engine"),
     ({"bins": 0}, "bins must be >= 1"),
-    ({"serve_http_port": 8080}, "serve 3b"),
+    ({"use_pallas": True}, "use_pallas"),
     ({"aot_cache": "maybe"}, "aot_cache"),
 ])
 def test_admission_rejects(sched, source, kwargs, match):

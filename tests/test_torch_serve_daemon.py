@@ -8,8 +8,8 @@ schema); torn result files (``CorruptResultError``) and torn job files (a
 rejected record); restart recovery (pending jobs run, answered ones never
 re-run); two claim-mode daemons on one spool answering each job once, a
 dead peer's claim stolen, and the graceful drain handing queued claims
-back.  Then the verbs: ``serve``/``submit`` refusals in process (the HTTP
-edge's flags exit 2 naming the later slice; no CUDA without ``--device
+back.  Then the verbs: ``serve``/``submit`` refusals in process (an edge
+that cannot serve with its flags exits 2; no CUDA without ``--device
 cpu`` exits 2), and two child processes: ``serve --once --device cpu``
 answering ``submit`` jobs, and a ``SIGTERM`` drain exiting 0.  Every wait
 has a timeout.
@@ -307,20 +307,32 @@ def test_submit_local_is_durable_and_answered(tmp_path, source):
 # the verbs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("argv", [
-    ["serve", "{spool}", "--http", "0", "--device", "cpu"],
-    ["serve", "{spool}", "--serve-auth-file", "a.txt", "--device", "cpu"],
-    ["serve", "{spool}", "--breaker-threshold", "3", "--device", "cpu"],
-    ["submit", "--url", "http://127.0.0.1:1", "{spool}"],
+@pytest.mark.parametrize("argv,says", [
+    (["serve", "{spool}", "--http", "0", "--device", "cpu",
+      "--serve-auth-file", "{missing}", "--once"], "is unreadable"),
+    (["serve", "{spool}", "--http", "0", "--device", "cpu",
+      "--serve-auth-file", "{empty}", "--once"], "lists no tokens"),
+    (["submit", "{spool}", "src.parquet", "--url", "http://127.0.0.1:1"],
+     "not both"),
+    (["submit", "--url", "http://127.0.0.1:1"], "needs a source path"),
 ])
-def test_http_edge_flags_exit_2_naming_the_later_slice(tmp_path, capsys,
-                                                       argv):
+def test_http_edge_flags_refuse_bad_input_with_exit_2(tmp_path, capsys,
+                                                      argv, says):
+    """The edge's flags run (``test_torch_http.py``); what they cannot
+    serve with — an unreadable or empty token file, a spool and a URL at
+    once, no source — is one line and exit 2, before any job is
+    spooled."""
     spool = str(tmp_path / "spool")
-    rc = cli.main([a.format(spool=spool) for a in argv])
+    empty = tmp_path / "empty.txt"
+    empty.write_text("# no tokens\n")
+    rc = cli.main([a.format(spool=spool, missing=str(tmp_path / "no.txt"),
+                            empty=str(empty)) for a in argv])
     err = capsys.readouterr().err
-    assert rc == 2 and "serve 3b (the HTTP edge)" in err
-    assert len(err.strip().splitlines()) == 1
-    assert not os.path.exists(os.path.join(spool, "jobs"))
+    assert rc == 2 and says in err, err
+    assert len([line for line in err.strip().splitlines()
+                if "error" in line]) == 1
+    jobs = os.path.join(spool, "jobs")
+    assert not os.path.exists(jobs) or os.listdir(jobs) == []
 
 
 def test_serve_without_cuda_refuses(tmp_path, capsys, monkeypatch):
@@ -331,7 +343,10 @@ def test_serve_without_cuda_refuses(tmp_path, capsys, monkeypatch):
 
 def test_submit_needs_a_spool_and_a_source(capsys):
     assert cli.main(["submit"]) == 2
-    assert "spool directory and a source" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs a source path" in err and "spool directory" in err
+    assert cli.main(["submit", "spool_or_source"]) == 2
+    assert "needs a source path" in capsys.readouterr().err
 
 
 def test_serve_once_in_process_with_submit_exit_codes(tmp_path, source,

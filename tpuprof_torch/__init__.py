@@ -16,9 +16,12 @@ and ``resume_profiler`` folds new rows onto a fold-state artifact.
 (metrics, JSONL events, the crash flight recorder, ``--trace``).  Several
 CUDA devices shard a scan (``runtime/mesh.py``), several processes profile
 a dataset's stripes and merge over gloo (``runtime/distributed.py``), and
-an elastic fleet of members survives a lost one (``runtime/fleet.py``).  The JAX
-package ``tpuprof`` is the reference; this package imports nothing from
-it.
+an elastic fleet of members survives a lost one (``runtime/fleet.py``).
+``tpuprof_torch.serve`` is the resident daemon with its HTTP edge and
+drift watch, ``tpuprof_torch.warehouse`` the columnar history of
+profiles, and ``describe(df, backend="cpu")`` the exact pandas oracle.
+The JAX package ``tpuprof`` is the reference; this package imports
+nothing from it.
 """
 
 from tpuprof_torch.api import (ProfileReport, StreamingProfiler, describe,

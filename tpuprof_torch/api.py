@@ -4,7 +4,10 @@ durable-profile entry points ``StreamingProfiler`` and ``resume_profiler``.
 Counterpart of ``tpuprof/api.py``.  Statistics are computed eagerly at
 construction, on the device given (``None`` = the CUDA devices the process
 sees, cut to ``mesh_devices``: one runs the scan, several shard it; at least
-one must exist; the CPU only when asked for with ``device="cpu"``).  Under
+one must exist; the CPU only when asked for with ``device="cpu"``).
+``backend="cpu"`` runs the exact pandas oracle instead (``backends/cpu.py``,
+no device); ``"auto"`` and ``"tpu"`` always mean the engine, never the
+oracle.  Under
 a process group (``runtime/distributed.initialize``) each process profiles
 its stripe of a Parquet dataset and every one returns the whole table's
 statistics.  Rendering
@@ -18,9 +21,8 @@ import io
 from typing import Any, Dict, List, Optional
 
 from tpuprof_torch.artifact.incremental import resume_profiler
-from tpuprof_torch.backends.gpu import GPUStatsBackend
+from tpuprof_torch.backends.base import get_backend
 from tpuprof_torch.config import ProfilerConfig
-from tpuprof_torch.runtime.runner import resolve_device
 from tpuprof_torch.runtime.stream import StreamingProfiler
 from tpuprof_torch.schema import (VariablesView, rejected_variables,
                                   validate_stats)
@@ -40,10 +42,19 @@ def describe(source: Any, config: Optional[ProfilerConfig] = None,
     or Dataset, or the path of a Parquet file or directory), without
     rendering."""
     config = _config(config, kwargs)
-    # raises without a CUDA device unless the CPU was asked for; with no
-    # device named the backend takes every CUDA device the process sees
-    resolved = resolve_device(device)
-    backend = GPUStatsBackend(resolved if device is not None else None)
+    backend = get_backend(config.backend, device)
+    if backend.name == "cpu":
+        from tpuprof_torch.config import resolve_elastic
+        if resolve_elastic(config.elastic):
+            # elastic changes WHO does the work: N oracle members would
+            # each profile everything and race on the output believing it
+            # was split
+            from tpuprof_torch.errors import InputError
+            raise InputError(
+                "elastic fleet mode needs the streaming engine — the "
+                f"selected backend is the CPU oracle (backend="
+                f"{config.backend!r}); pass backend='tpu' (it runs on "
+                "CPU hosts too)")
     stats = backend.collect(source, config)
     problems = validate_stats(stats)
     if problems:

@@ -1,14 +1,16 @@
 """Command line of the port: ``python -m tpuprof_torch profile data.parquet
--o report.html``, ``python -m tpuprof_torch diff A.json B.json``, and the
+-o report.html``, ``python -m tpuprof_torch diff A.json B.json``, the
 resident daemon ``python -m tpuprof_torch serve SPOOL`` with its client
-``python -m tpuprof_torch submit SPOOL data.parquet``.
+``python -m tpuprof_torch submit SPOOL data.parquet``, the drift watch
+``watch SPOOL SOURCE...``, and the warehouse's ``history`` and ``backtest``.
 
-Counterpart of the ``profile``, ``diff``, ``serve`` and ``submit`` verbs of
-``tpuprof/cli.py``,
-with the same flag names and defaults for what the port runs.  ``--device``
-stands where the reference has ``--backend``: the profile runs on the first
-CUDA device unless ``--device cpu`` asks for the kernels' plain versions,
-and without a CUDA device it fails instead of running on the CPU.  Input
+Counterpart of every verb of ``tpuprof/cli.py`` but ``lint`` (which checks
+the reference's own source tree), with the same flag names, defaults and
+exit codes.  ``--device`` stands beside the reference's ``--backend``: the
+profile runs on the first CUDA device unless ``--device cpu`` asks for the
+kernels' plain versions, and without a CUDA device it fails instead of
+running on the CPU.  ``--backend cpu`` runs the exact pandas oracle, and
+only then; ``auto`` and ``tpu`` are the engine.  Input
 errors print one ``tpuprof_torch: error: ...`` line and exit 2; a torn
 artifact, an unreadable checkpoint, a spent quarantine budget and a
 watchdog timeout print one line too and exit with their error's code
@@ -43,9 +45,11 @@ stores the built libraries under ``SPOOL/aot`` (``--aot-cache-dir``) so a
 restarted daemon runs no nvcc.  SIGTERM drains it (running jobs finish,
 results flush) and it exits 0.  ``--compile-cache DIR`` names the directory
 nvcc builds into (``--no-compile-cache``: a directory private to the
-process, removed at exit).  The HTTP edge of the reference (``serve
---http``, ``submit --url`` and the edge's flags) is a later slice: those
-flags exit 2 with one line that says so.
+process, removed at exit).  ``serve --http PORT`` adds the HTTP edge
+(``serve/http.py``; ``--serve-auth-file``, the connection caps and the
+warehouse breaker), and ``submit --url`` talks to it; an edge that cannot be
+reached exits 9.  ``profile --artifact A --warehouse-dir D`` also appends a
+columnar generation to the warehouse; a box without pyarrow exits 10.
 """
 
 from __future__ import annotations
@@ -74,6 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to profile on (default: cuda:0, "
                         "which must exist; 'cpu' runs the kernels' plain "
                         "PyTorch versions)")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "cpu", "tpu"],
+                   help="'cpu' runs the exact pandas oracle (no device); "
+                        "'auto' and 'tpu' run the engine on --device")
     p.add_argument("--bins", type=int, default=10)
     p.add_argument("--corr-reject", type=float, default=0.9)
     p.add_argument("--batch-rows", type=int, default=1 << 16)
@@ -182,6 +190,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the profile as a CRC-sealed, "
                         "stats-only tpuprof-stats-v1 artifact (what "
                         "`diff` compares and --seed-edges reads)")
+    p.add_argument("--warehouse-dir", metavar="DIR",
+                   help="with --artifact: ALSO append a columnar "
+                        "tpuprof-stats-parquet-v1 generation under "
+                        "DIR/<source-key>/ (the profile warehouse — one "
+                        "row per column, stats as typed Parquet columns, "
+                        "column-pruned reads).  Default: "
+                        "TPUPROF_WAREHOUSE_DIR, else off")
+    p.add_argument("--warehouse-format", default=None,
+                   choices=("parquet", "off"),
+                   help="columnar warehouse encoding, or 'off' to never "
+                        "write one even with a warehouse dir configured "
+                        "(the pyarrow-free opt-out; default: "
+                        "TPUPROF_WAREHOUSE_FORMAT, else parquet)")
     p.add_argument("--checkpoint", metavar="PATH",
                    help="persist the scan every N batches and resume "
                         "from PATH after a crash")
@@ -300,6 +321,7 @@ def build_parser() -> argparse.ArgumentParser:
                       help="this process's rank in [0, N)")
 
     _add_serve_parser(sub)
+    _add_watch_parser(sub)
     _add_submit_parser(sub)
 
     d = sub.add_parser(
@@ -324,12 +346,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--fail-on-drift", action="store_true",
                    help="exit 1 when any column reaches drift severity; "
                         "a corrupt artifact exits 6 either way")
+    _add_history_parsers(sub)
     return parser
-
-
-# the reference's HTTP-edge flags: parsed so that they can be refused with
-# one line naming the slice that ports them
-_LATER_3B = "serve 3b (the HTTP edge)"
 
 
 def _add_build_cache_flags(p: argparse.ArgumentParser,
@@ -421,23 +439,49 @@ def _add_serve_parser(sub) -> None:
              "finish and flush (default: TPUPROF_SERVE_DRAIN_TIMEOUT_S, "
              "else 30)")
     edge = s.add_argument_group(
-        "HTTP edge", f"not in the port yet ({_LATER_3B}): each of these "
-        "exits 2")
+        "HTTP edge", "a network front door on the same scheduler (POST "
+        "/v1/jobs, POST /v1/query, GET /v1/results/<id>, /v1/healthz, "
+        "/metrics — serve/http.py); it implies --claim-jobs")
     edge.add_argument("--http", type=int, default=None,
-                      dest="serve_http_port", metavar="PORT")
-    edge.add_argument("--serve-auth-file", metavar="PATH")
+                      dest="serve_http_port", metavar="PORT",
+                      help="listen for HTTP jobs on PORT (0 = ephemeral, "
+                           "advertised under SPOOL/daemons/; default: "
+                           "TPUPROF_SERVE_HTTP_PORT, else no HTTP edge)")
+    edge.add_argument("--serve-auth-file", metavar="PATH",
+                      help="bearer-token file ('<token> <tenant>' lines): "
+                           "/v1/* requests must present a listed token "
+                           "(401 otherwise) and bill the token's tenant "
+                           "(default: TPUPROF_SERVE_AUTH_FILE, else open)")
     edge.add_argument("--breaker-threshold", type=int, default=None,
-                      metavar="N")
+                      metavar="N",
+                      help="consecutive corrupt/failed warehouse reads a "
+                           "source before /v1/query skips the warehouse "
+                           "tier for it (default: "
+                           "TPUPROF_BREAKER_THRESHOLD, else 3)")
     edge.add_argument("--breaker-cooldown", type=float, default=None,
-                      dest="breaker_cooldown_s", metavar="SEC")
+                      dest="breaker_cooldown_s", metavar="SEC",
+                      help="open-breaker cooldown before one half-open "
+                           "probe (default: TPUPROF_BREAKER_COOLDOWN_S, "
+                           "else 30)")
     edge.add_argument("--serve-max-connections", type=int, default=None,
-                      metavar="N")
+                      metavar="N",
+                      help="open-socket ceiling; newcomers past it get a "
+                           "terse 503 (default: "
+                           "TPUPROF_SERVE_MAX_CONNECTIONS, else 512)")
     edge.add_argument("--serve-conn-timeout", type=float, default=None,
-                      dest="serve_conn_timeout_s", metavar="SEC")
+                      dest="serve_conn_timeout_s", metavar="SEC",
+                      help="per-connection I/O deadline: a client must "
+                           "finish sending its request (and drain its "
+                           "response) within SEC (slow-loris defense; "
+                           "default: TPUPROF_SERVE_CONN_TIMEOUT_S, else 30)")
     edge.add_argument("--serve-max-header-bytes", type=int, default=None,
-                      metavar="B")
+                      metavar="B",
+                      help="request line + header byte cap (default: "
+                           "TPUPROF_SERVE_MAX_HEADER_BYTES, else 64 KiB)")
     edge.add_argument("--serve-max-body-bytes", type=int, default=None,
-                      metavar="B")
+                      metavar="B",
+                      help="request body byte cap (default: "
+                           "TPUPROF_SERVE_MAX_BODY_BYTES, else 1 MiB)")
     aot = s.add_argument_group(
         "restart-to-warm (the store of built kernel libraries)",
         "after a runner's kernel libraries are built they are packed into "
@@ -486,15 +530,21 @@ def _add_serve_parser(sub) -> None:
 
 def _add_submit_parser(sub) -> None:
     u = sub.add_parser(
-        "submit", help="hand one profile job to a running `serve` daemon "
-                       "through its spool directory and (by default) "
-                       "wait for the result")
+        "submit", help="hand one profile job to a running `serve` daemon — "
+                       "through its spool directory or its HTTP edge "
+                       "(--url) — and (by default) wait for the result")
     u.add_argument("spool", nargs="?", default=None,
-                   help="the daemon's spool directory")
+                   help="the daemon's spool directory (omit with --url)")
     u.add_argument("source", nargs="?", default=None,
                    help="Parquet file/directory path")
     u.add_argument("--url", metavar="http://HOST:PORT",
-                   help=f"not in the port yet ({_LATER_3B}): exits 2")
+                   help="submit over the daemon's HTTP edge (`serve "
+                        "--http`) instead of a spool directory; an "
+                        "unreachable edge exits 9")
+    u.add_argument("--token", default=None,
+                   help="bearer token for an auth-enabled edge (default: "
+                        "TPUPROF_SERVE_TOKEN env); the token's tenant is "
+                        "billed, overriding --tenant")
     u.add_argument("-o", "--output", default=None,
                    help="output HTML path (default: none — use "
                         "--stats-json or --artifact for machine "
@@ -524,6 +574,146 @@ def _add_submit_parser(sub) -> None:
                         "still queued MS milliseconds after submit is "
                         "never started (DeadlineExceededError, exit code "
                         "11)")
+
+
+def _add_watch_parser(sub) -> None:
+    w = sub.add_parser(
+        "watch", help="continuous drift watch: a serve daemon that "
+                      "re-profiles each SOURCE every --every seconds on the "
+                      "warm card, keeps --keep cycle artifacts, diffs "
+                      "consecutive cycles and raises drift alerts; the "
+                      "spool still answers `submit` jobs")
+    w.add_argument("spool", help="spool directory — watch state lives "
+                                 "under SPOOL/watch/<source-key>/")
+    w.add_argument("sources", nargs="+", metavar="SOURCE",
+                   help="Parquet file/directory path(s) to watch")
+    w.add_argument("--device", default=None,
+                   help="torch device the cycles run on (default: cuda:0, "
+                        "which must exist; 'cpu' runs the kernels' plain "
+                        "PyTorch versions)")
+    w.add_argument("--every", type=float, default=None,
+                   dest="watch_every_s", metavar="SEC",
+                   help="seconds between re-profile cycles per source "
+                        "(default: TPUPROF_WATCH_EVERY_S, else 300; 0 = "
+                        "back-to-back, the CI mode)")
+    w.add_argument("--keep", type=int, default=None, dest="artifact_keep",
+                   metavar="N",
+                   help="cycle artifacts retained per source; the drift "
+                        "baseline walks past a corrupt head to the newest "
+                        "good generation (default: TPUPROF_ARTIFACT_KEEP, "
+                        "else 3)")
+    w.add_argument("--cycles", type=int, default=None, metavar="N",
+                   help="stop after N cycles over every source (CI/cron "
+                        "mode; default: watch forever)")
+    w.add_argument("--psi-threshold", type=float, default=None,
+                   metavar="X",
+                   help="PSI at or above X alerts at drift severity "
+                        "(default 0.25; warn band at half)")
+    w.add_argument("--ks-threshold", type=float, default=None, metavar="X",
+                   help="KS distance at or above X alerts at drift "
+                        "severity (default 0.2; warn band at half)")
+    w.add_argument("--profile-passes", default=None,
+                   choices=("two_pass", "fused"),
+                   help="pass structure of the watch's profile jobs "
+                        "(default: TPUPROF_PROFILE_PASSES env, else "
+                        "two_pass).  fused: each cycle seeds its bin edges "
+                        "from the previous cycle's artifact, and an "
+                        "undrifted source profiles in ONE scan (K4)")
+    w.add_argument("--job-timeout", type=float, default=None,
+                   dest="job_timeout_s", metavar="SEC",
+                   help="per-job watchdog: a hung cycle profile fails "
+                        "(exit-code-4 semantics) and the watch continues "
+                        "(default: TPUPROF_JOB_TIMEOUT_S, else off)")
+    w.add_argument("--serve-workers", type=int, default=None, metavar="N",
+                   help="concurrent jobs on the card (default: "
+                        "TPUPROF_SERVE_WORKERS, else 2)")
+    w.add_argument("--poll-interval", type=float, default=0.2,
+                   metavar="SEC", help="spool scan cadence")
+    w.add_argument("--http", type=int, default=None,
+                   dest="serve_http_port", metavar="PORT",
+                   help="also serve the HTTP edge (submit + GET "
+                        "/v1/watch/<key>/alerts; 0 = ephemeral; default: "
+                        "TPUPROF_SERVE_HTTP_PORT, else off)")
+    w.add_argument("--serve-auth-file", metavar="PATH",
+                   help="bearer-token file for the HTTP edge (default: "
+                        "TPUPROF_SERVE_AUTH_FILE, else open)")
+    w.add_argument("--warehouse-dir", metavar="DIR",
+                   help="columnar warehouse root the watch appends one "
+                        "tpuprof-stats-parquet-v1 generation a cycle into "
+                        "(default: TPUPROF_WAREHOUSE_DIR, else "
+                        "SPOOL/warehouse — what `history` and GET "
+                        "/v1/history/<key> answer from)")
+    w.add_argument("--warehouse-format", default=None,
+                   choices=("parquet", "off"),
+                   help="'off' disables the columnar twin (cycles are "
+                        "unaffected; default: TPUPROF_WAREHOUSE_FORMAT, "
+                        "else parquet)")
+    w.add_argument("--aot-prewarm", type=int, default=None, metavar="K",
+                   help="runner keys prewarmed at startup (default: "
+                        "TPUPROF_AOT_PREWARM, else 4; 0 = lazy only)")
+    w.add_argument("--config-json", metavar="JSON|@FILE",
+                   help="ProfilerConfig kwargs applied to every watch "
+                        "cycle's profile job, as inline JSON or "
+                        "@path-to-file (unknown keys fail the cycle)")
+    w.add_argument("--metrics-json", metavar="PATH",
+                   help="stream watch_cycle/drift_alert + serve JSONL "
+                        "events here and dump PATH.prom on exit")
+    w.add_argument("--metrics-interval", type=float, default=0.0,
+                   metavar="SEC",
+                   help="with --metrics-json: periodic snapshot cadence")
+    _add_build_cache_flags(w, aot_default="TPUPROF_AOT_CACHE_DIR, else "
+                           "SPOOL/aot")
+
+
+def _add_history_parsers(sub) -> None:
+    hi = sub.add_parser(
+        "history", help="query the columnar profile warehouse: one column's "
+                        "stat across every profiled generation (`--stat "
+                        "mean --col price`), or the PSI/KS drift trend "
+                        "between consecutive generations (`--trend`)")
+    hi.add_argument("source",
+                    help="the watched/profiled source path (resolved to its "
+                         "warehouse key), a warehouse key, or a per-source "
+                         "warehouse directory")
+    hi.add_argument("--warehouse-dir", metavar="DIR", default=None,
+                    help="warehouse root (default: TPUPROF_WAREHOUSE_DIR; "
+                         "see also --spool)")
+    hi.add_argument("--spool", metavar="DIR", default=None,
+                    help="a watch daemon's spool — shorthand for "
+                         "--warehouse-dir SPOOL/warehouse")
+    hi.add_argument("--col", metavar="NAME", default=None,
+                    help="the profiled column to query (required unless "
+                         "--trend, where it is an optional filter)")
+    hi.add_argument("--stat", metavar="STAT", default="mean",
+                    help="which stat column to read (default: mean; any "
+                         "tpuprof-stats-v1 numeric stat)")
+    hi.add_argument("--trend", action="store_true",
+                    help="PSI/KS between every consecutive pair of "
+                         "generations instead of a stat series")
+    hi.add_argument("--json", action="store_true", dest="as_json",
+                    help="print the tpuprof-history-v1 document to stdout "
+                         "instead of the table")
+
+    b = sub.add_parser(
+        "backtest", help="replay changed alert thresholds against a watched "
+                         "source's retained artifact chain with the live "
+                         "watch loop's own drift and dedup rules")
+    b.add_argument("source",
+                   help="the watched source path (resolved to its chain "
+                        "under SPOOL/watch/<key>/), or a directory of "
+                        "cycle_*.artifact.json files")
+    b.add_argument("--spool", metavar="DIR", default=None,
+                   help="the watch daemon's spool directory holding the "
+                        "retained chain")
+    b.add_argument("--psi-threshold", type=float, default=None,
+                   metavar="X",
+                   help="PSI at or above X alerts at drift severity "
+                        "(default 0.25; warn band at half)")
+    b.add_argument("--ks-threshold", type=float, default=None, metavar="X",
+                   help="KS distance at or above X alerts at drift "
+                        "severity (default 0.2; warn band at half)")
+    b.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the tpuprof-backtest-v1 document to stdout")
 
 
 def _error(msg) -> None:
@@ -566,6 +756,11 @@ def cmd_profile(args: argparse.Namespace) -> int:
             _error("multi-process needs all three of --coordinator, "
                    "--num-processes and --process-id")
             return 2
+        if args.backend == "cpu":
+            _error("--backend cpu has no fragment striping — every "
+                   "process would profile the whole dataset; multi-process "
+                   "needs the engine")
+            return 2
         if args.parity and not args.unique_spill_dir:
             # the derived dir is local to each process: the merge could
             # not adopt the peers' runs, and the exact counts --parity
@@ -574,11 +769,19 @@ def cmd_profile(args: argparse.Namespace) -> int:
                    "storage shared by all processes (the derived TMPDIR "
                    "dir is local)")
             return 2
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as exc:
-        _error(exc)
-        return 2
+    device = None
+    if args.backend == "cpu":
+        if args.device is not None:
+            # the oracle runs no device: a named one would be ignored
+            _error("--device names the engine's device; --backend cpu runs "
+                   "the pandas oracle, which takes none")
+            return 2
+    else:
+        try:
+            device = resolve_device(args.device)
+        except (RuntimeError, ValueError) as exc:
+            _error(exc)
+            return 2
     _apply_build_dir(args)
     if multi:
         from tpuprof_torch.config import resolve_watchdog_timeout
@@ -594,6 +797,7 @@ def cmd_profile(args: argparse.Namespace) -> int:
                         if c.strip())
     try:
         config = ProfilerConfig(
+            backend=args.backend,
             columns=columns, bins=args.bins, corr_reject=args.corr_reject,
             batch_rows=args.batch_rows, scan_batches=args.scan_batches,
             prepare_workers=args.prepare_workers,
@@ -629,6 +833,8 @@ def cmd_profile(args: argparse.Namespace) -> int:
             metrics_path=args.metrics_json,
             metrics_interval=args.metrics_interval,
             metrics_max_bytes=args.metrics_max_bytes,
+            warehouse_dir=args.warehouse_dir,
+            warehouse_format=args.warehouse_format,
             aot_cache_dir=args.aot_cache_dir, aot_cache=args.aot_cache)
     except ValueError as exc:
         _error(exc)
@@ -660,8 +866,8 @@ def cmd_profile(args: argparse.Namespace) -> int:
                 except (InputError, FileNotFoundError,
                         NotImplementedError) as exc:
                     # what the caller asked for cannot be read or
-                    # profiled (a missing path, an unknown column, a field
-                    # of a later slice): one line, not a traceback, and no
+                    # profiled (a missing path, an unknown column, a
+                    # Pallas switch): one line, not a traceback, and no
                     # postmortem (nothing crashed)
                     _error(exc)
                     return 2
@@ -691,6 +897,9 @@ def cmd_profile(args: argparse.Namespace) -> int:
                     write_artifact(config.artifact_path,
                                    stats=report.description, config=config,
                                    source=str(args.source))
+                    rc = _warehouse_append(config, args.source)
+                    if rc:
+                        return rc
     finally:
         if ticker is not None:
             ticker.stop()
@@ -714,6 +923,29 @@ def cmd_profile(args: argparse.Namespace) -> int:
     if args.stats_json and write_output:
         with open(args.stats_json, "w") as fh:
             json.dump(report.to_json_dict(), fh, indent=2)
+    return 0
+
+
+def _warehouse_append(config, source) -> int:
+    """``--artifact`` with a warehouse dir: append the columnar generation
+    derived from the artifact just sealed, so its Parquet rows and the JSON
+    document carry the same bits.  The user asked for the warehouse, so its
+    typed failures (exit 10 without pyarrow) are the command's; 0 else."""
+    from tpuprof_torch.config import (resolve_warehouse_dir,
+                                      resolve_warehouse_format)
+    whd = resolve_warehouse_dir(config.warehouse_dir)
+    if not whd or resolve_warehouse_format(
+            config.warehouse_format) != "parquet":
+        return 0
+    from tpuprof_torch.artifact import read_artifact
+    from tpuprof_torch.errors import TYPED_ERRORS, exit_code
+    from tpuprof_torch.warehouse import append_artifact
+    try:
+        append_artifact(whd, read_artifact(config.artifact_path),
+                        source=str(source))
+    except TYPED_ERRORS as exc:
+        _error(exc)
+        return exit_code(exc)
     return 0
 
 
@@ -761,26 +993,14 @@ def cmd_serve(args: argparse.Namespace) -> int:
                                       resolve_aot_cache_dir,
                                       resolve_read_cache,
                                       resolve_read_cache_bytes,
-                                      resolve_read_cache_entries)
+                                      resolve_read_cache_entries,
+                                      resolve_serve_http_port)
     from tpuprof_torch.obs import blackbox
     from tpuprof_torch.runtime import aot
     from tpuprof_torch.runtime.runner import resolve_device
     from tpuprof_torch.serve import ServeDaemon
 
-    edge = [flag for flag, value in (
-        ("--http", args.serve_http_port),
-        ("--serve-auth-file", args.serve_auth_file),
-        ("--breaker-threshold", args.breaker_threshold),
-        ("--breaker-cooldown", args.breaker_cooldown_s),
-        ("--serve-max-connections", args.serve_max_connections),
-        ("--serve-conn-timeout", args.serve_conn_timeout_s),
-        ("--serve-max-header-bytes", args.serve_max_header_bytes),
-        ("--serve-max-body-bytes", args.serve_max_body_bytes))
-        if value is not None]
-    if edge:
-        _error(f"{', '.join(edge)}: not in the PyTorch port yet (later "
-               f"slice: {_LATER_3B}); the spool daemon serves without it")
-        return 2
+    http_port = resolve_serve_http_port(args.serve_http_port)
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
@@ -804,9 +1024,13 @@ def cmd_serve(args: argparse.Namespace) -> int:
         if resolve_aot_cache(args.aot_cache) == "on":
             aot_dir = resolve_aot_cache_dir(args.aot_cache_dir) \
                 or os.path.join(args.spool, "aot")
+        # the HTTP edge implies fleet claims: N --http daemons on one spool
+        # is the deployment the edge exists for, and claims keep them from
+        # running each other's jobs twice
         daemon = ServeDaemon(
             args.spool, poll_interval=args.poll_interval,
-            claim_jobs=args.claim_jobs, daemon_id=args.daemon_id,
+            claim_jobs=bool(args.claim_jobs or http_port is not None),
+            daemon_id=args.daemon_id,
             liveness_timeout_s=args.liveness_timeout,
             drain_timeout_s=args.serve_drain_timeout_s,
             aot_cache_dir=aot_dir, aot_cache=args.aot_cache,
@@ -840,6 +1064,16 @@ def cmd_serve(args: argparse.Namespace) -> int:
                   f"{st['seconds']}s", file=sys.stderr, flush=True)
         threading.Thread(target=_prewarmed, daemon=True,
                          name="tpuprof-torch-prewarm-report").start()
+    edge = None
+    if http_port is not None:
+        edge = _start_edge(daemon, http_port, args)
+        if edge is None:
+            if ticker is not None:
+                ticker.stop()
+            return 2
+        print(f"{PROG}: http edge on {edge.url}"
+              + (" (auth required)" if edge.tokens else " (open)"),
+              file=sys.stderr, flush=True)
 
     # a daemon drains on SIGTERM (running jobs finish, results and the
     # .prom dump flush, exit 0), overriding the flight recorder's
@@ -847,7 +1081,11 @@ def cmd_serve(args: argparse.Namespace) -> int:
     # routine stop into a signal death; SIGUSR1 keeps dump-and-continue
     def _graceful(signum, frame):
         blackbox.record("signal", name="SIGTERM", action="drain")
-        daemon.stop_event.set()
+        daemon.stop_event.set()     # /v1/healthz turns "draining"
+        if edge is not None:
+            # stop accepting sockets now; established connections keep
+            # draining and in-flight answers are delivered
+            edge.stop_accepting()
 
     try:
         signal.signal(signal.SIGTERM, _graceful)
@@ -862,6 +1100,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if edge is not None:
+            edge.close()            # stop accepting before draining
         daemon.close()
         # the store's background saves finish before the closing line
         aot.wait_pending_saves()
@@ -889,6 +1129,36 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def _start_edge(daemon, http_port: int, args: argparse.Namespace):
+    """Start ``daemon``'s HTTP edge with the serve verb's flags (the watch
+    verb has only the port and the auth file).  A bad auth file or a port
+    in use prints one line, closes the daemon and returns None."""
+    from tpuprof_torch.config import (resolve_breaker_cooldown,
+                                      resolve_breaker_threshold,
+                                      resolve_serve_auth_file)
+    from tpuprof_torch.errors import InputError
+    from tpuprof_torch.serve.breaker import CircuitBreaker
+    from tpuprof_torch.serve.http import HttpEdge
+    flags = vars(args)
+    try:
+        return HttpEdge(
+            daemon, port=http_port,
+            auth_file=resolve_serve_auth_file(args.serve_auth_file),
+            max_connections=flags.get("serve_max_connections"),
+            conn_timeout_s=flags.get("serve_conn_timeout_s"),
+            max_header_bytes=flags.get("serve_max_header_bytes"),
+            max_body_bytes=flags.get("serve_max_body_bytes"),
+            breaker=CircuitBreaker(
+                threshold=resolve_breaker_threshold(
+                    flags.get("breaker_threshold")),
+                cooldown_s=resolve_breaker_cooldown(
+                    flags.get("breaker_cooldown_s")))).start()
+    except (InputError, OSError) as exc:
+        _error(f"http edge: {exc}")
+        daemon.close(timeout=5)
+        return None
+
+
 def _parse_config_json(raw) -> dict:
     """``--config-json JSON|@FILE``: a dict of extra ProfilerConfig kwargs.
     Raises ValueError in the CLI's bad-request convention."""
@@ -908,20 +1178,31 @@ def _parse_config_json(raw) -> dict:
 
 
 def cmd_submit(args: argparse.Namespace) -> int:
-    # the spool half of the reference's submit: it writes a job file and
+    # the client half: it writes a job file (or POSTs it to an edge) and
     # polls for the result, and creates no CUDA context (torch is never
     # imported here)
-    from tpuprof_torch.errors import CorruptResultError, exit_code
+    import os
+
+    from tpuprof_torch.errors import (CorruptResultError,
+                                      ServeUnavailableError, exit_code)
     from tpuprof_torch.serve.server import wait_result, write_job
 
+    # `submit SPOOL SOURCE` or `submit --url URL SOURCE`: with --url the one
+    # positional is the source (argparse fills left to right, so it lands
+    # in `spool`)
     if args.url:
-        _error(f"--url: not in the PyTorch port yet (later slice: "
-               f"{_LATER_3B}); submit through the daemon's spool "
-               "directory")
+        if args.source is None:
+            args.spool, args.source = None, args.spool
+        if args.spool is not None:
+            _error("pass either a spool directory or --url, not both")
+            return 2
+    if args.source is None:
+        _error("submit needs a source path (and a spool directory or "
+               "--url)")
         return 2
-    if args.spool is None or args.source is None:
-        _error("submit needs the daemon's spool directory and a source "
-               "path")
+    if args.spool is None and not args.url:
+        _error("submit needs the daemon's spool directory (or --url for "
+               "its HTTP edge)")
         return 2
     config = {}
     if args.bins is not None:
@@ -938,26 +1219,69 @@ def cmd_submit(args: argparse.Namespace) -> int:
     except ValueError as exc:
         _error(f"--config-json: {exc}")
         return 2
-    # a relative --deadline-ms budget resolves to an absolute wall clock
-    # HERE, at submit time: the wait in the spool is what it bounds
-    deadline_unix_ms = (int((time.time() + args.deadline_ms / 1000.0)
-                            * 1000)
-                        if args.deadline_ms is not None else None)
-    job_id = write_job(args.spool, args.source, output=args.output,
-                       tenant=args.tenant, stats_json=args.stats_json,
-                       artifact=args.artifact, config_kwargs=config,
-                       deadline_unix_ms=deadline_unix_ms)
-    if args.no_wait:
-        print(job_id)
-        return 0
-    try:
-        result = wait_result(args.spool, job_id, timeout=args.timeout)
-    except CorruptResultError as exc:
-        _error(exc)
-        return exit_code(exc)
-    except TimeoutError as exc:
-        _error(exc)
-        return 4                # the watchdog-shaped failure
+    if args.url:
+        from tpuprof_torch.serve.http import submit_job, wait_result_http
+        token = args.token or os.environ.get("TPUPROF_SERVE_TOKEN")
+        try:
+            code, doc = submit_job(
+                args.url, args.source, output=args.output,
+                tenant=args.tenant, stats_json=args.stats_json,
+                artifact=args.artifact, config_kwargs=config, token=token,
+                deadline_ms=args.deadline_ms)
+        except ServeUnavailableError as exc:
+            # the edge itself is down: its own exit code (9), so a retry
+            # wrapper tells "unreachable" from "rejected"
+            _error(exc)
+            return exit_code(exc)
+        if code == 401:
+            _error(f"{doc.get('error', 'unauthorized')} (pass --token or "
+                   "set TPUPROF_SERVE_TOKEN)")
+            return 2
+        if code == 503 and doc.get("reject_kind") == "BacklogFull":
+            # an overload shed: the serve plane's exit code (9), so a
+            # retry wrapper backs off
+            _error(f"job shed (HTTP 503): {doc.get('error', doc)}")
+            return exit_code(ServeUnavailableError(""))
+        if code not in (200, 202):
+            # the daemon answered and said no: 429 carries the scheduler's
+            # reject reason, 400 the request's own fault
+            _error(f"job rejected (HTTP {code}): {doc.get('error', doc)}")
+            return 2
+        job_id = doc["id"]
+        if args.no_wait:
+            print(job_id)
+            return 0
+        try:
+            result = wait_result_http(args.url, job_id,
+                                      timeout=args.timeout, token=token)
+        except (ServeUnavailableError, CorruptResultError) as exc:
+            _error(exc)
+            return exit_code(exc)
+        except TimeoutError as exc:
+            _error(exc)
+            return 4                # the watchdog-shaped failure
+    else:
+        # a relative --deadline-ms budget resolves to an absolute wall
+        # clock HERE, at submit time: the wait in the spool is what it
+        # bounds
+        deadline_unix_ms = (int((time.time() + args.deadline_ms / 1000.0)
+                                * 1000)
+                            if args.deadline_ms is not None else None)
+        job_id = write_job(args.spool, args.source, output=args.output,
+                           tenant=args.tenant, stats_json=args.stats_json,
+                           artifact=args.artifact, config_kwargs=config,
+                           deadline_unix_ms=deadline_unix_ms)
+        if args.no_wait:
+            print(job_id)
+            return 0
+        try:
+            result = wait_result(args.spool, job_id, timeout=args.timeout)
+        except CorruptResultError as exc:
+            _error(exc)
+            return exit_code(exc)
+        except TimeoutError as exc:
+            _error(exc)
+            return 4                # the watchdog-shaped failure
     status = result.get("status")
     if status == "done":
         rows = result.get("rows")
@@ -975,14 +1299,245 @@ def cmd_submit(args: argparse.Namespace) -> int:
     return int(result.get("exit_code") or 1)
 
 
+def cmd_watch(args: argparse.Namespace) -> int:
+    import os
+    import signal
+    import threading
+
+    from tpuprof_torch import obs
+    from tpuprof_torch.artifact import DriftThresholds
+    from tpuprof_torch.config import (resolve_aot_cache,
+                                      resolve_aot_cache_dir,
+                                      resolve_serve_http_port)
+    from tpuprof_torch.obs import blackbox
+    from tpuprof_torch.runtime import aot
+    from tpuprof_torch.runtime.runner import resolve_device
+    from tpuprof_torch.serve import DriftWatcher, ServeDaemon
+
+    try:
+        config_kwargs = _parse_config_json(args.config_json)
+    except ValueError as exc:
+        _error(f"--config-json: {exc}")
+        return 2
+    if args.profile_passes:
+        config_kwargs.setdefault("profile_passes", args.profile_passes)
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as exc:
+        _error(exc)
+        return 2
+    blackbox.install_signal_handlers()
+    _apply_build_dir(args)
+    ticker = None
+    if args.metrics_json:
+        obs.configure(enabled=True, jsonl_path=args.metrics_json)
+        if args.metrics_interval > 0:
+            ticker = obs.Ticker(args.metrics_interval,
+                                snapshots=True).start()
+    http_port = resolve_serve_http_port(args.serve_http_port)
+    # the watch's cycles share the serve verb's store default, so a
+    # restarted watch adopts its built libraries instead of running nvcc
+    aot_dir = None
+    if resolve_aot_cache(args.aot_cache) == "on":
+        aot_dir = resolve_aot_cache_dir(args.aot_cache_dir) \
+            or os.path.join(args.spool, "aot")
+    try:
+        daemon = ServeDaemon(args.spool, poll_interval=args.poll_interval,
+                             claim_jobs=http_port is not None,
+                             workers=args.serve_workers,
+                             job_timeout_s=args.job_timeout_s,
+                             aot_cache_dir=aot_dir, aot_cache=args.aot_cache,
+                             aot_prewarm=args.aot_prewarm, device=device)
+    except ValueError as exc:
+        if ticker is not None:
+            ticker.stop()
+        _error(exc)
+        return 2
+    edge = None
+    if http_port is not None:
+        edge = _start_edge(daemon, http_port, args)
+        if edge is None:
+            if ticker is not None:
+                ticker.stop()
+            return 2
+        print(f"{PROG}: http edge on {edge.url} (alert feeds at "
+              "/v1/watch/<key>/alerts)", file=sys.stderr, flush=True)
+    try:
+        watcher = DriftWatcher(
+            args.spool, args.sources, daemon.scheduler,
+            every_s=args.watch_every_s, keep=args.artifact_keep,
+            thresholds=DriftThresholds.from_cli(psi=args.psi_threshold,
+                                                ks=args.ks_threshold),
+            job_timeout_s=args.job_timeout_s, config_kwargs=config_kwargs,
+            warehouse_dir=args.warehouse_dir,
+            warehouse_format=args.warehouse_format)
+    except ValueError as exc:
+        if edge is not None:
+            edge.close()
+        daemon.close(timeout=5)
+        if ticker is not None:
+            ticker.stop()
+        _error(exc)
+        return 2
+    blackbox.set_context(watch_sources=[w.source for w in watcher.watches])
+
+    def _graceful(signum, frame):
+        blackbox.record("signal", name="SIGTERM", action="drain")
+        watcher.stop_event.set()
+        daemon.stop_event.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _graceful)
+    except (ValueError, OSError):
+        pass                    # not the main thread: rely on stop_event
+    print(f"{PROG}: watching {len(watcher.watches)} source(s) on "
+          f"{daemon.scheduler.device} every {watcher.every_s:g}s (keep "
+          f"{watcher.keep}"
+          + (f", job timeout {watcher.job_timeout_s:g}s"
+             if watcher.job_timeout_s else "")
+          + f") — spool {args.spool}"
+          + (f" ({args.cycles} cycles)" if args.cycles else ""),
+          file=sys.stderr, flush=True)
+    # the spool keeps answering `submit` while the watch runs: the
+    # daemon's poll loop rides a background thread, the watch loop owns
+    # the foreground
+    spool_thread = threading.Thread(target=daemon.run, daemon=True,
+                                    name="tpuprof-torch-watch-spool")
+    spool_thread.start()
+    try:
+        watcher.run(cycles=args.cycles)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        watcher.stop_event.set()
+        daemon.stop_event.set()
+        if edge is not None:
+            edge.close()
+        spool_thread.join(timeout=30)
+        daemon.close()
+        aot.wait_pending_saves()
+        if ticker is not None:
+            ticker.stop()
+        if args.metrics_json:
+            obs.finalize(reason="watch")
+            with open(args.metrics_json + ".prom", "w") as fh:
+                fh.write(obs.registry().render_text())
+    st = watcher.stats()
+    c = st["cycles"]
+    print(f"{PROG}: watched {st['sources']} source(s): {c['ok']} ok, "
+          f"{c['warn']} warn, {c['drift']} drift, {c['failed']} failed "
+          f"cycles · {st['alerts']} alerts on file", file=sys.stderr)
+    return 0
+
+
+def _resolve_history_dir(args: argparse.Namespace) -> str:
+    """The per-source warehouse directory a history query reads:
+    ``--warehouse-dir``/env (or ``--spool``'s SPOOL/warehouse) plus the
+    source key — or the source itself when it already IS a per-source
+    warehouse directory."""
+    import os
+
+    from tpuprof_torch.config import resolve_warehouse_dir
+    from tpuprof_torch.errors import InputError
+    from tpuprof_torch.warehouse import source_dir
+    from tpuprof_torch.warehouse.store import _has_generations
+    root = resolve_warehouse_dir(args.warehouse_dir) \
+        or (os.path.join(args.spool, "warehouse") if args.spool else None)
+    if root is None:
+        if os.path.isdir(args.source) and _has_generations(args.source):
+            return args.source
+        raise InputError(
+            "history needs the warehouse root: pass --warehouse-dir (or "
+            "TPUPROF_WAREHOUSE_DIR), --spool SPOOL for a watch daemon's "
+            "SPOOL/warehouse, or point SOURCE at a per-source warehouse "
+            "directory directly")
+    return source_dir(root, args.source)
+
+
+def cmd_history(args: argparse.Namespace) -> int:
+    from tpuprof_torch.errors import TYPED_ERRORS, exit_code
+    from tpuprof_torch.warehouse import query_stat, query_trend
+    try:
+        dirpath = _resolve_history_dir(args)
+        if args.trend:
+            doc = query_trend(dirpath, col=args.col)
+        else:
+            if not args.col:
+                _error("history needs --col NAME (or --trend for the drift "
+                       "series)")
+                return 2
+            doc = query_stat(dirpath, args.col, args.stat)
+    except TYPED_ERRORS as exc:
+        _error(exc)
+        return exit_code(exc)
+    if args.as_json:
+        json.dump(doc, sys.stdout, indent=1)
+        print()
+        return 0
+    skipped = (f" (skipped corrupt: {doc['skipped_corrupt']})"
+               if doc["skipped_corrupt"] else "")
+    if args.trend:
+        print(f"# trend over {doc['generations']} generation pair(s) in "
+              f"{doc['warehouse']}{skipped}")
+        print("generation  baseline  column  psi  ks")
+        for entry in doc["series"]:
+            for name, m in sorted(entry["columns"].items()):
+                print(f"{entry['generation']:>10}  "
+                      f"{entry['baseline_generation']:>8}  {name}  "
+                      f"{m['psi']}  {m['ks']}")
+    else:
+        print(f"# {args.stat}({args.col}) over {doc['generations']} "
+              f"generation(s) in {doc['warehouse']}{skipped}")
+        print("generation  rows  value")
+        for entry in doc["series"]:
+            rows = entry["rows"] if entry["rows"] is not None else "?"
+            print(f"{entry['generation']:>10}  {rows:>4}  {entry['value']}")
+    return 0
+
+
+def cmd_backtest(args: argparse.Namespace) -> int:
+    from tpuprof_torch.artifact import DriftThresholds
+    from tpuprof_torch.errors import TYPED_ERRORS, exit_code
+    from tpuprof_torch.warehouse import backtest, chain_dir
+    thresholds = DriftThresholds.from_cli(psi=args.psi_threshold,
+                                          ks=args.ks_threshold)
+    try:
+        doc = backtest(chain_dir(args.spool, args.source), thresholds)
+    except TYPED_ERRORS as exc:
+        _error(exc)
+        return exit_code(exc)
+    if args.as_json:
+        json.dump(doc, sys.stdout, indent=1)
+        print()
+        return 0
+    s = doc["summary"]
+    print(f"{PROG}: backtest {doc['chain']}: {s['alerts']} alert(s) over "
+          f"{s['cycles']} retained cycle(s) ({s['drift_cycles']} drift, "
+          f"{s['warn_cycles']} warn"
+          + (f", {s['unreadable']} unreadable" if s["unreadable"] else "")
+          + ")", file=sys.stderr)
+    for a in doc["alerts"]:
+        cols = ",".join(a["columns"][:6]) + \
+            ("…" if len(a["columns"]) > 6 else "")
+        print(f"cycle {a['cycle']:>6}  {a['severity']:<6} "
+              f"{a['n_drift']} drifting / {a['n_warn']} warning  [{cols}]")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "profile":
         return cmd_profile(args)
     if args.command == "serve":
         return cmd_serve(args)
+    if args.command == "watch":
+        return cmd_watch(args)
     if args.command == "submit":
         return cmd_submit(args)
+    if args.command == "history":
+        return cmd_history(args)
+    if args.command == "backtest":
+        return cmd_backtest(args)
     return cmd_diff(args)
 
 

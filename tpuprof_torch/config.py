@@ -1,11 +1,11 @@
 """Profiler configuration of the port (counterpart of ``tpuprof/config.py``).
 
 Every field of the reference's ``ProfilerConfig`` exists here under the same
-name and default, so a reference configuration carries over.  The fields
-this slice of the port runs are validated as the reference validates them;
-every other field is accepted only at its default and raises
-``NotImplementedError`` naming the later slice otherwise — never silently
-ignored.
+name and default, so a reference configuration carries over, and each is
+validated as the reference validates it.  The two that choose between the
+reference's Pallas kernels and XLA twins (``use_pallas``, ``use_fused``)
+mean nothing on CUDA: they are accepted only at their default and raise
+``NotImplementedError`` otherwise — never silently ignored.
 """
 
 from __future__ import annotations
@@ -26,30 +26,17 @@ UNIQUE_BUDGET_DEFAULT_ROWS = 1 << 25
 UNIQUE_BUDGET_RAM_SHARE = 0.25
 UNIQUE_BUDGET_CAP_ROWS = 1 << 28
 
-# the serve slice's second half: the HTTP edge and what only it builds (the
-# breaker, the drift watch, the warehouse and its retention)
-_SERVE_3B = "serve 3b: the HTTP edge, the breaker, the drift watch and " \
-    "the warehouse"
-
-# field -> the later slice that ports it
+# field -> why it does nothing in the port: the reference's switches between
+# Pallas kernels and XLA twins; the port always runs its CUDA kernels
 _LATER = {
-    "backend": "a CPU oracle backend",
-    "serve_http_port": _SERVE_3B,
-    "serve_auth_file": _SERVE_3B,
-    "breaker_threshold": _SERVE_3B,
-    "breaker_cooldown_s": _SERVE_3B,
-    "serve_max_connections": _SERVE_3B,
-    "serve_conn_timeout_s": _SERVE_3B,
-    "serve_max_header_bytes": _SERVE_3B,
-    "serve_max_body_bytes": _SERVE_3B,
-    "watch_every_s": _SERVE_3B,
-    "warehouse_dir": _SERVE_3B,
-    "warehouse_format": _SERVE_3B,
-    "artifact_keep": _SERVE_3B,
-    "use_pallas": "none: the port always runs its kernels on CUDA",
-    "use_fused": "none: the port always runs its kernels on CUDA",
+    "use_pallas": "the port always runs its kernels on CUDA",
+    "use_fused": "the port always runs its kernels on CUDA",
 }
 
+# "auto" and "tpu" name the port's engine (the card, or the kernels' plain
+# versions with device="cpu"); "cpu" names the exact pandas oracle
+BACKENDS = ("auto", "cpu", "tpu")
+WAREHOUSE_FORMATS = ("parquet", "off")
 AOT_CACHE_MODES = ("on", "off")
 READ_CACHE_MODES = ("on", "off")
 
@@ -210,20 +197,30 @@ class ProfilerConfig:
     read_cache_entries: Optional[int] = None  # its LRU entry cap
     read_cache_bytes: Optional[int] = None  # its LRU payload-bytes cap
 
-    # ---- reference fields a later slice ports (see _LATER) ----------------
-    backend: str = "auto"
-    serve_http_port: Optional[int] = None
-    serve_auth_file: Optional[str] = None
-    breaker_threshold: Optional[int] = None
-    breaker_cooldown_s: Optional[float] = None
-    serve_max_connections: Optional[int] = None
-    serve_conn_timeout_s: Optional[float] = None
-    serve_max_header_bytes: Optional[int] = None
-    serve_max_body_bytes: Optional[int] = None
-    watch_every_s: Optional[float] = None
-    warehouse_dir: Optional[str] = None
-    warehouse_format: Optional[str] = None
-    artifact_keep: Optional[int] = None
+    # ---- the HTTP edge, its breaker, the watch, the warehouse -------------
+    serve_http_port: Optional[int] = None   # the edge's port (0:
+                                            # ephemeral; None: no edge)
+    serve_auth_file: Optional[str] = None   # '<token> <tenant>' lines
+    breaker_threshold: Optional[int] = None  # corrupt warehouse reads a
+                                             # source before /v1/query
+                                             # skips its warehouse tier
+    breaker_cooldown_s: Optional[float] = None  # open -> half-open
+    serve_max_connections: Optional[int] = None  # open-socket ceiling
+    serve_conn_timeout_s: Optional[float] = None  # per-connection I/O
+                                                  # deadline (slow loris)
+    serve_max_header_bytes: Optional[int] = None  # request head cap
+    serve_max_body_bytes: Optional[int] = None  # request body cap
+    watch_every_s: Optional[float] = None   # seconds between watch cycles
+    warehouse_dir: Optional[str] = None     # columnar warehouse root
+    warehouse_format: Optional[str] = None  # "parquet" | "off"
+    artifact_keep: Optional[int] = None     # watch-cycle artifacts kept
+
+    # ---- engine selection -------------------------------------------------
+    backend: str = "auto"                   # "auto" | "tpu": the port's
+                                            # engine; "cpu": the exact
+                                            # pandas oracle (backends/cpu)
+
+    # ---- the reference's kernel switches (see _LATER) ---------------------
     use_pallas: Optional[bool] = None
     use_fused: Optional[bool] = None
 
@@ -234,13 +231,12 @@ class ProfilerConfig:
 
     def __post_init__(self) -> None:
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name, slice_name in _LATER.items():
+        for name, reason in _LATER.items():
             value = getattr(self, name)
             if value != defaults[name]:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not in the PyTorch port yet "
-                    f"(later slice: {slice_name}); leave it at "
-                    f"{defaults[name]!r}")
+                    f"{name}={value!r} has no meaning in the PyTorch port "
+                    f"({reason}); leave it at {defaults[name]!r}")
         if self.profile_passes not in (None,) + PROFILE_PASSES:
             raise ValueError(f"profile_passes={self.profile_passes!r} — "
                              f"use one of {PROFILE_PASSES} (or None for "
@@ -331,6 +327,48 @@ class ProfilerConfig:
                 and self.metrics_max_bytes < 1:
             raise ValueError(
                 "metrics_max_bytes must be >= 1 (or None = unlimited)")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r} (expected "
+                             "cpu|tpu|auto)")
+        if self.watch_every_s is not None and self.watch_every_s < 0:
+            raise ValueError(
+                "watch_every_s must be >= 0 (0 = back-to-back cycles; "
+                "or None)")
+        if self.artifact_keep is not None and self.artifact_keep < 1:
+            raise ValueError("artifact_keep must be >= 1 (or None)")
+        if self.warehouse_format is not None \
+                and self.warehouse_format not in WAREHOUSE_FORMATS:
+            raise ValueError(
+                f"warehouse_format={self.warehouse_format!r} — use one "
+                f"of {WAREHOUSE_FORMATS} (or None for the "
+                "TPUPROF_WAREHOUSE_FORMAT/default resolution)")
+        if self.serve_http_port is not None \
+                and not 0 <= self.serve_http_port <= 65535:
+            raise ValueError(
+                "serve_http_port must be in [0, 65535] (0 = ephemeral; "
+                "or None = no HTTP edge)")
+        if self.breaker_threshold is not None \
+                and self.breaker_threshold < 1:
+            raise ValueError("breaker_threshold must be >= 1 (or None)")
+        if self.breaker_cooldown_s is not None \
+                and self.breaker_cooldown_s < 0:
+            raise ValueError("breaker_cooldown_s must be >= 0 (or None)")
+        if self.serve_max_connections is not None \
+                and self.serve_max_connections < 1:
+            raise ValueError(
+                "serve_max_connections must be >= 1 (or None)")
+        if self.serve_conn_timeout_s is not None \
+                and self.serve_conn_timeout_s <= 0:
+            raise ValueError(
+                "serve_conn_timeout_s must be > 0 (or None)")
+        if self.serve_max_header_bytes is not None \
+                and self.serve_max_header_bytes < 1024:
+            raise ValueError(
+                "serve_max_header_bytes must be >= 1024 (or None)")
+        if self.serve_max_body_bytes is not None \
+                and self.serve_max_body_bytes < 1024:
+            raise ValueError(
+                "serve_max_body_bytes must be >= 1024 (or None)")
         if self.metrics_block_sample < 0:
             raise ValueError("metrics_block_sample must be >= 0 "
                              "(0 disables block-timing sampling)")
@@ -810,3 +848,127 @@ def resolve_read_cache_bytes(value: Optional[int] = None) -> int:
         return max(int(value), 1)
     env = _env_int("TPUPROF_READ_CACHE_BYTES")
     return max(env, 1) if env is not None else 64 << 20
+
+
+def resolve_serve_http_port(value: Optional[int] = None) -> Optional[int]:
+    """The HTTP edge's port (``serve_http_port``): the config value, else
+    ``TPUPROF_SERVE_HTTP_PORT``, else None = no edge (the spool is the only
+    front door).  0 binds an ephemeral port, advertised under
+    ``SPOOL/daemons/http.<daemon-id>`` and printed at start."""
+    if value is not None:
+        return int(value)
+    env = _env_int("TPUPROF_SERVE_HTTP_PORT")
+    return env if env is not None else None
+
+
+def resolve_serve_auth_file(value: Optional[str] = None) -> Optional[str]:
+    """The edge's bearer-token file (``serve_auth_file``: one ``<token>
+    <tenant>`` pair a line): the config value, else
+    ``TPUPROF_SERVE_AUTH_FILE``, else None = an open edge."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_SERVE_AUTH_FILE") or None
+
+
+def resolve_breaker_threshold(value: Optional[int] = None) -> int:
+    """Consecutive corrupt or failed warehouse reads a source before its
+    breaker opens (``breaker_threshold``): the config value, else
+    ``TPUPROF_BREAKER_THRESHOLD``, else 3."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_BREAKER_THRESHOLD")
+    return max(env, 1) if env is not None else 3
+
+
+def resolve_breaker_cooldown(value: Optional[float] = None) -> float:
+    """Seconds an open breaker waits before one half-open probe
+    (``breaker_cooldown_s``): the config value, else
+    ``TPUPROF_BREAKER_COOLDOWN_S``, else 30."""
+    if value is not None:
+        return max(float(value), 0.0)
+    env = _env_float("TPUPROF_BREAKER_COOLDOWN_S")
+    return max(env, 0.0) if env is not None else 30.0
+
+
+def resolve_serve_max_connections(value: Optional[int] = None) -> int:
+    """Open sockets the edge holds at once (``serve_max_connections``); an
+    accept past it answers a terse 503 and closes: the config value, else
+    ``TPUPROF_SERVE_MAX_CONNECTIONS``, else 512."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_SERVE_MAX_CONNECTIONS")
+    return max(env, 1) if env is not None else 512
+
+
+def resolve_serve_conn_timeout(value: Optional[float] = None) -> float:
+    """Per-connection I/O deadline (``serve_conn_timeout_s``, the
+    slow-loris defense): the config value, else
+    ``TPUPROF_SERVE_CONN_TIMEOUT_S``, else 30 seconds."""
+    if value is not None:
+        v = float(value)
+        return v if v > 0 else 30.0
+    env = _env_float("TPUPROF_SERVE_CONN_TIMEOUT_S")
+    return env if env and env > 0 else 30.0
+
+
+def resolve_serve_max_header_bytes(value: Optional[int] = None) -> int:
+    """Request line + header bytes the edge buffers before it drops the
+    connection (``serve_max_header_bytes``): the config value, else
+    ``TPUPROF_SERVE_MAX_HEADER_BYTES``, else 64 KiB."""
+    if value is not None:
+        return max(int(value), 1024)
+    env = _env_int("TPUPROF_SERVE_MAX_HEADER_BYTES")
+    return max(env, 1024) if env is not None else 64 << 10
+
+
+def resolve_serve_max_body_bytes(value: Optional[int] = None) -> int:
+    """Request body cap (``serve_max_body_bytes``; a longer declared
+    Content-Length answers 400): the config value, else
+    ``TPUPROF_SERVE_MAX_BODY_BYTES``, else 1 MiB."""
+    if value is not None:
+        return max(int(value), 1024)
+    env = _env_int("TPUPROF_SERVE_MAX_BODY_BYTES")
+    return max(env, 1024) if env is not None else 1 << 20
+
+
+def resolve_watch_every(value: Optional[float] = None) -> float:
+    """Seconds between a watch's cycles a source (``watch_every_s``): the
+    config value, else ``TPUPROF_WATCH_EVERY_S``, else 300; 0 runs the
+    cycles back to back."""
+    if value is not None:
+        return max(float(value), 0.0)
+    env = _env_float("TPUPROF_WATCH_EVERY_S")
+    return max(env, 0.0) if env is not None else 300.0
+
+
+def resolve_artifact_keep(value: Optional[int] = None) -> int:
+    """Watch-cycle artifacts kept a source (``artifact_keep``): the config
+    value, else ``TPUPROF_ARTIFACT_KEEP``, else 3."""
+    if value is not None:
+        return max(int(value), 1)
+    env = _env_int("TPUPROF_ARTIFACT_KEEP")
+    return max(env, 1) if env is not None else 3
+
+
+def resolve_warehouse_dir(value: Optional[str] = None) -> Optional[str]:
+    """The columnar warehouse root (``warehouse_dir``): the config value,
+    else ``TPUPROF_WAREHOUSE_DIR``, else None — no columnar twin for a
+    one-shot profile; the watch defaults to ``SPOOL/warehouse`` itself."""
+    if value:
+        return str(value)
+    return os.environ.get("TPUPROF_WAREHOUSE_DIR") or None
+
+
+def resolve_warehouse_format(value: Optional[str] = None) -> str:
+    """``parquet`` (the one columnar encoding) or ``off`` (never write the
+    twin, the pyarrow-free opt-out; ``warehouse_format``): the config
+    value, else ``TPUPROF_WAREHOUSE_FORMAT``, else ``parquet``."""
+    for cand, origin in ((value, "warehouse_format"),
+                         (os.environ.get("TPUPROF_WAREHOUSE_FORMAT"),
+                          "TPUPROF_WAREHOUSE_FORMAT")):
+        if cand:
+            if cand not in WAREHOUSE_FORMATS:
+                raise ValueError(
+                    f"{origin}={cand!r} — use one of {WAREHOUSE_FORMATS}")
+            return cand
+    return "parquet"

@@ -16,9 +16,13 @@ serve daemon adds ``CorruptResultError`` (a spool result file that does not
 parse), ``CorruptAotCacheError`` (an entry of the store of built kernel
 libraries failed its integrity check), ``CorruptReadCacheError`` (a cached
 answer failed its CRC) and ``DeadlineExceededError`` (a queued job's client
-deadline passed before a worker reached it).  ``TYPED_ERRORS`` is the
-reference's taxonomy of expected failure shapes, as far as the port has
-them.
+deadline passed before a worker reached it).  The HTTP edge and the
+warehouse add ``ServeUnavailableError`` (the edge cannot be reached; exit
+9), ``WarehouseUnavailableError`` (pyarrow cannot be imported; exit 10)
+and ``CorruptWarehouseError`` (a columnar stats file failed its integrity
+check; exit 6).  ``TYPED_ERRORS`` is the reference's taxonomy of expected
+failure shapes, as far as the port has them (all but the reference's
+``LintFindingsError``).
 """
 
 from typing import Any, Dict, List, Optional
@@ -63,6 +67,27 @@ class CorruptReadCacheError(CorruptArtifactError):
     """A cached answer of the read tier (``serve/cache.ResultCache``) no
     longer matches the CRC recorded when it was stored.  The cache drops it
     and reports a miss; shares exit code 6."""
+
+
+class CorruptWarehouseError(CorruptArtifactError):
+    """A columnar stats file (``tpuprof-stats-parquet-v1`` —
+    ``warehouse/columnar.py``) failed its integrity check: truncated or
+    undecodable Parquet bytes, or a missing or foreign schema id in the
+    file metadata.  Never a raw ``pyarrow.lib.ArrowInvalid``; history
+    queries walk past a corrupt generation.  Shares exit code 6."""
+
+
+class ServeUnavailableError(OSError):
+    """The serve daemon's HTTP edge could not be reached (connection
+    refused, DNS failure, socket timeout on ``submit --url``).  The request
+    never entered any queue — safe to retry against the same or another
+    edge; the CLI maps it to exit code 9."""
+
+
+class WarehouseUnavailableError(RuntimeError):
+    """A columnar-warehouse operation needs pyarrow and this environment
+    cannot import it.  Nothing was written, and the JSON artifact path is
+    unaffected; the CLI maps it to exit code 10."""
 
 
 class PoisonBatchError(RuntimeError):
@@ -124,14 +149,16 @@ class DeadlineExceededError(TimeoutError):
 # the expected failure shapes: one line and an exit code, no traceback
 TYPED_ERRORS = (InputError, CorruptCheckpointError, CorruptArtifactError,
                 CorruptManifestError, PoisonBatchError, WatchdogTimeout,
-                HostDeathError, DeadlineExceededError)
+                HostDeathError, ServeUnavailableError,
+                WarehouseUnavailableError, DeadlineExceededError)
 
 # the reference's codes (``tpuprof/errors.py`` ``_EXIT_CODES``) for the
 # classes the port has; the most specific class first
 _EXIT_CODES = ((CorruptCheckpointError, 3), (CorruptArtifactError, 6),
                (CorruptManifestError, 7), (DeadlineExceededError, 11),
                (WatchdogTimeout, 4), (PoisonBatchError, 5),
-               (HostDeathError, 8), (InputError, 2))
+               (HostDeathError, 8), (ServeUnavailableError, 9),
+               (WarehouseUnavailableError, 10), (InputError, 2))
 
 
 def exit_code(exc: BaseException) -> int:

@@ -198,7 +198,7 @@ class ProfileScheduler:
                 NotImplementedError) as exc:
             # the admission hook: job.reject_kind names the class
             # (quota/depth, a closing queue, a shed, or the request's
-            # own fault — an unknown option, a field of a later slice)
+            # own fault — an unknown option, a Pallas switch)
             if isinstance(exc, BacklogFull):
                 with self._lock:
                     self._shed += 1

@@ -35,6 +35,19 @@ Sites the port wires:
 ``aot_load``       the start of a load from the store of built kernel
                    libraries (``runtime/aot.py``): a raising load demotes
                    loudly to an nvcc build, never fails the profile
+``warehouse_write``  one columnar stats file write
+                   (``warehouse/columnar.py``, keyed by the generation):
+                   raise at the write, or ``truncate@M`` to tear it; a
+                   watch cycle survives it
+``watch_cycle``    the start of one drift-watch cycle
+                   (``serve/watch.py``, keyed by the cycle number): the
+                   cycle becomes a ``failed_cycle`` alert and the watch
+                   goes on
+``http_accept``    the HTTP edge's accept (``serve/http.py``): a raise
+                   (EMFILE under fd pressure) skips that accept round and
+                   the loop keeps serving
+``http_write``     a response write of the edge: a raise (a connection
+                   reset mid-response) drops that socket only
 =================  ========================================================
 
 Spec grammar, ``site:mode`` pairs separated by commas, e.g.
@@ -72,6 +85,19 @@ from tpuprof_torch.errors import HostDeathError, TransientError
 
 _ENV_SPEC = "TPUPROF_FAULTS"
 _ENV_SEED = "TPUPROF_FAULTS_SEED"
+
+#: every site the port hands to :func:`hit`/:func:`mangle` or names as a
+#: watchdog ``site=`` (the table above); the reference's registry but for
+#: its ``singlepass_rebin``, a site the port's re-bin does not inject at
+SITES = frozenset({
+    "prep", "fold",
+    "checkpoint_write", "artifact_write", "warehouse_write",
+    "device_wait", "device_drain", "resume_barrier", "barrier",
+    "fleet_publish", "fleet_finish",
+    "host_death", "serve_job", "watch_cycle",
+    "aot_load",
+    "http_accept", "http_write",
+})
 
 
 class _Rule:
