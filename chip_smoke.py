@@ -10,16 +10,16 @@ Run from the repository root:
     python3 chip_smoke.py --only fleet     # build + phase 11 (multi-GPU)
     python3 chip_smoke.py --only serve     # build + phase 12 (the daemon)
     python3 chip_smoke.py --only edge      # build + phase 13 (HTTP edge)
+    python3 chip_smoke.py --only surface   # build + phase 14 (lint, drop-in)
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --k2-probe       # build + K2's SASS and times
     python3 chip_smoke.py --ingest-only    # build + phase 6 (--seed N)
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact, obs, fleet, serve, edge (phases 3 to 13) and k2big (phase 3's check
-of K2's
-device-memory body alone); ``--kernels-only`` and ``--ingest-only`` are its
-short forms.
+exact, obs, fleet, serve, edge, surface (phases 3 to 14) and k2big (phase
+3's check of K2's device-memory body alone); ``--kernels-only`` and
+``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
 
@@ -72,15 +72,17 @@ Phases, each fatal on failure:
    non-finite entries, rho within 5e-4 of float64's;
 4. the main path, ``tpuprof_torch.describe(df)`` at its default device,
    each run with the launch counters set to 0 just before and read just
-   after: a 200-column x 2,097,152-row float32 table in two passes (K1,
-   K2), then single-pass (``profile_passes="fused"``) cold (K4, K2 for
-   the missed lanes) and warm from an artifact of the two-pass profile
-   (K4 only, every lane a hit), both exactly equal to two-pass; a
-   1,000,000-row mixed frame, two-pass and fused; the 200-column table at
-   1,048,576 rows with ``spearman=True`` (K1, K2, K5); a 1,024-column x
-   131,072-row table two-pass and fused warm (K3 and K2 paired, exactly
-   equal); and a 2,048-column x 131,072-row table with ``spearman=True``
-   (K3 for pass A and the rank Gram, K2, K6).  Each is held against
+   after: a 200-column x 1,048,576-row float32 table (the headline, a
+   depth cut of the bench's 2,097,152 rows for the script's time limit;
+   phases 7, 8, 10 and 11 reuse it) in two passes (K1, K2), then
+   single-pass (``profile_passes="fused"``) cold (K4, K2 for the missed
+   lanes) and warm from an artifact of the two-pass profile (K4 only,
+   every lane a hit), both exactly equal to two-pass; a 1,000,000-row
+   mixed frame, two-pass and fused; the headline with ``spearman=True``
+   (K1, K2, K5); a 1,024-column x 65,536-row table two-pass and fused warm
+   (K3 and K2 paired, exactly equal); and a 2,048-column x 65,536-row
+   table with ``spearman=True`` (K3 for pass A and the rank Gram, K2,
+   K6).  Each is held against
    ``describe(..., device="cpu")`` on a cut of its rows (262,144, two-pass
    and fused; the whole mixed frame; 65,536; 8,192 in one batch of its
    size), Spearman included; each run prints the host seconds of its
@@ -107,7 +109,7 @@ Phases, each fatal on failure:
 6. the rest of host ingest on one frame made from ``--seed``: the
    headline's 200 float32 columns plus ``tags`` list<string>, ``meta``
    struct<a: int64, b: string>, ``uid`` (about one distinct value a
-   row) and ``city``, 262,144 rows in 8 batches of 32,768 (a depth cut
+   row) and ``city``, 160,000 rows in 8 batches of 20,000 (a depth cut
    to keep the script inside its time limit).  ``describe`` of it
    in memory at ``prep_workers`` 1, default and 8 (K1 8, K2 8; the
    three ``stats_to_json`` equal; which of the dictionary and row-hash
@@ -169,7 +171,7 @@ Phases, each fatal on failure:
    prints its wall, phase seconds, spill bytes and runs and the tracker's
    feed and resolve seconds; then ``exact_distinct_overhead_x`` (exact
    wall over sketch wall) and the process's peak host RSS;
-10. telemetry (``tpuprof_torch/obs``): the headline 200 x 2,097,152 with
+10. telemetry (``tpuprof_torch/obs``): the headline 200 x 1,048,576 with
    metrics off, on (a JSONL sink) and on with every dispatch timed by CUDA
    events (``metrics_block_sample=1``), the same launches and
    ``stats_to_json`` in all three; the dispatch series (``scan_a``,
@@ -190,7 +192,7 @@ Phases, each fatal on failure:
    (``TPUPROF_FAULTS=prep:2@1``) exiting 5 with one postmortem bundle
    naming ``prep``.  Each step prints its wall seconds;
 11. devices, processes and the elastic fleet: ``MeshRunner`` over
-   ``[cuda:0, cuda:0]`` on the headline 200 x 2,097,152 (K1 64 and K2 64,
+   ``[cuda:0, cuda:0]`` on the headline 200 x 1,048,576 (K1 32 and K2 32,
    two shards a batch; the stats equal the one-device describe's); on
    phase 5's directory, a single ``profile`` child, then two ranks on
    ``cuda:0`` over gloo (``--coordinator 127.0.0.1:<free port>``; K1 8 and
@@ -241,7 +243,21 @@ Phases, each fatal on failure:
    generation's footer flipped: the breaker opens and the query is
    computed, then ``breaker_open``, both right; ``describe(mixed,
    backend="cpu")`` with no launch, held to the engine's stats;
-14. one JSON line of per-kernel numbers, the card's name and power limit,
+14. the rest of the reference's surface: ``python -m tpuprof_torch lint``
+   in process over the checkout (exit 0, five checkers, the one
+   suppressed finding, the ``tpuprof-lint-v1`` schema, no ``jax`` or
+   ``tpuprof`` module loaded); the spark-df-profiling drop-in,
+   ``tpuprof_torch.spark_df_profiling.ProfileReport(df, bins=10,
+   corr_reject=0.9)`` over the same two files as one 524,288 x 200
+   float32 DataFrame (K1 8 and K2 8; stats, HTML without the footer's
+   wall line, rejected columns, ``base.describe`` and
+   ``templates.template("report")`` equal to ``tpuprof_torch``'s own);
+   then the ``singlepass_rebin`` fault site: under
+   ``singlepass_rebin:fatal@1`` a fused profile seeded from the two-pass
+   artifact raises at the re-bin of a copy with 10 columns moved by +100
+   (K4 8, K2 0), and a warm one of the frame never reaches it (K4 8 alone,
+   every lane a hit, equal to two-pass); each wall beside the card;
+15. one JSON line of per-kernel numbers, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device (and without ``--cpu-rehearsal``) it exits 2 and
@@ -1236,7 +1252,8 @@ def phase_kernels_wide_and_rank(torch, device, rehearsal: bool):
          "plain_ms": p3, "bound_ms": b3, "bound_by": by3,
          "route_bound_ms": b3r, "bound_f32_ms": b3f, "library_ms": lib3},
         {"name": "spear", "route": "cuda",
-         "source": "tpuprof_torch/kernels/csrc/spear.cu",
+         "source": "tpuprof_torch/kernels/csrc/rank.cu, "
+                   "tpuprof_torch/kernels/csrc/fused_wide.cu",
          "replaces": "tpuprof/kernels/fused.py:688",
          "shape": f"{C5}x{R} G={G}", "max_abs_err": err5,
          "max_scaled_err": scaled5, "ms": t5, "plain_ms": p5,
@@ -1665,10 +1682,13 @@ def phase_main_path(torch, rehearsal: bool, card: str):
         cols_p, n_p = 520, 1024
         dev_kw = {"device": "cpu"}
     else:
-        n_wide, n_cut, n_mixed, batch = 2_097_152, 262_144, 1_000_000, 65536
+        # the headline, the 1,024- and the 2,048-column tables at half the
+        # rows of earlier runs: a depth cut to keep the script inside its
+        # time limit with phase 14
+        n_wide, n_cut, n_mixed, batch = 1_048_576, 262_144, 1_000_000, 65536
         n_sp, n_sp_cut = 1_048_576, 65_536
-        cols_w, n_w, n_w_cut = 2048, 131_072, 8_192
-        cols_p, n_p = 1024, 131_072
+        cols_w, n_w, n_w_cut = 2048, 65_536, 8_192
+        cols_p, n_p = 1024, 65_536
         dev_kw = {}                     # the default device: cuda:0
     cols = 200
     tmp = tempfile.mkdtemp(prefix="chip-smoke-")   # the seed artifacts
@@ -1766,19 +1786,9 @@ def phase_main_path(torch, rehearsal: bool, card: str):
         exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0)),
         scan_batches=8, **dev_kw)
     same(warm_st, two_ab, "fused warm")
-    # host times vary between machines and the first run of a call pays
-    # warm-ups: a second two-pass and warm pair, in turn, on the same card
-    _, _, t_two2 = run(wide, f"describe {cols} cols (again)",
-                       exactly=(("fused_ab", 0),), scan_batches=8, **dev_kw)
-    _, _, t_warm2 = warm(
-        wide, two_ab, f"describe {cols} cols fused warm (again)", cols,
-        exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0)),
-        scan_batches=8, **dev_kw)
     shown = ", ".join(f"{what} {t:.3f} s ({n_wide / t:.0f} rows/s)"
                       for what, t in (("two-pass", t_two), ("cold", t_cold),
-                                      ("warm", t_warm),
-                                      ("two-pass", t_two2),
-                                      ("warm", t_warm2)))
+                                      ("warm", t_warm)))
     print(f"headline {n_wide} x {cols} in run order: {shown} on {card}",
           flush=True)
     del cold, warm_st
@@ -1799,7 +1809,7 @@ def phase_main_path(torch, rehearsal: bool, card: str):
     del mixed
 
     # Spearman at 200 columns: K5 folds the batches pass B ships
-    sp = wide_frame(n_sp, cols, seed=3)
+    sp = headline_frame(n_sp, cols)
     _, main_sp, _ = run(sp, f"describe {cols} cols spearman",
                         need=a_b + (("spear", 1),), spearman=True,
                         scan_batches=8, **dev_kw)
@@ -2183,10 +2193,10 @@ def phase_ingest(torch, rehearsal: bool, card: str, seed: int) -> None:
         rows, batch, cols = 4 * 20_000, 20_000, 8
         dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
     else:
-        # 8 batches of 32,768 rows (each still past the row-hash path's
+        # 8 batches of 20,000 rows (each still past the row-hash path's
         # 16,384 distinct values): a depth cut to keep the script inside
-        # its time limit with phases 7 to 11
-        rows, batch, cols = 262_144, 32_768, 200
+        # its time limit with phases 7 to 14
+        rows, batch, cols = 160_000, 20_000, 200
         dev, dev_kw = [], {}
         require(native.available(), "the native hash library did not "
                 "build: the row-hash path needs it")
@@ -3475,7 +3485,7 @@ def phase_obs(torch, rehearsal: bool, card: str, k1_ms=None,
         n, batch = 4096, 512
         dev, dev_kw = ["--device", "cpu"], {"device": "cpu"}
     else:
-        n, batch = 2_097_152, 65_536
+        n, batch = 1_048_576, 65_536
         dev, dev_kw = [], {}
     cols, nb = 200, n // batch
     tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
@@ -3825,7 +3835,7 @@ def phase_fleet(torch, rehearsal: bool, card: str, cli=None) -> None:
         dev, dev_kw, devices = ["--device", "cpu"], {"device": "cpu"}, \
             ["cpu", "cpu"]
     else:
-        n, batch = 2_097_152, 65_536
+        n, batch = 1_048_576, 65_536
         dev, dev_kw, devices = [], {}, ["cuda:0", "cuda:0"]
     cols, nb = 200, n // batch
 
@@ -4793,6 +4803,165 @@ def phase_edge(torch, rehearsal: bool, card: str, cli=None) -> None:
           flush=True)
 
 
+def phase_surface(torch, rehearsal: bool, card: str, cli=None) -> None:
+    """The rest of the reference's surface.  ``lint`` over the port's own
+    tree in process (exit 0, five checkers, the one suppressed finding,
+    ``tpuprof-lint-v1``, no ``jax`` or ``tpuprof`` module loaded); the
+    spark-df-profiling drop-in's ``ProfileReport(df, bins=10,
+    corr_reject=0.9)`` on the card over the frame of phases 12-13 (K1 and
+    K2 one a batch; stats, HTML, rejected columns, ``base.describe`` and
+    ``templates.template`` equal to the port's own); the
+    ``singlepass_rebin`` fault site: a fused profile of a drifted copy
+    under ``singlepass_rebin:fatal@1`` raises at the re-bin, a warm one of
+    the frame never reaches it (K4 alone, equal to two-pass)."""
+    import atexit
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import pyarrow.dataset as pads
+
+    import tpuprof_torch
+    from tpuprof_torch import cli as port_cli
+    from tpuprof_torch import spark_df_profiling
+    from tpuprof_torch.artifact import write_artifact
+    from tpuprof_torch.report.render import get_env
+    from tpuprof_torch.runtime import singlepass
+    from tpuprof_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-surface-")
+    atexit.register(shutil.rmtree, tmp, True)
+    dev = {"device": "cpu"} if rehearsal else {}
+
+    # ---- lint over the port's tree -----------------------------------------
+    lint_json = f"{tmp}/lint.json"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()) as cap:
+        rc = port_cli.main(["lint", "--json", lint_json])
+    lint_s = time.perf_counter() - t0
+    with open(lint_json) as fh:
+        doc = json.load(fh)
+    sup = [f["ident"] for f in doc["findings"] if f["suppressed"]]
+    require(rc == 0 and doc["schema"] == "tpuprof-lint-v1"
+            and len(doc["checkers"]) == 5 and doc["clean"]
+            and sup == ["tpuprof_torch/serve/scheduler.py:_body:bare-write"],
+            f"lint: exit {rc}, {cap.getvalue().strip()}, checkers "
+            f"{doc['checkers']}, suppressed {sup}")
+    loaded = sorted(m for m in sys.modules
+                    if m in ("jax", "tpuprof") or m.startswith("jax.")
+                    or m.startswith("tpuprof."))
+    require(not loaded, f"lint: loaded {loaded[:5]}")
+    print(f"surface lint: exit 0, {len(doc['checkers'])} checkers, "
+          f"{len(sup)} suppressed finding, {doc['wall_s']} s of checks, "
+          f"{lint_s:.3f} s in all, no jax or tpuprof module, on {card}",
+          flush=True)
+
+    # ---- the drop-in on the card -------------------------------------------
+    if cli is None:
+        head_dir, _, batch = cli_directory(rehearsal, tmp)
+    else:
+        head_dir, _, batch = cli
+    t0 = time.perf_counter()
+    df = pads.dataset(half_directory(head_dir)).to_table().to_pandas()
+    load_s = time.perf_counter() - t0
+    n = len(df)
+    nb = -(-n // (1 << 16))             # the default batch_rows
+    zero_counts()
+    t0 = time.perf_counter()
+    drop = spark_df_profiling.ProfileReport(df, bins=10, corr_reject=0.9,
+                                            **dev)
+    drop_html = drop.html
+    drop_s = time.perf_counter() - t0
+    c_drop = read_counts()
+    if not rehearsal:
+        want = dict.fromkeys(c_drop, 0)
+        want.update(fused_a=nb, hist_b=nb)
+        require(c_drop == want, f"drop-in: launches {c_drop}, want {want}")
+    t0 = time.perf_counter()
+    port = tpuprof_torch.ProfileReport(df, bins=10, corr_reject=0.9, **dev)
+    port_html = port.html
+    port_s = time.perf_counter() - t0
+    drop_json = json.dumps(drop.to_json_dict(), sort_keys=True)
+    port_json = json.dumps(port.to_json_dict(), sort_keys=True)
+    require(drop_json == port_json, "drop-in: stats differ from the port's")
+    require(without_footer(drop_html) == without_footer(port_html),
+            "drop-in: HTML differs from the port's")
+    rejected = drop.get_rejected_variables()
+    require(rejected == port.get_rejected_variables(),
+            f"drop-in: rejected {rejected}")
+    t0 = time.perf_counter()
+    base = spark_df_profiling.base.describe(df, bins=10, corr_reject=0.9,
+                                            **dev)
+    base_s = time.perf_counter() - t0
+    require(exported(base) == exported(port.description),
+            "drop-in: base.describe differs from the port's")
+    require(spark_df_profiling.templates.template("report")
+            is get_env().get_template("report.html"),
+            "drop-in: templates.template('report') is not the port's")
+    print(f"surface drop-in: {n:,} x {df.shape[1]} float32 frame (read in "
+          f"{load_s:.3f} s); spark_df_profiling.ProfileReport(df, bins=10, "
+          f"corr_reject=0.9) {drop_s:.3f} s with its HTML (K1 "
+          f"{c_drop['fused_a']} K2 {c_drop['hist_b']}), "
+          f"tpuprof_torch.ProfileReport {port_s:.3f} s, base.describe "
+          f"{base_s:.3f} s: stats, HTML, {len(rejected)} rejected columns "
+          f"and the report template equal, on {card}", flush=True)
+
+    # ---- the singlepass_rebin fault site on the card -----------------------
+    art = f"{tmp}/two.artifact.json"
+    write_artifact(art, stats=port.description, config=port.config)
+    drifted = df.copy()
+    for col in df.columns[:10]:
+        drifted[col] = drifted[col] + np.float32(100.0)
+    fused_kw = dict(profile_passes="fused", seed_edges=art, **dev)
+    raised = None
+    faults.configure("singlepass_rebin:fatal@1")
+    try:
+        zero_counts()
+        m0 = singlepass.edge_misses
+        t0 = time.perf_counter()
+        try:
+            tpuprof_torch.describe(drifted, **fused_kw)
+        except RuntimeError as exc:
+            raised = str(exc)
+        fault_s = time.perf_counter() - t0
+        c_fault, misses = read_counts(), singlepass.edge_misses - m0
+        require(raised is not None and "injected fatal" in raised
+                and "singlepass_rebin" in raised,
+                f"fault site: the drifted fused profile gave {raised!r}")
+        require(misses == 10, f"fault site: {misses} missed lanes, want 10")
+        faults.configure("singlepass_rebin:fatal@1")
+        zero_counts()
+        h0 = (singlepass.edge_hits, singlepass.edge_misses,
+              singlepass.rebins)
+        t0 = time.perf_counter()
+        warm = tpuprof_torch.describe(df, **fused_kw)
+        warm_s = time.perf_counter() - t0
+        c_warm = read_counts()
+    finally:
+        faults.reset()
+    hits = singlepass.edge_hits - h0[0]
+    require((hits, singlepass.edge_misses - h0[1], singlepass.rebins - h0[2])
+            == (df.shape[1], 0, 0), f"fault site: warm hits {hits}")
+    if not rehearsal:
+        want = dict.fromkeys(c_warm, 0)
+        want["fused_ab"] = nb
+        require(c_warm == want, f"fault site warm: launches {c_warm}")
+        require(c_fault["fused_ab"] == nb and c_fault["hist_b"] == 0,
+                f"fault site drifted: launches {c_fault}")
+    require(exported(warm) == exported(port.description),
+            "fault site: the warm fused profile differs from two-pass")
+    print(f"surface fault site: drifted fused profile raised at the re-bin "
+          f"of {misses} missed lanes after {fault_s:.3f} s (K4 "
+          f"{c_fault['fused_ab']} K2 {c_fault['hist_b']}); warm fused "
+          f"{warm_s:.3f} s (K4 {c_warm['fused_ab']} K2 {c_warm['hist_b']}, "
+          f"{hits} of {df.shape[1]} lanes hit, the site not reached), equal "
+          f"to two-pass, on {card}", flush=True)
+    print(f"phase 14 (surface) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def pa_add(column, value: float):
     """``column + value`` of a float32 Arrow column, as float32."""
     import pyarrow as pa
@@ -4841,7 +5010,7 @@ def glob_runs(path: str):
 
 
 PHASES = ("kernels", "main", "cli", "ingest", "limits", "durable",
-          "exact", "obs", "fleet", "serve", "edge")
+          "exact", "obs", "fleet", "serve", "edge", "surface")
 
 
 def main(argv=None) -> int:
@@ -4850,7 +5019,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 13), and k2big (phase "
+                    + ", ".join(PHASES) + " (3 to 14), and k2big (phase "
                     "3's check of K2's device-memory body alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
@@ -4971,6 +5140,8 @@ def main(argv=None) -> int:
         timed(phase_serve, torch, rehearsal, card, cli)
     if "edge" in only:
         timed(phase_edge, torch, rehearsal, card, cli)
+    if "surface" in only:
+        timed(phase_surface, torch, rehearsal, card, cli)
     if rows:
         for r in rows:
             r["launches"] = launches[r["name"]]

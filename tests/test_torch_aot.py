@@ -345,10 +345,11 @@ def test_corrupt_manifest_reads_as_empty(tmp_path, garbage):
 
 
 @pytest.mark.parametrize("key,want", [
-    (KEY, ["fused_a", "hist_b", "spear"]),
-    (KEY[:8] + ("fused",), ["fused_a", "fused_ab", "hist_b", "spear"]),
+    (KEY, ["fused_a", "fused_wide", "hist_b", "rank"]),
+    (KEY[:8] + ("fused",),
+     ["fused_a", "fused_ab", "fused_wide", "hist_b", "rank"]),
     (KEY[:6] + (9000,) + KEY[7:8] + ("fused",),
-     ["fused_a", "hist_b", "spear"]),
+     ["fused_a", "fused_wide", "hist_b", "rank"]),
     ((600,) + KEY[1:], ["fused_wide", "hist_b", "rank"]),
     ((3000,) + KEY[1:], ["hist_b"]),
     ((0,) + KEY[1:], []),

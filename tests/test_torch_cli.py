@@ -214,7 +214,7 @@ def _verb_actions(parser, verb):
 
 
 @pytest.mark.parametrize("verb", ["profile", "diff", "serve", "watch",
-                                  "submit", "history", "backtest"])
+                                  "submit", "history", "backtest", "lint"])
 def test_flags_mirror_the_reference(verb):
     """Every flag of the reference is the port's, with its name, default,
     choices and type; ``--device`` stands beside ``--backend`` in the verbs

@@ -296,14 +296,15 @@ def test_splits_count_triangle_tile_pairs(C, R, pairs, gram_s, gram_rows):
 
 class _RecordingLib:
     """Stands in for the built libraries: the tile constants of gram.cuh,
-    and each Gram entry point records the (gram_splits, gram_rows) its
-    wrapper hands it."""
+    and each entry point records, in call order, its name and the
+    (gram_splits, gram_rows) its wrapper hands it (None for the rank
+    launch, which has no Gram)."""
 
     # entry point -> position of gram_splits among its arguments
-    GRAM_ARG = {"tpt_fused_a": 7, "tpt_fused_wide": 8, "tpt_spear": 7}
+    GRAM_ARG = {"tpt_fused_a": 7, "tpt_fused_wide": 8, "tpt_rank": None}
 
     def __init__(self):
-        self.partition = {}
+        self.calls = []
 
     def tpt_tc_tile(self):
         return TC_TILE
@@ -315,15 +316,18 @@ class _RecordingLib:
         k = self.GRAM_ARG[name]
 
         def entry(*args):
-            self.partition[name] = tuple(args[k:k + 2])
+            self.calls.append(
+                (name, None if k is None else tuple(args[k:k + 2])))
             return 0
         return entry
 
 
 @pytest.mark.parametrize("C", [37, 200, 512])
 def test_k5_runs_k1s_triangle_partition(C, monkeypatch):
-    """K5's Gram runs on K1's partition (and K3's at these widths), so K5
-    is bit for bit K6 then K3 with skip_stats on the card."""
+    """K5 is K6's rank launch, then K3's launch over the ranks on K1's
+    partition (K3's at these widths), so it is bit for bit K6 then K3 with
+    skip_stats on the card; it counts one K5 launch and neither K6's nor
+    K3's."""
     lib = _RecordingLib()
     monkeypatch.setattr(fused._k, "library", lambda name, bind: lib)
     monkeypatch.setattr(fused, "_need_cuda", lambda xt, what: None)
@@ -333,9 +337,13 @@ def test_k5_runs_k1s_triangle_partition(C, monkeypatch):
     R = 65536
     xt = torch.empty((C, R))
     rv = torch.ones(R, dtype=torch.bool)
+    before = (fused.launches_spear, fused.launches_rank,
+              fused.launches_wide)
     fused.spear_tiles_cuda(xt, rv, torch.zeros((C, 256)))
+    assert (fused.launches_spear, fused.launches_rank,
+            fused.launches_wide) == (before[0] + 1,) + before[1:]
     fused.tiles_cuda(xt, rv, torch.zeros(C))
     fused.tiles_wide_cuda(xt, rv, torch.zeros(C), skip_stats=True)
     k1 = fused.splits(C, R, TC_TILE, TC_ROWS)[2:]
-    assert lib.partition == {"tpt_spear": k1, "tpt_fused_a": k1,
-                             "tpt_fused_wide": k1}
+    assert lib.calls == [("tpt_rank", None), ("tpt_fused_wide", k1),
+                         ("tpt_fused_a", k1), ("tpt_fused_wide", k1)]

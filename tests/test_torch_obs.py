@@ -4,7 +4,8 @@ The registry gives the same bytes for the same calls (``render_text``,
 ``snapshot``, ``to_wire``, ``merge_wire`` of two hosts' wires, a skewed
 ladder included), and behaves the same disabled, on a kind mismatch and
 under threads; the port registers the reference's 49 pipeline instruments,
-the fleet's and the serve daemon's with the reference's kinds; spans nest per thread with the reference's
+the fleet's, the serve daemon's, the edge's and the lint's with the
+reference's kinds; spans nest per thread with the reference's
 paths and depths; the JSONL sink rotates as the reference's; ``RateEMA``,
 ``registry_progress_line`` and the config resolvers agree; the flight
 recorder keeps the reference's ring, bundle and signal semantics; memory
@@ -28,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-import tpuprof.artifact.drift  # noqa: F401  (each registers instruments)
+import tpuprof.analysis  # noqa: F401  (each registers instruments)
+import tpuprof.artifact.drift  # noqa: F401
 import tpuprof.artifact.incremental  # noqa: F401
 import tpuprof.ingest.prep  # noqa: F401
 import tpuprof.kernels.unique  # noqa: F401
@@ -43,6 +45,7 @@ import tpuprof.serve.breaker  # noqa: F401
 import tpuprof.serve.server  # noqa: F401
 import tpuprof.warehouse  # noqa: F401
 import tpuprof_torch  # noqa: F401  (imports every module of the port)
+import tpuprof_torch.analysis  # noqa: F401
 import tpuprof_torch.artifact.drift  # noqa: F401
 import tpuprof_torch.artifact.incremental  # noqa: F401
 import tpuprof_torch.serve  # noqa: F401
@@ -135,6 +138,8 @@ EDGE_INSTRUMENTS = (
     "tpuprof_history_query_seconds", "tpuprof_warehouse_fallbacks_total",
     "tpuprof_backtests_total", "tpuprof_backtest_seconds",
 )
+# the lint's (analysis/__init__.py)
+LINT_INSTRUMENTS = ("tpuprof_lint_findings_total",)
 
 
 def _reset_obs():
@@ -317,8 +322,8 @@ def test_the_49_instruments_with_the_reference_kinds():
     ref = {n: i.kind for n, i in ref_metrics.registry()._instruments.items()}
     assert len(INSTRUMENTS) == len(set(INSTRUMENTS)) == 49
     every = INSTRUMENTS + FLEET_INSTRUMENTS + SERVE_INSTRUMENTS \
-        + EDGE_INSTRUMENTS
-    assert len(every) == len(set(every)) == 49 + 4 + 22 + 18
+        + EDGE_INSTRUMENTS + LINT_INSTRUMENTS
+    assert len(every) == len(set(every)) == 49 + 4 + 22 + 18 + 1
     assert set(mine) == set(every)
     assert {n: ref[n] for n in every} == mine
     for name in every:

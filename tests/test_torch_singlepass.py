@@ -372,6 +372,82 @@ def test_seed_from_reference_artifact_equals_port_two_pass(
     assert _export(got) == _export(two_pass)
 
 
+def test_rebin_event_and_fault_site(tmp_path):
+    """tests/test_singlepass.py's scenario through both packages: a fused
+    profile of drifted data seeded from a two-pass artifact re-bins, with
+    one ``singlepass_rebin`` event of the same ``n_miss`` and ``columns``
+    in each; under ``singlepass_rebin:fatal@1`` that profile raises in
+    both; a warm all-hit profile never reaches the site, its export equal
+    to two-pass."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from tpuprof import obs as ref_obs
+    from tpuprof.report.export import stats_to_json as ref_stats_to_json
+    from tpuprof.testing import faults as ref_faults
+    from tpuprof_torch import obs
+    from tpuprof_torch.testing import faults
+
+    def parquet(df, name):
+        path = str(tmp_path / name)
+        pq.write_table(pa.Table.from_pandas(df, preserve_index=False), path)
+        return path
+
+    source = parquet(_edge_case_df(), "t.parquet")
+    df = _edge_case_df(seed=99)
+    df["plain"] = df["plain"] * 7 + 1000
+    drifted = parquet(df, "d.parquet")
+    port_cfg = tpuprof_torch.ProfilerConfig(batch_rows=BATCH)
+    ref_cfg = RefConfig(backend="tpu", batch_rows=BATCH)
+    packages = {
+        "port": (_port, write_artifact, port_cfg, faults, _export),
+        "ref": (_ref, ref_write_artifact, ref_cfg, ref_faults,
+                lambda s: json.dumps(ref_stats_to_json(s), sort_keys=True,
+                                     default=str))}
+    rebins = {}
+    try:
+        for name, (run, write, cfg, flt, export) in packages.items():
+            art = str(tmp_path / f"{name}.seed.json")
+            write(art, stats=run(source), config=cfg)
+            sink = str(tmp_path / f"{name}.events.jsonl")
+            stats = run(drifted, profile_passes="fused", seed_edges=art,
+                        metrics_enabled=True, metrics_path=sink)
+            assert stats["table"]["n"] == len(df)
+            with open(sink) as fh:
+                events = [json.loads(ln) for ln in fh]
+            (ev,) = [e for e in events if e.get("kind") == "singlepass_rebin"]
+            assert ev["n_miss"] >= 1 and ev["origin"] == "artifact"
+            assert isinstance(ev["columns"], list) and ev["columns"]
+            assert ev["seconds"] >= 0
+            rebins[name] = (ev["n_miss"], ev["columns"])
+            # the fault site: a fatal injection at the re-bin start escapes
+            flt.configure("singlepass_rebin:fatal@1")
+            try:
+                with pytest.raises(RuntimeError,
+                                   match="injected fatal fault at "
+                                         "'singlepass_rebin'"):
+                    run(drifted, profile_passes="fused", seed_edges=art)
+            finally:
+                flt.reset()
+            # ...and a warm all-hit profile never reaches the site
+            flt.configure("singlepass_rebin:fatal@1")
+            try:
+                art2 = str(tmp_path / f"{name}.seed2.json")
+                two2 = run(drifted)
+                write(art2, stats=two2, config=cfg)
+                c0 = _counters()
+                warm = run(drifted, profile_passes="fused", seed_edges=art2)
+                assert export(warm) == export(two2)
+                if name == "port":
+                    assert _counters()[1:3] == c0[1:3]     # no miss, no rebin
+            finally:
+                flt.reset()
+    finally:
+        for m in (obs, ref_obs):
+            m.metrics.set_enabled(False)
+            m.events.set_sink(None)
+    assert rebins["port"] == rebins["ref"]
+
+
 # ---------------------------------------------------------------------------
 # (j)-(l)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's surface against the reference's: every ``ProfilerConfig``
 field with the reference's default, ``NotImplementedError`` only for the
-Pallas switches, every CLI verb but ``lint``, every error class of the
-taxonomy with its exit code, every fault site; and the verbs this slice
+Pallas switches, every CLI verb, every error class of the taxonomy with
+its exit code, every fault site; and the verbs this slice
 ported (``describe(backend="cpu")``, ``serve --http``, ``watch``,
 ``history``, ``backtest``) load neither ``jax`` nor any module of the
 reference in a fresh process.
@@ -105,18 +105,17 @@ def _verbs(parser):
     return set(sub.choices)
 
 
-def test_cli_verbs_are_the_references_but_lint():
-    assert _verbs(cli.build_parser()) \
-        == _verbs(ref_cli.build_parser()) - {"lint"}
+def test_cli_verbs_are_the_references():
+    assert _verbs(cli.build_parser()) == _verbs(ref_cli.build_parser())
 
 
 def test_error_taxonomy_and_exit_codes():
     mine = {type(e).__name__ if not isinstance(e, type) else e.__name__
             for e in errors.TYPED_ERRORS}
     ref = {e.__name__ for e in ref_errors.TYPED_ERRORS}
-    assert mine == ref - {"LintFindingsError"}
+    assert mine == ref
     for name in ("ServeUnavailableError", "WarehouseUnavailableError",
-                 "CorruptWarehouseError"):
+                 "CorruptWarehouseError", "LintFindingsError"):
         mine_cls, ref_cls = getattr(errors, name), getattr(ref_errors, name)
         assert [b.__name__ for b in mine_cls.__mro__[1:3]] \
             == [b.__name__ for b in ref_cls.__mro__[1:3]], name
@@ -125,12 +124,13 @@ def test_error_taxonomy_and_exit_codes():
     assert errors.exit_code(errors.ServeUnavailableError("x")) == 9
     assert errors.exit_code(errors.WarehouseUnavailableError("x")) == 10
     assert errors.exit_code(errors.CorruptWarehouseError("x")) == 6
+    assert errors.exit_code(errors.LintFindingsError("x")) == 2
 
 
 def test_fault_sites_are_the_references():
-    assert faults.SITES == ref_faults.SITES - {"singlepass_rebin"}
+    assert faults.SITES == ref_faults.SITES
     for site in ("warehouse_write", "watch_cycle", "http_accept",
-                 "http_write"):
+                 "http_write", "singlepass_rebin"):
         assert site in faults.SITES
         faults.FaultPlan.from_spec(f"{site}:1@1")
 

@@ -20,6 +20,10 @@ an elastic fleet of members survives a lost one (``runtime/fleet.py``).
 ``tpuprof_torch.serve`` is the resident daemon with its HTTP edge and
 drift watch, ``tpuprof_torch.warehouse`` the columnar history of
 profiles, and ``describe(df, backend="cpu")`` the exact pandas oracle.
+``tpuprof_torch.spark_df_profiling`` is the spark-df-profiling drop-in
+(``ProfileReport(df, bins=10, corr_reject=0.9)``), and ``python -m
+tpuprof_torch lint`` runs ``tpuprof_torch.analysis``, the invariant suite,
+over the port's own tree.
 The JAX package ``tpuprof`` is the reference; this package imports
 nothing from it.
 """
@@ -27,9 +31,10 @@ nothing from it.
 from tpuprof_torch.api import (ProfileReport, StreamingProfiler, describe,
                                resume_profiler)
 from tpuprof_torch.config import ProfilerConfig
+from tpuprof_torch.errors import InputError
 
 # the port's own version; artifacts carry it in meta["tpuprof_version"]
 __version__ = "0.1.0"
 
-__all__ = ["ProfileReport", "ProfilerConfig", "StreamingProfiler",
-           "__version__", "describe", "resume_profiler"]
+__all__ = ["InputError", "ProfileReport", "ProfilerConfig",
+           "StreamingProfiler", "__version__", "describe", "resume_profiler"]

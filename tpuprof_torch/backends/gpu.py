@@ -1085,6 +1085,7 @@ class GPUStatsBackend:
             elif len(rebin):
                 # the missed lanes only, on the exact triple the hit check
                 # held them to
+                faults.hit("singlepass_rebin")
                 state_b = runner.init_pass_b(len(rebin))
                 lo_d, hi_d, mean_d = (runner.put_replicated(a[rebin])
                                       for a in exact)

@@ -2,11 +2,12 @@
 -o report.html``, ``python -m tpuprof_torch diff A.json B.json``, the
 resident daemon ``python -m tpuprof_torch serve SPOOL`` with its client
 ``python -m tpuprof_torch submit SPOOL data.parquet``, the drift watch
-``watch SPOOL SOURCE...``, and the warehouse's ``history`` and ``backtest``.
+``watch SPOOL SOURCE...``, the warehouse's ``history`` and ``backtest``, and
+``lint``, the invariant suite (``tpuprof_torch/analysis``) over the port's
+own tree.
 
-Counterpart of every verb of ``tpuprof/cli.py`` but ``lint`` (which checks
-the reference's own source tree), with the same flag names, defaults and
-exit codes.  ``--device`` stands beside the reference's ``--backend``: the
+Counterpart of every verb of ``tpuprof/cli.py``, with the same flag names,
+defaults and exit codes.  ``--device`` stands beside the reference's ``--backend``: the
 profile runs on the first CUDA device unless ``--device cpu`` asks for the
 kernels' plain versions, and without a CUDA device it fails instead of
 running on the CPU.  ``--backend cpu`` runs the exact pandas oracle, and
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -347,6 +349,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exit 1 when any column reaches drift severity; "
                         "a corrupt artifact exits 6 either way")
     _add_history_parsers(sub)
+    _add_lint_parser(sub)
     return parser
 
 
@@ -714,6 +717,32 @@ def _add_history_parsers(sub) -> None:
                         "severity (default 0.2; warn band at half)")
     b.add_argument("--json", action="store_true", dest="as_json",
                    help="print the tpuprof-backtest-v1 document to stdout")
+
+
+def _add_lint_parser(sub) -> None:
+    l = sub.add_parser(
+        "lint", help="run the AST-enforced invariant suite over the "
+                     "source tree (tpuprof_torch/analysis; ANALYSIS.md): "
+                     "durability seams, config surface, obs contracts, "
+                     "error taxonomy, runtime discipline")
+    l.add_argument("root", nargs="?", default=None,
+                   help="repo root holding tpuprof_torch/ + the docs "
+                        "(default: the checkout this tpuprof_torch "
+                        "package was imported from)")
+    l.add_argument("--json", metavar="PATH", dest="lint_json",
+                   help="also write the machine-readable "
+                        "tpuprof-lint-v1 report here")
+    l.add_argument("--strict", action="store_true",
+                   help="ignore the suppression file: report every "
+                        "finding, absorb none")
+    l.add_argument("--suppressions", metavar="PATH", default=None,
+                   help="suppression file (default: "
+                        "tpuprof_torch/LINT_SUPPRESSIONS under the root; "
+                        "'<checker> <ident-glob> <reason>' lines)")
+    l.add_argument("--only", metavar="ID[,ID...]", default=None,
+                   help="run only these checker ids (comma-separated)")
+    l.add_argument("--list", action="store_true", dest="lint_list",
+                   help="list checker ids + one-line docs and exit")
 
 
 def _error(msg) -> None:
@@ -1524,6 +1553,53 @@ def cmd_backtest(args: argparse.Namespace) -> int:
     return 0
 
 
+def _default_lint_root() -> str:
+    """The checkout this package was imported from: the directory holding
+    the ``tpuprof_torch/`` package dir (where the docs the checkers parse
+    live in a source tree)."""
+    import tpuprof_torch
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        tpuprof_torch.__file__)))
+
+
+def cmd_lint(args: argparse.Namespace) -> int:
+    from tpuprof_torch import analysis
+    from tpuprof_torch.errors import LintFindingsError, exit_code
+    if args.lint_list:
+        for cid in analysis.checker_ids():
+            print(f"{cid}: {analysis.checker_doc(cid)}")
+        return 0
+    root = args.root or _default_lint_root()
+    only = [c.strip() for c in args.only.split(",")] if args.only \
+        else None
+    try:
+        report = analysis.run_lint(root, only=only,
+                                   suppressions=args.suppressions,
+                                   strict=args.strict)
+    except ValueError as exc:           # unknown checker id
+        _error(exc)
+        return 2
+    analysis.observe(report)
+    if args.lint_json:
+        with open(args.lint_json, "w") as fh:
+            fh.write(report.to_json())
+    unsuppressed = report.unsuppressed()
+    for f in unsuppressed:
+        print(f.format())
+    n_sup = len(report.suppressed)
+    if unsuppressed:
+        exc = LintFindingsError(
+            f"{len(unsuppressed)} finding(s) across "
+            f"{len(report.counts_by_checker())} checker(s)"
+            + (f" ({n_sup} suppressed)" if n_sup else ""))
+        print(f"{PROG} lint: {exc}", file=sys.stderr)
+        return exit_code(exc)
+    print(f"{PROG} lint: clean — {len(report.checkers_run)} checkers"
+          + (f", {n_sup} suppressed finding(s)" if n_sup else "")
+          + f" in {report.wall_s:.2f}s", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "profile":
@@ -1538,6 +1614,8 @@ def main(argv=None) -> int:
         return cmd_history(args)
     if args.command == "backtest":
         return cmd_backtest(args)
+    if args.command == "lint":
+        return cmd_lint(args)
     return cmd_diff(args)
 
 

@@ -1,5 +1,5 @@
-"""Errors the port raises (counterpart of the subset of ``tpuprof/errors.py``
-that this package uses) and the CLI's exit code for each.
+"""Errors the port raises (counterpart of ``tpuprof/errors.py``) and the
+CLI's exit code for each.
 
 ``CorruptCheckpointError`` is what a torn, foreign or garbage checkpoint
 raises (``runtime/checkpoint.py``).  The ingest guard (``runtime/guard.py``)
@@ -20,9 +20,9 @@ deadline passed before a worker reached it).  The HTTP edge and the
 warehouse add ``ServeUnavailableError`` (the edge cannot be reached; exit
 9), ``WarehouseUnavailableError`` (pyarrow cannot be imported; exit 10)
 and ``CorruptWarehouseError`` (a columnar stats file failed its integrity
-check; exit 6).  ``TYPED_ERRORS`` is the reference's taxonomy of expected
-failure shapes, as far as the port has them (all but the reference's
-``LintFindingsError``).
+check; exit 6).  The ``lint`` verb adds ``LintFindingsError`` (unsuppressed
+invariant findings; an ``InputError``, exit 2).  ``TYPED_ERRORS`` is the
+reference's taxonomy of expected failure shapes, every class of it.
 """
 
 from typing import Any, Dict, List, Optional
@@ -119,6 +119,14 @@ class HostDeathError(RuntimeError):
         self.at_call = at_call
 
 
+class LintFindingsError(InputError):
+    """``lint`` found unsuppressed invariant violations
+    (``tpuprof_torch/analysis``; ANALYSIS.md).  Subclasses
+    :class:`InputError` and shares its exit code 2 — "the tree you asked
+    us to bless is not blessable" is an input problem — so CI gates on
+    exit 2 without a new branch."""
+
+
 class WatchdogTimeout(TimeoutError):
     """A watched blocking call overran its deadline."""
 
@@ -149,11 +157,11 @@ class DeadlineExceededError(TimeoutError):
 # the expected failure shapes: one line and an exit code, no traceback
 TYPED_ERRORS = (InputError, CorruptCheckpointError, CorruptArtifactError,
                 CorruptManifestError, PoisonBatchError, WatchdogTimeout,
-                HostDeathError, ServeUnavailableError,
+                HostDeathError, ServeUnavailableError, LintFindingsError,
                 WarehouseUnavailableError, DeadlineExceededError)
 
-# the reference's codes (``tpuprof/errors.py`` ``_EXIT_CODES``) for the
-# classes the port has; the most specific class first
+# the reference's codes (``tpuprof/errors.py`` ``_EXIT_CODES``); the most
+# specific class first (``LintFindingsError`` takes ``InputError``'s 2)
 _EXIT_CODES = ((CorruptCheckpointError, 3), (CorruptArtifactError, 6),
                (CorruptManifestError, 7), (DeadlineExceededError, 11),
                (WatchdogTimeout, 4), (PoisonBatchError, 5),

@@ -23,8 +23,7 @@ from tpuprof_torch import _build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = {name: os.path.join(_CSRC, f"{name}.cu")
-           for name in ("fused_a", "hist_b", "fused_wide", "spear", "rank",
-                        "fused_ab")}
+           for name in ("fused_a", "hist_b", "fused_wide", "rank", "fused_ab")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

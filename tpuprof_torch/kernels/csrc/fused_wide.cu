@@ -36,7 +36,9 @@
 // outputs (at C=2048 the 528 tile pairs alone fill the card's 132 SMs four
 // times, so one split), while keeping each split under 2^20 rows so the
 // float32 pair counts stay exact; at K1's widths K3 takes K1's partition,
-// so the Spearman Gram of K5 (spear.cu) is K3's bit for bit.  The fold of the splits is in split order: no float
+// so the Spearman Gram of K5 is this launch (fused.py spear_tiles_cuda runs
+// it with skip_stats over K6's ranks).  The fold of the splits is in split
+// order: no float
 // atomics, a rerun gives the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math).

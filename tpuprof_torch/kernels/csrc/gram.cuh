@@ -1,6 +1,6 @@
 // Device code shared by the pass-A kernels K1 (fused_a.cu), K3
 // (fused_wide.cu), the single-pass kernel K4 (fused_ab.cu) and the narrow
-// Spearman kernel K5 (spear.cu, the Gram of its ranks):
+// Spearman kernel K5 (K3's launch over K6's ranks, the Gram of its ranks):
 //
 // * StatsAcc / stats_store / stats_partial / stats_fold: the per-column
 //   statistics of one batch (s1..s4 of d = x - shift over finite values,

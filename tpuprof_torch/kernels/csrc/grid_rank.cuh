@@ -1,6 +1,6 @@
-// The grid rank of K6 (rank.cu) and of K5's first stage (spear.cu): one
-// copy of the device code and its launch, so the two Spearman tiers cannot
-// drift apart.
+// The grid rank of K6 (rank.cu), whose launch is also K5's first stage
+// (fused.py spear_tiles_cuda): one copy of the device code and its launch,
+// so the two Spearman tiers cannot drift apart.
 //
 // The reference (tpuprof/kernels/fused.py::_grid_ranks) ranks a value x
 // against its column's G-point CDF grid g by a dense compare:

@@ -7,8 +7,8 @@
 // nondecreasing) it writes ranks (C, R) float32: the grid rank of x where
 // the row is valid and x finite, NaN elsewhere.  Stage 2 is K3 with
 // skip_stats over these ranks with shift 0.5, where a NaN rank is masked
-// as a NaN value is.  K5 (spear.cu) runs the same launch as its first
-// stage.
+// as a NaN value is.  K5 (fused.py spear_tiles_cuda) is this launch, then
+// K3's with skip_stats, at most 512 columns.
 //
 // What bounds it on an H100: memory.  The function reads xt once and
 // writes the ranks once, 2*C*R*4 bytes (1.07 GB at C=2048, R=65536, 0.32

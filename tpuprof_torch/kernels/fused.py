@@ -12,10 +12,11 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
   (``csrc/fused_wide.cu``, replaces ``_fused_tiles_wide``) up to
   ``MAX_FUSED_COLS_WIDE``;
 * :func:`spearman_update` folds a batch's grid ranks into a corr state
-  whose shift is 0.5: kernel K5 (``csrc/spear.cu``, replaces
-  ``_spear_tiles``), up to ``MAX_FUSED_COLS`` columns, which runs K6's
-  rank launch into a scratch and K1's Gram over it, bit for bit K6 then
-  K3 with ``skip_stats``;
+  whose shift is 0.5: kernel K5 (replaces ``_spear_tiles``), up to
+  ``MAX_FUSED_COLS`` columns, which is K6's rank launch
+  (``csrc/rank.cu``) into a scratch, then K3's with ``skip_stats``
+  (``csrc/fused_wide.cu``, K1's row partition at these widths) over it:
+  the narrow and the wide Spearman tiers share their device code;
 * wider tables rank in two stages: :func:`rank_transform`, kernel K6
   (``csrc/rank.cu``, replaces ``_rank_tiles``), writes the ranks, and
   :func:`spearman_update_wide` runs K3 with ``skip_stats`` over them;
@@ -355,16 +356,6 @@ def _bind_max_grid(lib: ctypes.CDLL) -> None:
                            "tpuprof_torch.config.MAX_SPEAR_GRID")
 
 
-def _bind_spear(lib: ctypes.CDLL) -> None:
-    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                        ctypes.c_float)
-    _bind_gram(lib)
-    _bind_max_grid(lib)
-    lib.tpt_spear.argtypes = [p, p, p, i32, i64, i32, f32, i32, i64,
-                              p, p, p, p, p, p, p, p]
-    lib.tpt_spear.restype = ctypes.c_int
-
-
 def _bind_rank(lib: ctypes.CDLL) -> None:
     p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
@@ -405,12 +396,11 @@ def splits(C: int, R: int, tile: int, tr: int,
 def _lib_splits(C: int, R: int, lib: ctypes.CDLL
                 ) -> Tuple[int, int, int, int]:
     """:func:`splits` as every Gram kernel runs it at C columns (K1, K3,
-    K4, K5): one partition a width, so K4 equals K1 then K2 and K5 equals
-    K6 then K3 bit for bit.  The cap on K3's scratch binds only past
-    ``MAX_FUSED_COLS``, where K3 is the only Gram kernel of the main
-    path.  The uncapped branch serves K3 at ``MAX_FUSED_COLS`` columns or
-    fewer, which only ``chip_smoke.py`` and the ``cuda``-marked test run,
-    to hold K5 bit for bit against K6 then K3."""
+    K4, K5): one partition a width, so K4 equals K1 then K2 bit for bit.
+    The cap on K3's scratch binds only past ``MAX_FUSED_COLS``, where K3
+    is the only Gram kernel of the main path.  The uncapped branch serves
+    K3 at ``MAX_FUSED_COLS`` columns or fewer: K5's Gram stage, on K1's
+    partition."""
     cap = _WIDE_MAX_GRAM_SPLITS if C > MAX_FUSED_COLS else None
     return splits(C, R, lib.tpt_tc_tile(), lib.tpt_tc_rows(),
                   max_gram_splits=cap)
@@ -518,6 +508,19 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     global launches_wide
     _check_inputs(xt, row_valid, shift)
     _need_cuda(xt, "tiles_wide_cuda")
+    tiles, status, lib = _launch_wide(xt, row_valid, shift, skip_stats)
+    if status is None:
+        return tiles
+    with _count_lock:
+        launches_wide += 1
+    _k.check(status, "fused_wide (K3)", lib)
+    return tiles
+
+
+def _launch_wide(xt, row_valid, shift, skip_stats: bool):
+    """K3's launch on the current stream, counted by neither wrapper:
+    (its outputs, the status, the library), the status None when there
+    is no column to launch for."""
     lib = _k.library("fused_wide", _bind_wide)
     C, R = xt.shape
     dev = xt.device
@@ -526,7 +529,7 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     counts = torch.empty((C, 8), dtype=_I32, device=dev)
     P, S1, S2, N = _grams(C, dev)
     if C == 0:
-        return sums, counts, P, S1, S2, N
+        return (sums, counts, P, S1, S2, N), None, lib
     n_stat = 0 if skip_stats else C * stat_s
     psums = torch.empty((n_stat * 8,), dtype=_F32, device=dev)
     pcounts = torch.empty((n_stat * 4,), dtype=_I32, device=dev)
@@ -538,43 +541,32 @@ def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
             psums.data_ptr(), pcounts.data_ptr(), partial.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), P.data_ptr(), S1.data_ptr(),
             S2.data_ptr(), N.data_ptr(), _stream(dev))
-    with _count_lock:
-        launches_wide += 1
-    _k.check(status, "fused_wide (K3)", lib)
-    return sums, counts, P, S1, S2, N
+    return (sums, counts, P, S1, S2, N), status, lib
 
 
 def spear_tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
                      grid: torch.Tensor) -> Grams:
     """Launch K5 on the current stream; same outputs as
-    :func:`spear_tiles_plain`, bit for bit those of :func:`rank_cuda`
-    then :func:`tiles_wide_cuda` with ``skip_stats`` on the same inputs.
-    ``grid`` rows must be nondecreasing (the backend checks the grid it
-    builds)."""
+    :func:`spear_tiles_plain`.  K5 is K6's rank launch into a (C, R)
+    scratch, then K3's launch with ``skip_stats`` over it with shift 0.5
+    (at these widths on K1's row partition): bit for bit
+    :func:`rank_cuda` then :func:`tiles_wide_cuda` on the same inputs,
+    and counted once, as K5, by neither of their counters.  ``grid`` rows
+    must be nondecreasing (the backend checks the grid it builds)."""
     global launches_spear
     _check_grid(xt, row_valid, grid)
     _narrow_only(xt.shape[0], "kernel K5")
     _need_cuda(xt, "spear_tiles_cuda")
-    lib = _k.library("spear", _bind_spear)
-    C, R = xt.shape
-    G = grid.shape[1]
-    dev = xt.device
-    _, _, gram_s, gram_rows = _lib_splits(C, R, lib)
-    P, S1, S2, N = _grams(C, dev)
-    if C == 0:
-        return P, S1, S2, N
+    if xt.shape[0] == 0:
+        return _grams(0, xt.device)
     ranks = torch.empty_like(xt)
-    partial = torch.empty((gram_s * 4 * C * C,), dtype=_F32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.tpt_spear(
-            xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
-            _rank_scale(G), gram_s, gram_rows, _half(xt).data_ptr(),
-            ranks.data_ptr(), partial.data_ptr(), P.data_ptr(),
-            S1.data_ptr(), S2.data_ptr(), N.data_ptr(), _stream(dev))
+    status, lib = _launch_rank(xt, row_valid, grid, ranks)
+    _k.check(status, "rank (K5's rank stage)", lib)
+    tiles, status, lib = _launch_wide(ranks, row_valid, _half(xt), True)
     with _count_lock:
         launches_spear += 1
-    _k.check(status, "spear (K5)", lib)
-    return P, S1, S2, N
+    _k.check(status, "fused_wide (K5's Gram stage)", lib)
+    return tiles[2:]
 
 
 def rank_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
@@ -584,20 +576,27 @@ def rank_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
     global launches_rank
     _check_grid(xt, row_valid, grid)
     _need_cuda(xt, "rank_cuda")
-    lib = _k.library("rank", _bind_rank)
-    C, R = xt.shape
-    G = grid.shape[1]
     out = torch.empty_like(xt)
-    if C == 0:
+    if xt.shape[0] == 0:
         return out
-    with torch.cuda.device(xt.device):
-        status = lib.tpt_rank(
-            xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
-            _rank_scale(G), out.data_ptr(), _stream(xt.device))
+    status, lib = _launch_rank(xt, row_valid, grid, out)
     with _count_lock:
         launches_rank += 1
     _k.check(status, "rank (K6)", lib)
     return out
+
+
+def _launch_rank(xt, row_valid, grid, out):
+    """K6's launch on the current stream, the ranks into ``out``, counted
+    by neither wrapper: (the status, the library)."""
+    lib = _k.library("rank", _bind_rank)
+    C, R = xt.shape
+    G = grid.shape[1]
+    with torch.cuda.device(xt.device):
+        status = lib.tpt_rank(
+            xt.data_ptr(), row_valid.data_ptr(), grid.data_ptr(), C, R, G,
+            _rank_scale(G), out.data_ptr(), _stream(xt.device))
+    return status, lib
 
 
 def _bind_ab(lib: ctypes.CDLL) -> None:

@@ -95,12 +95,13 @@ def _count(what: str) -> None:
 def libraries_for(key: Tuple) -> List[str]:
     """The kernel libraries the runner of ``key`` (``serve/cache.
     runner_key``) may launch, by the runner's tiers: K2 (``hist_b``) for
-    pass B and a fused profile's re-bins; up to 512 columns K1
-    (``fused_a``) and the Spearman kernel K5 (``spear``), from 513 to
-    2,048 K3 (``fused_wide``) and K6 (``rank``); K4 (``fused_ab``) for a
-    fused key within its columns and bins.  Spearman is not in the key
-    (nor in the reference's), so a key carries its Spearman tier's
-    library too.  None on the CPU, where the plain versions run."""
+    pass B and a fused profile's re-bins; up to 2,048 columns K3
+    (``fused_wide``) and K6 (``rank``), which the Spearman kernel K5 also
+    launches from up to 512 columns; up to 512 K1 (``fused_a``); K4
+    (``fused_ab``) for a fused key within its columns and bins.
+    Spearman is not in the key (nor in the reference's), so a key
+    carries its Spearman tier's libraries too.  None on the CPU, where
+    the plain versions run."""
     from tpuprof_torch.kernels.fused import (MAX_FUSED_AB_COLS,
                                              MAX_FUSED_COLS,
                                              MAX_FUSED_COLS_WIDE)
@@ -110,10 +111,10 @@ def libraries_for(key: Tuple) -> List[str]:
             or any(t != "cuda" for t, _ in devices):
         return []
     names = {"hist_b"}
-    if n_num <= MAX_FUSED_COLS:
-        names |= {"fused_a", "spear"}
-    elif n_num <= MAX_FUSED_COLS_WIDE:
+    if n_num <= MAX_FUSED_COLS_WIDE:
         names |= {"fused_wide", "rank"}
+    if n_num <= MAX_FUSED_COLS:
+        names.add("fused_a")
     if passes == "fused" and n_num <= MAX_FUSED_AB_COLS \
             and bins <= SHARED_MAX_BINS:
         names.add("fused_ab")
@@ -602,7 +603,7 @@ def warm(runner, key: Tuple, spearman_grid: int) -> List[str]:
         if "fused_ab" in names:
             r.step_ab(r.init_pass_a(np.zeros(C)), r.init_pass_b(), db,
                       zero, zero, zero)
-        if {"spear", "rank"} & set(names):
+        if "rank" in names:
             grid = torch.zeros((C, min(spearman_grid, MAX_SPEAR_GRID)),
                                dtype=torch.float32, device=dev)
             r.step_spearman_grid(r.init_spearman(), db, grid)

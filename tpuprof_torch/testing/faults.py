@@ -32,6 +32,10 @@ Sites the port wires:
                    the job id): fails that job, the daemon keeps serving;
                    ``sleep=S`` (or ``sleep=S@M``) here feeds the job
                    watchdog
+``singlepass_rebin``  the start of a fused profile's targeted pass-B
+                   re-bin (``backends/gpu.py``, the edge-miss fallback of
+                   ``runtime/singlepass.py``): reached only when a lane
+                   missed its provisional edges
 ``aot_load``       the start of a load from the store of built kernel
                    libraries (``runtime/aot.py``): a raising load demotes
                    loudly to an nvcc build, never fails the profile
@@ -87,14 +91,14 @@ _ENV_SPEC = "TPUPROF_FAULTS"
 _ENV_SEED = "TPUPROF_FAULTS_SEED"
 
 #: every site the port hands to :func:`hit`/:func:`mangle` or names as a
-#: watchdog ``site=`` (the table above); the reference's registry but for
-#: its ``singlepass_rebin``, a site the port's re-bin does not inject at
+#: watchdog ``site=`` (the table above): the reference's registry
 SITES = frozenset({
     "prep", "fold",
     "checkpoint_write", "artifact_write", "warehouse_write",
     "device_wait", "device_drain", "resume_barrier", "barrier",
     "fleet_publish", "fleet_finish",
     "host_death", "serve_job", "watch_cycle",
+    "singlepass_rebin",
     "aot_load",
     "http_accept", "http_write",
 })
