@@ -18,7 +18,7 @@ Run from the repository root:
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
 exact, obs, fleet, serve, edge, surface (phases 3 to 14) and k2big (phase
-3's check of K2's device-memory body alone); ``--kernels-only`` and
+3's check of K2 past 8,192 bins alone); ``--kernels-only`` and
 ``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
@@ -34,11 +34,17 @@ Phases, each fatal on failure:
    forms itself), on a batch whose every value lands in one bin and on a
    re-bin of three of 200 columns, counts exact, its MAD numerator bit for
    bit its order model (``mad_order``) and within rtol 5e-4 of the plain
-   version, the re-bin's the full width's bits; K2's device-memory body
-   (past 8,192 bins) at 200 x 65,536 with 16,384 and 65,536 bins on the
-   adversarial and a clean batch, counts equal to ``histogram_plain``, the
-   MAD bits the 10-bin shared body's, timed as the shared body is (events,
-   a CUDA graph, the bincount route, its bytes bound); K3
+   version, the re-bin's the full width's bits; K2 past 8,192 bins
+   (``check_k2_global``): its cluster body at every tier edge up to
+   173,568 bins and its device-memory body past it, at 200, 1 and
+   2,048 columns x 65,536 rows, on the adversarial, a clean and a one-bin
+   batch, in each cluster kind at 200 columns with 16,384 and 65,536
+   bins, counts equal to ``histogram_plain``, the MAD bits the 10-bin
+   shared body's, each call launching the body its plan names, a refused
+   plan raising; timed at 16,384 and 65,536 bins as the shared body is
+   (events, a CUDA graph, the bincount route, its bytes bound; the other
+   kinds and the device-memory body under ``--k2-probe``): the kernels
+   line's ``hist_b_cluster`` row; K3
    at 513, 1024 and 2048 columns with and without ``skip_stats``, K5 at
    37, 200 and 512 columns for grids of 16, 100 and 256 points, K6 beside
    each, and K5 bit for bit K6 then K3 with ``skip_stats`` over its ranks
@@ -83,8 +89,8 @@ Phases, each fatal on failure:
    (K3 and K2 paired, exactly equal); and a 2,048-column x 65,536-row
    table with ``spearman=True`` (K3 for pass A and the rank Gram, K2,
    K6).  Each is held against
-   ``describe(..., device="cpu")`` on a cut of its rows (262,144, two-pass
-   and fused; the whole mixed frame; 65,536; 8,192 in one batch of its
+   ``describe(..., device="cpu")`` on a cut of its rows (131,072, two-pass
+   and fused; the whole mixed frame; 65,536; 4,096 in one batch of its
    size), Spearman included; each run prints the host seconds of its
    phases (``stats["_phases"]``: ``scan_a``, ``merge``, ``scan_b``);
 5. the command line on the card: the 200-column table at 1,048,576 rows
@@ -125,15 +131,16 @@ Phases, each fatal on failure:
    budget raising, and a 3 s ``device_wait`` under a 1 s
    ``drain_timeout_s`` raising ``WatchdogTimeout``; every run prints its
    wall and phase seconds;
-7. past the kernels' limits: 2,112 float32 columns x 16,384 rows two-pass
+7. past the kernels' limits: 2,112 float32 columns x 8,192 rows two-pass
    and with ``spearman=True`` (the XLA twin, K2, the exact rank tier; K1,
    K3, K5 and K6 launch 0 times) against ``describe(..., device="cpu")``;
-   4,096 x 65,536 (one device batch) two-pass with ``spearman=True`` and
+   4,096 x 32,768 (one device batch) two-pass with ``spearman=True`` and
    fused warm (equal to two-pass), with wall, phase seconds and peak
    device memory, and the card times of the routes that are not kernels
    (the twin, its ``torch.matmul`` Gram, the exact tier's
    ``searchsorted``) on one batch; the headline 200 x 1,048,576 at
-   ``bins=16384`` two-pass and fused warm (K1 then K2, equal), each
+   ``bins=16384`` two-pass and fused warm (K1 then K2's cluster body,
+   equal; its launches the ``hist_b_cluster`` row's), each
    histogram's bin pairs summing to the 8,192-bin describe's exactly;
 8. durable profiles: a ``StreamingProfiler`` over the headline table at
    1,048,576 rows in 16,384-row micro-batches, two-pass (K1) and fused
@@ -785,53 +792,158 @@ def k2_times(torch, device, k2, C=200, R=65536, CW=2048, nbins=10,
     return out
 
 
+def k2_edges(hist):
+    """K2's tier edges past its shared body (``hist.cluster_plan``): the
+    first bin count past it, the headline's 16,384, the largest 32-bit
+    private copy, 65,536, the largest 16-bit copy and one past it, the
+    largest spread histogram (the cluster body's reach) and one past it
+    (the device-memory body)."""
+    return (hist.SHARED_MAX_BINS + 1, 16384, hist.SLICE_MAX_BINS, 65536,
+            2 * hist.SLICE_MAX_BINS, 2 * hist.SLICE_MAX_BINS + 1,
+            hist.CLUSTER_MAX_BINS, hist.CLUSTER_MAX_BINS + 1)
+
+
+def k2_bound(C: int, R: int, nbins: int):
+    """K2's (bound_ms, bound_by): each input read once, the (C, nbins)
+    counts and the MAD written once; 8 operations a value."""
+    return bound(C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
+                 8 * C * R)
+
+
+def k2_batches(torch, device, C, R, seed):
+    """(name, inputs) of the batches K2 is held on past 8,192 bins: the
+    adversarial one (NaN, +-inf, denormal lanes, values on bin edges), a
+    clean one, and the clean one with ``hi`` moved out so that every
+    value of every column lands in bin 0 at any bin count."""
+    x, rv = adversarial_batch(C, R, seed)
+    x, lo, hi, mean = hist_bounds(x, rv, 10, np.random.default_rng(seed))
+    adv = [torch.from_numpy(a).to(device) for a in (x, rv, lo, hi, mean)]
+    clean = list(clean_batch(torch, device, C, R, seed=seed + 1))
+    one = clean[:3] + [(clean[2] + (clean[3] - clean[2]) * 1e7)
+                       .contiguous(), clean[4]]
+    return (("adversarial", adv), ("clean", clean), ("one-bin", one))
+
+
+def k2_kinds(hist, C, R, nbins):
+    """{kind: plan} of the cluster body's kinds a batch can take, each
+    forced (launched by ``hist._launch``): the private copies where one
+    fits (32-bit too where 16-bit ones do, if 32-bit ones fit) and the
+    spread histogram."""
+    S, rows = hist.splits(C, R)
+    out = {}
+    own = hist._private_plan(S, rows, nbins)
+    if own is not None:
+        out[own.layout] = own
+        words = hist._round4(nbins)
+        if own.layout == "private16" and words <= hist.SLICE_MAX_BINS:
+            out["private32"] = own._replace(layout="private32", words=words)
+    spread = hist._spread_plan(S, nbins)
+    if spread is not None:
+        out["spread"] = spread
+    return out
+
+
 def check_k2_global(torch, device, k2, rehearsal: bool):
-    """K2's device-memory body (past 8,192 bins) at 200 x 65,536 with
-    16,384 and 65,536 bins (tiny sizes on the CPU rehearsal): counts
-    equal to ``histogram_plain`` exactly, on the adversarial batch and on a
-    clean one; the MAD numerator bit for bit the 10-bin shared body's on
-    the same batch.  Then its times on the clean batch: the wrapper as the
-    host issues it, device time alone from a CUDA graph, the bincount
-    route (its counts checked equal first) and the bytes bound (each
-    input read once, the (C, nbins) counts and the MAD written once).
-    Returns the fields K2's kernel-line row gains."""
+    """K2 past 8,192 bins: its cluster body (a column's histogram in the
+    shared memory of a thread-block cluster) at every tier edge up to its
+    reach and the device-memory body past it (:func:`k2_edges`), at
+    200 x 65,536, at 1 x 65,536 (16 row splits, a cluster of 16; the
+    device-memory body past the 16-bit copies) and at 2,048 x 65,536 (one
+    split of 65,536 rows: 32-bit private copies, past them spread
+    clusters of 2 and 3 with padding blocks), on the
+    adversarial, clean and one-bin batches (:func:`k2_batches`); at 200
+    columns with 16,384 and 65,536 bins also in each other kind it can
+    take (:func:`k2_kinds`).
+    Counts equal to ``histogram_plain`` exactly; on the card the MAD
+    numerator bit for bit the 10-bin shared body's on the same batch,
+    each call launching the body its plan names, and a plan the C entry
+    cannot launch raising with no launch counted (no body
+    stands in).  Then the times at 200 x 65,536 with 16,384 and 65,536
+    bins on the clean batch: the wrapper as the host issues it, device
+    time alone from a CUDA graph, the bincount route (its counts checked
+    equal first), the plain version and the bytes bound (the other kinds,
+    the one-bin batch and the device-memory body are timed by
+    ``--k2-probe``).  Returns the kernels-line row of the cluster body
+    (tiny sizes and the plain version on the CPU rehearsal)."""
     from tpuprof_torch.kernels import hist
+    edges = k2_edges(hist)
     if rehearsal:
-        C, R, bins_list = 5, 700, (hist.SHARED_MAX_BINS + 1, 9000)
+        cases = ((3, 300, edges), (1, 300, edges[:2]), (7, 300, edges[:2]))
     else:
-        C, R, bins_list = 200, 65536, (16384, 65536)
-    x, rv = adversarial_batch(C, R, 70)
-    x, lo, hi, mean = hist_bounds(x, rv, 10, np.random.default_rng(71))
-    xc, rvc, loc, hic, meanc = clean_batch(torch, device, C, R, seed=72)
-    out = {"global_body_bins": list(bins_list)}
-    for batch_name, t in (
-            ("adversarial", [torch.from_numpy(a).to(device)
-                             for a in (x, rv, lo, hi, mean)]),
-            ("clean", [xc, rvc, loc, hic, meanc])):
-        _, dev10 = k2(*t, 10)
-        for nbins in bins_list:
-            cnt, dev = k2(*t, nbins)
-            want, want_dev = hist.histogram_plain(*t, nbins)
-            require(torch.equal(cnt, want), f"K2 device-memory body "
-                    f"{C}x{R} bins={nbins} {batch_name}: counts differ")
-            if not rehearsal:
-                require(torch.equal(dev.view(torch.int32),
-                                    dev10.view(torch.int32)),
-                        f"K2 device-memory body bins={nbins} "
-                        f"{batch_name}: MAD not the shared body's bits")
-            out["max_abs_err_global"] = max(
-                out.get("max_abs_err_global", 0.0),
-                max_abs_diff(torch, dev, want_dev))
-            print(f"K2 device-memory body {C}x{R} bins={nbins} "
-                  f"{batch_name}: counts equal to histogram_plain"
-                  + ("" if rehearsal else ", MAD bits the 10-bin shared "
-                     "body's"), flush=True)
-    for nbins in bins_list:
-        args = (xc, rvc, loc, hic, meanc, nbins)
+        cases = ((200, 65536, edges), (1, 65536, edges),
+                 (2048, 65536, edges))
+    worst = 0.0
+    for C, R, bins_list in cases:
+        for batch_name, t in k2_batches(torch, device, C, R, 70 + C):
+            _, dev10 = k2(*t, 10)
+            for nbins in bins_list:
+                plan = hist.cluster_plan(C, R, nbins)
+                forced = {} if rehearsal or C != 200 \
+                    or nbins not in (16384, 65536) \
+                    else k2_kinds(hist, C, R, nbins)
+                forced.pop(plan.layout if plan else None, None)
+                want, want_dev = hist.histogram_plain(*t, nbins)
+                for kind in [None] + list(forced):
+                    at = (f"K2 {C}x{R} bins={nbins} {batch_name}"
+                          + (f" {kind}" if kind else ""))
+                    before = (hist.launches_cluster, hist.launches_global)
+                    cnt, dev = k2(*t, nbins) if kind is None else \
+                        hist._launch(*t, nbins, None, forced[kind])
+                    if not rehearsal:
+                        took = (hist.launches_cluster - before[0],
+                                hist.launches_global - before[1])
+                        require(took == ((1, 0) if plan else (0, 1)),
+                                f"{at}: launched {took} (cluster, "
+                                f"device-memory) bodies")
+                    require(torch.equal(cnt, want), f"{at}: counts differ")
+                    if not rehearsal:
+                        require(torch.equal(dev.view(torch.int32),
+                                            dev10.view(torch.int32)),
+                                f"{at}: MAD not the shared body's bits")
+                    worst = max(worst, max_abs_diff(torch, dev, want_dev))
+                    del cnt, dev
+                del want, want_dev
+                body = (f"cluster body {plan.layout} K={plan.cluster} "
+                        f"S={plan.splits} S_pad={plan.splits_pad} "
+                        f"{plan.flush} flush" if plan
+                        else "device-memory body")
+                print(f"K2 {C}x{R} bins={nbins} {batch_name} ({body}"
+                      + "".join(f", {k}" for k in forced)
+                      + "): counts equal to histogram_plain"
+                      + ("" if rehearsal else ", MAD bits the 10-bin shared "
+                         "body's"), flush=True)
+    C, R = cases[0][:2]
+    clean = k2_batches(torch, device, C, R, 72)[1][1]
+    if not rehearsal:
+        # a plan the C entry cannot launch raises; nothing stands in
+        for bad in (dict(words=hist.SLICE_MAX_BINS + 1),
+                    dict(cluster=hist.CLUSTER_MAX + 1)):
+            plan = hist.cluster_plan(C, R, 16384)._replace(**bad)
+            before = (hist.launches, hist.launches_cluster,
+                      hist.launches_global)
+            try:
+                hist._launch(*clean, 16384, None, plan)
+            except RuntimeError as exc:
+                print(f"K2 plan {bad} refused: {exc}", flush=True)
+            else:
+                fail(f"K2 launched a plan it cannot launch: {bad}")
+            require((hist.launches, hist.launches_cluster,
+                     hist.launches_global) == before,
+                    "a refused K2 plan counted a launch")
+    timed_bins = (16384, 65536) if not rehearsal else edges[:2]
+    nb0 = timed_bins[0]
+    row = {"name": "hist_b_cluster", "route": "cuda",
+           "source": "tpuprof_torch/kernels/csrc/hist_b.cu",
+           "replaces": "tpuprof/kernels/pallas_hist.py:202",
+           "shape": f"{C}x{R} bins={nb0}", "max_abs_err": worst}
+    out = {}
+    for nbins in timed_bins:
+        args = tuple(clean) + (nbins,)
         out[f"ms_{nbins}_bins"] = time_ms(lambda: k2(*args), torch, device)
-        out[f"device_ms_{nbins}_bins"] = graph_ms(
-            lambda: k2(*args), torch) if not rehearsal else \
-            out[f"ms_{nbins}_bins"]
+        if not rehearsal:
+            out[f"plan_{nbins}_bins"] = list(hist.cluster_plan(C, R, nbins))
+            out[f"device_ms_{nbins}_bins"] = graph_ms(lambda: k2(*args),
+                                                      torch)
         lib = hist_library(torch, *args)
         require(torch.equal(lib[0], k2(*args)[0]), f"the bincount route's "
                 f"counts differ from K2's at {nbins} bins")
@@ -840,23 +952,32 @@ def check_k2_global(torch, device, k2, rehearsal: bool):
         out[f"plain_ms_{nbins}_bins"] = time_ms(
             lambda: hist.histogram_plain(*args), torch, device, warmup=1,
             reps=1)
-        out[f"bound_ms_{nbins}_bins"] = bound(
-            C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
-            8 * C * R)[0]
-    print("K2 device-memory body times: " + json.dumps(
-        {k: v for k, v in out.items() if "ms" in k}), flush=True)
-    return out
+        out[f"bound_ms_{nbins}_bins"] = k2_bound(C, R, nbins)[0]
+        del lib
+    print("K2 past 8,192 bins, times: " + json.dumps(out), flush=True)
+    b, by = k2_bound(C, R, nb0)
+    row.update(ms=out.pop(f"ms_{nb0}_bins"),
+               plain_ms=out.pop(f"plain_ms_{nb0}_bins"), bound_ms=b,
+               bound_by=by, library_ms=out.pop(f"library_ms_{nb0}_bins"))
+    row.update(out)
+    return row
 
 
-SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "ATOMG", "RED", "BAR")
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "ATOM", "ATOMG", "RED",
+            "BAR", "UCGABAR_ARV", "UCGABAR_WAIT")
+# the atomics that end a run of global loads (shared, generic: a shared
+# or shared::cluster address, global)
+SASS_ATOMICS = ("ATOMS", "ATOM", "ATOMG", "RED")
 
 
 def sass_counts(text: str) -> dict:
     """{kernel function: {opcode: count, "LDG_between_ATOMS": n}} of a
-    ``cuobjdump -sass`` listing: the memory and barrier opcodes, and the
-    most global loads in program order with no shared atomic between
-    them (an unrolled row loop's loads in flight ahead of its bin
-    increments, with the block's few scalar loads where they lead)."""
+    ``cuobjdump -sass`` listing: the memory, atomic and barrier opcodes
+    (``ATOM`` takes a generic address, the cluster body's adds into a
+    peer's shared memory; ``UCGABAR_*`` are the cluster barrier), and the
+    most global loads in program order with no atomic between them (an
+    unrolled row loop's loads in flight ahead of its bin increments, with
+    the block's few scalar loads where they lead)."""
     out, fn, run = {}, None, 0
     for line in text.splitlines():
         if "Function : " in line:
@@ -871,21 +992,105 @@ def sass_counts(text: str) -> dict:
         op = words[0].split(".")[0] if words else ""
         if op in SASS_OPS:
             out[fn][op] += 1
-        run = 0 if op == "ATOMS" else run + (op == "LDG")
+        run = 0 if op in SASS_ATOMICS else run + (op == "LDG")
         out[fn]["LDG_between_ATOMS"] = max(out[fn]["LDG_between_ATOMS"],
                                            run)
     return out
 
 
+def profiled_kernels(torch, fn, calls=20):
+    """{kernel name: device microseconds a launch} of ``calls`` calls of
+    ``fn``, from ``torch.profiler``'s CUDA activity (the zero fills and
+    the fold included, each under its own name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:90]: round(ev.self_device_time_total / ev.count, 3)
+            for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total", 0) > 0}
+
+
+def k2_library_walk8():
+    """K2's library built with ``-DTPT_HIST_WALK_BATCH=8`` (the cluster
+    body's load batch halved, near the shared body's unroll by 8), bound
+    as the wrapper binds its own; None where the checkout's K2 has no such
+    batch."""
+    import ctypes
+    from tpuprof_torch import _build, kernels
+    from tpuprof_torch.kernels import hist
+    with open(kernels.SOURCES["hist_b"]) as fh:
+        if "TPT_HIST_WALK_BATCH" not in fh.read():
+            return None
+    out, proc = _build.start_build(
+        kernels.SOURCES["hist_b"],
+        _build.nvcc_command(["-DTPT_HIST_WALK_BATCH=8"]))
+    _build.finish_build(out, proc)
+    lib = ctypes.CDLL(out)
+    hist._bind(lib)
+    return lib
+
+
+def on_library(name: str, lib, fn):
+    """``fn`` run with kernel ``name``'s loaded library swapped for
+    ``lib`` (the wrapper launches through ``kernels._libs``)."""
+    from tpuprof_torch import kernels
+
+    def call():
+        own = kernels._libs[name]
+        kernels._libs[name] = lib
+        try:
+            return fn()
+        finally:
+            kernels._libs[name] = own
+    return call
+
+
+# K2 past 8,192 bins at other shapes, (columns, rows, bins): the
+# wrapper's body and the spread cluster (K blocks, S of them walking rows;
+# the plan takes it only at K <= hist.SPREAD_MAX) against the
+# device-memory body; spread at K = 3, 4, 6, 8, 16 with S = 3, K = 2, 3
+# with S = 1, K = S = 9, K = S = 16 (small and full slices) and K = 16
+# with S = 256 (16 clusters a column); private copies at K = S = 16 and 9
+K2_BODY_SHAPES = ((200, 65536, 131072), (200, 65536, 231424),
+                    (200, 65536, 347136), (200, 65536, 462848),
+                    (200, 65536, 925696), (2048, 65536, 65536),
+                    (2048, 65536, 131072), (64, 65536, 131072),
+                    (1, 65536, 131072), (33, 65536, 462848),
+                    (1, 65536, 925696), (1, 1048576, 131072),
+                    (1, 65536, 16384), (33, 65536, 65536),
+                    (64, 65536, 65536))
+
+
+def k2_spread_any(hist, C, R, nbins):
+    """The spread layout at any cluster size the kernel takes, where the
+    plan stops at ``hist.SPREAD_MAX``: K = max(S, the blocks whose slices
+    hold ``nbins``), 16 where S passes 16 (several clusters a column)."""
+    S = hist.splits(C, R)[0]
+    k = max(-(-nbins // hist.SLICE_MAX_BINS), S) if S <= hist.CLUSTER_MAX \
+        else hist.CLUSTER_MAX
+    return hist._plan(k, S, hist._round4(-(-nbins // k)), "spread")
+
+
 def k2_probe(torch, device) -> None:
     """``--k2-probe``: K2 alone, to compare checkouts in one call (each
     run with its own copy of this script, or this copy placed beside
-    another checkout's package).  Prints its times (:func:`k2_times`),
-    K4's wrapper and device time at 200 x 65,536 with 10 bins, the device
-    time of each kernel that 20 K2 wrapper calls launch, from
-    ``torch.profiler``, and the SASS counts of its library
-    (:func:`sass_counts`)."""
-    from torch.profiler import ProfilerActivity, profile
+    another checkout's package, whose K2 may predate the cluster body).
+    Prints its times (:func:`k2_times`), K4's wrapper and device time at
+    200 x 65,536 with 10 bins, and for K2 calls at 10, 16,384 and 65,536
+    bins on the clean and the one-bin batch the device time of each
+    kernel launched, from ``torch.profiler``, and each call's device time
+    from a CUDA graph (past 8,192 bins: the wrapper's body, then where the
+    checkout has them each kind of the cluster body (:func:`k2_kinds`),
+    the 16-bit copies built with a load batch of 8
+    (:func:`k2_library_walk8`), and the device-memory body on the same
+    inputs); then at ``K2_BODY_SHAPES`` the wrapper's body, the spread
+    cluster at any size (:func:`k2_spread_any`) and the device-memory
+    body, device times from a CUDA graph on both batches;
+    and the SASS counts of its library (:func:`sass_counts`)."""
     from tpuprof_torch import _build, kernels
     from tpuprof_torch.kernels import fused, hist
     times = k2_times(torch, device, hist.histogram_cuda)
@@ -898,15 +1103,54 @@ def k2_probe(torch, device) -> None:
     print("K4 times: " + json.dumps(
         {"ms": time_ms(k4, torch, device), "device_ms": graph_ms(k4, torch)}),
         flush=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            hist.histogram_cuda(xt, rvt, lo, hi, mean, 10)
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0)
-        if us > 0:
-            print(f"profiler: {ev.key[:70]} x{ev.count} "
-                  f"{us / ev.count:.2f} us each", flush=True)
+    cluster = hasattr(hist, "_spread_plan")
+    walk8 = k2_library_walk8() if cluster else None
+
+    def routes(a, C, R, nbins):
+        out = [("wrapper", lambda: hist.histogram_cuda(*a))]
+        if cluster and nbins > hist.SHARED_MAX_BINS:
+            kinds = k2_kinds(hist, C, R, nbins)
+            out += [(kind, lambda kp=kp: hist._launch(*a, None, kp))
+                    for kind, kp in kinds.items()]
+            if walk8 is not None and "private16" in kinds:
+                out.append(("private16 walk 8", on_library(
+                    "hist_b", walk8, lambda kp=kinds["private16"]:
+                    hist._launch(*a, None, kp))))
+            out.append(("device-memory body",
+                        lambda: hist._launch(*a, None, None)))
+        return out
+
+    one_hi = (lo + (hi - lo) * 1e7).contiguous()
+    graphs = {}
+    for nbins in (10, 16384, 65536):
+        for batch, h in (("clean", hi), ("one-bin", one_hi)):
+            a = (xt, rvt, lo, h, mean, nbins)
+            for route, fn in routes(a, 200, 65536, nbins):
+                got = profiled_kernels(torch, fn)
+                print(f"profiler bins={nbins} {batch} {route}: "
+                      + json.dumps(got) + f" (sum "
+                      f"{sum(got.values()):.3f} us a call)", flush=True)
+                graphs[f"200x65536 bins={nbins} {batch} {route}"] = \
+                    graph_ms(fn, torch)
+    del xt, rvt, lo, hi, mean, shift, one_hi
+    for C, R, nbins in K2_BODY_SHAPES if cluster else ():
+        t = list(clean_batch(torch, device, C, R))
+        one = t[:3] + [(t[2] + (t[3] - t[2]) * 1e7).contiguous(), t[4]]
+        plan = hist.cluster_plan(C, R, nbins)
+        spread = k2_spread_any(hist, C, R, nbins)
+        for batch, b in (("clean", t), ("one-bin", one)):
+            a = tuple(b) + (nbins,)
+            for route, fn in (("wrapper", lambda: hist.histogram_cuda(*a)),
+                              (f"spread K={spread.cluster}",
+                               lambda: hist._launch(*a, None, spread)),
+                              ("device-memory body",
+                               lambda: hist._launch(*a, None, None))):
+                graphs[f"{C}x{R} bins={nbins} {batch} {route}"] = \
+                    graph_ms(fn, torch)
+            graphs[f"{C}x{R} bins={nbins} plan"] = list(plan) if plan \
+                else None
+        del t, one
+    print("K2 graph ms: " + json.dumps(graphs), flush=True)
     so = _build.library_path(kernels.SOURCES["hist_b"], kernels._command())
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", so], capture_output=True,
@@ -974,11 +1218,9 @@ def phase_kernels(torch, device, rehearsal: bool):
                  torch, device, reps=5)
     b1, by1, b1r, b1f = gram_bounds(
         C * R * 4 + R + C * 4 + C * 8 * 8 + 4 * C * C * 4, C, R)
-    b2, by2 = bound(C * R * 4 + R + 3 * C * 4 + C * nbins * 4 + C * 4,
-                    8 * C * R)
-    b2w, _ = bound(CW * R * 4 + R + 3 * CW * 4 + CW * nbins * 4 + CW * 4,
-                   8 * CW * R)
-    k2g = check_k2_global(torch, device, k2, rehearsal)
+    b2, by2 = k2_bound(C, R, nbins)
+    b2w = k2_bound(CW, R, nbins)[0]
+    k2c = check_k2_global(torch, device, k2, rehearsal)
     rows = [
         {"name": "fused_a", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/fused_a.cu",
@@ -993,7 +1235,8 @@ def phase_kernels(torch, device, rehearsal: bool):
          "max_scaled_err": scaled2, "ms": k2t.pop("ms"), "plain_ms": p2,
          "bound_ms": b2, "bound_by": by2,
          "library_ms": k2t.pop("library_ms"), **k2t,
-         f"bound_ms_{CW}_cols": b2w, **k2g},
+         f"bound_ms_{CW}_cols": b2w},
+        k2c,
     ]
     for r in rows:
         print_row(r)
@@ -1621,6 +1864,8 @@ def compare_stats(a, b, what: str) -> None:
 
 # kernel -> (its wrapper's module in tpuprof_torch.kernels, launch count)
 COUNTERS = {"fused_a": ("fused", "launches"), "hist_b": ("hist", "launches"),
+            "hist_b_cluster": ("hist", "launches_cluster"),
+            "hist_b_global": ("hist", "launches_global"),
             "fused_wide": ("fused", "launches_wide"),
             "spear": ("fused", "launches_spear"),
             "rank": ("fused", "launches_rank"),
@@ -1683,11 +1928,12 @@ def phase_main_path(torch, rehearsal: bool, card: str):
         dev_kw = {"device": "cpu"}
     else:
         # the headline, the 1,024- and the 2,048-column tables at half the
-        # rows of earlier runs: a depth cut to keep the script inside its
-        # time limit with phase 14
-        n_wide, n_cut, n_mixed, batch = 1_048_576, 262_144, 1_000_000, 65536
+        # rows of earlier runs, and the CPU's cuts of the headline and the
+        # 2,048-column table at half those: depth cuts to keep the script
+        # inside its time limit
+        n_wide, n_cut, n_mixed, batch = 1_048_576, 131_072, 1_000_000, 65536
         n_sp, n_sp_cut = 1_048_576, 65_536
-        cols_w, n_w, n_w_cut = 2048, 65_536, 8_192
+        cols_w, n_w, n_w_cut = 2048, 65_536, 4_096
         cols_p, n_p = 1024, 65_536
         dev_kw = {}                     # the default device: cuda:0
     cols = 200
@@ -2441,11 +2687,13 @@ def _no_kernels_but_k2(n_batches: int):
             ("fused_ab", 0), ("hist_b", n_batches))
 
 
-def phase_limits(torch, rehearsal: bool, card: str) -> None:
-    """2,112 columns against the CPU; 4,096 x 65,536 two-pass with
+def phase_limits(torch, rehearsal: bool, card: str):
+    """2,112 columns against the CPU; 4,096 x 32,768 two-pass with
     Spearman and fused warm, with peak device memory and the times of the
     routes that are not kernels; the headline at 16,384 bins, two-pass and
-    fused warm, each histogram held against the 8,192-bin one."""
+    fused warm (K2's cluster body), each histogram held against the
+    8,192-bin one.  Returns {"hist_b_cluster": its launches in the
+    16,384-bin two-pass run}, the cluster body's main path."""
     import atexit
     import shutil
     import tempfile
@@ -2460,9 +2708,9 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
         cols_h, n_head, batch, big = 20, 4096, 512, 2 * 1024
         dev_kw = {"device": "cpu"}
     else:
-        # one device batch each: a depth cut to keep the script
-        # inside its time limit with phase 11
-        c1, n1, c2, n2, batch2 = 2112, 16_384, 4096, 65_536, 65_536
+        # one device batch each, at half the rows of earlier runs: a
+        # depth cut to keep the script inside its time limit
+        c1, n1, c2, n2, batch2 = 2112, 8_192, 4096, 32_768, 32_768
         cols_h, n_head, batch, big = 200, 1_048_576, 65_536, 16_384
         dev_kw = {}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-limits-")
@@ -2484,7 +2732,7 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
               flush=True)
     del w1, on_card, on_cpu
 
-    # 7.2 4,096 columns in two device batches
+    # 7.2 4,096 columns in one device batch
     w2 = wide_frame(n2, c2, seed=12, block=16, strength=30.0)
     nb2 = -(-n2 // batch2)
     if not rehearsal:
@@ -2561,14 +2809,16 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
           f"{json.dumps(routes)}", flush=True)
     del x, mom, co, spear, srt
 
-    # 7.3 the headline at 16,384 bins (K2's device-memory body)
+    # 7.3 the headline at 16,384 bins (K2's cluster body)
     head = headline_frame(n_head, cols_h)
     nbh = -(-n_head // batch)
-    paired = (("fused_a", nbh), ("hist_b", nbh), ("fused_ab", 0),
-              ("fused_wide", 0))
+    paired = (("fused_a", nbh), ("hist_b", nbh), ("hist_b_cluster", nbh),
+              ("hist_b_global", 0), ("fused_ab", 0), ("fused_wide", 0))
     t16, _ = counted(torch, rehearsal, card, head,
                      f"describe {cols_h} cols bins={big}", paired,
                      batch_rows=batch, bins=big, **dev_kw)
+    # the cluster body's main path: this run's launches of it
+    main_cluster = read_counts()["hist_b_cluster"]
     art16 = f"{tmp}/h16.json"
     write_artifact(art16, stats=t16, config=tpuprof_torch.ProfilerConfig(
         batch_rows=batch, bins=big))
@@ -2583,7 +2833,9 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
     require(exported(w16) == exported(t16),
             f"bins={big} fused warm: differs from two-pass")
     t8, _ = counted(torch, rehearsal, card, head,
-                    f"describe {cols_h} cols bins={big // 2}", paired,
+                    f"describe {cols_h} cols bins={big // 2}",
+                    (("fused_a", nbh), ("hist_b", nbh),
+                     ("hist_b_cluster", 0), ("hist_b_global", 0)),
                     batch_rows=batch, bins=big // 2, **dev_kw)
     held = 0
     for name, v in t16["variables"].items():
@@ -2600,6 +2852,7 @@ def phase_limits(torch, rehearsal: bool, card: str) -> None:
     print(f"bins={big}: fused warm (K1 then K2) equal to two-pass; the "
           f"bin pairs of all {held} histograms sum to the {big // 2}-bin "
           "histograms exactly", flush=True)
+    return {"hist_b_cluster": main_cluster}
 
 
 def json_diff(a, b, path=""):
@@ -5020,7 +5273,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
                     + ", ".join(PHASES) + " (3 to 14), and k2big (phase "
-                    "3's check of K2's device-memory body alone); the "
+                    "3's check of K2 past 8,192 bins alone); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
                     help="the same as --only kernels")
@@ -5119,13 +5372,13 @@ def main(argv=None) -> int:
     # null when the main path did not run: no count was read
     launches = dict.fromkeys(COUNTERS)
     if "main" in only:
-        launches = timed(phase_main_path, torch, rehearsal, card)
+        launches.update(timed(phase_main_path, torch, rehearsal, card))
     cli = timed(phase_cli, torch, rehearsal, card) if "cli" in only \
         else None
     if "ingest" in only:
         timed(phase_ingest, torch, rehearsal, card, args.seed)
     if "limits" in only:
-        timed(phase_limits, torch, rehearsal, card)
+        launches.update(timed(phase_limits, torch, rehearsal, card))
     if "durable" in only:
         timed(phase_durable, torch, rehearsal, card, cli)
     if "exact" in only:

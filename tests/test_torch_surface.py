@@ -70,7 +70,7 @@ def test_every_resolver_of_this_slice_like_reference(monkeypatch):
              "resolve_serve_max_header_bytes",
              "resolve_serve_max_body_bytes", "resolve_watch_every",
              "resolve_artifact_keep", "resolve_warehouse_dir",
-             "resolve_warehouse_format"]
+             "resolve_warehouse_format", "resolve_pass_b_kernel"]
     env = {"TPUPROF_SERVE_HTTP_PORT": "8123",
            "TPUPROF_SERVE_AUTH_FILE": "/t", "TPUPROF_BREAKER_THRESHOLD": "0",
            "TPUPROF_BREAKER_COOLDOWN_S": "-3",
@@ -79,7 +79,8 @@ def test_every_resolver_of_this_slice_like_reference(monkeypatch):
            "TPUPROF_SERVE_MAX_HEADER_BYTES": "10",
            "TPUPROF_SERVE_MAX_BODY_BYTES": "4096",
            "TPUPROF_WATCH_EVERY_S": "-1", "TPUPROF_ARTIFACT_KEEP": "9",
-           "TPUPROF_WAREHOUSE_DIR": "/w", "TPUPROF_WAREHOUSE_FORMAT": "off"}
+           "TPUPROF_WAREHOUSE_DIR": "/w", "TPUPROF_WAREHOUSE_FORMAT": "off",
+           "TPUPROF_PASS_B_KERNEL": "legacy"}
     for var in env:
         monkeypatch.delenv(var, raising=False)
     for name in names:

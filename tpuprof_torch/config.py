@@ -457,8 +457,10 @@ class ProfilerConfig:
 
     @property
     def pass_b(self) -> str:
-        """The pass-B formulation name (None means the default)."""
-        return self.pass_b_kernel or "cumulative"
+        """The resolved pass-B formulation (:func:`resolve_pass_b_kernel`
+        of ``pass_b_kernel``): read where a runner, a runner-cache key or
+        a store key is made, as the reference reads it."""
+        return resolve_pass_b_kernel(self.pass_b_kernel)
 
     @classmethod
     def from_kwargs(cls, **kwargs) -> "ProfilerConfig":
@@ -718,6 +720,26 @@ def resolve_profile_passes(value: Optional[str] = None) -> str:
                     f"{origin}={cand!r} — use one of {PROFILE_PASSES}")
             return cand
     return "two_pass"
+
+
+def resolve_pass_b_kernel(value: Optional[str] = None) -> str:
+    """The pass-B formulation (counterpart of the reference's
+    ``resolve_pass_b_kernel``): the config value, else
+    ``TPUPROF_PASS_B_KERNEL``, else ``cumulative``; a value outside
+    :data:`PASS_B_KERNELS` raises ``ValueError`` naming where it came
+    from.  Both names give the same counts (one K2 serves both,
+    ``kernels/hist.py``); the name keys the runner cache and the store of
+    built libraries, and the variable stays the reference's rollback
+    switch."""
+    for cand, origin in ((value, "pass_b_kernel"),
+                         (os.environ.get("TPUPROF_PASS_B_KERNEL"),
+                          "TPUPROF_PASS_B_KERNEL")):
+        if cand:
+            if cand not in PASS_B_KERNELS:
+                raise ValueError(
+                    f"{origin}={cand!r} — use one of {PASS_B_KERNELS}")
+            return cand
+    return "cumulative"
 
 
 def resolve_seed_edges(value: Optional[str] = None) -> Optional[str]:

@@ -11,8 +11,10 @@
 // * hist_store: the block's fixed-shape tree of those sums to one partial
 //   per (column, row-split) (dev_store), and the block histogram added to
 //   the output with integer atomics;
-// * bin_of / dev_store: the same bin and the same tree for K2's body past
-//   HIST_MAX_BINS, which counts straight into the output (hist_b.cu);
+// * bin_of / dev_store: the same bin and the same tree for K2's bodies
+//   past HIST_MAX_BINS, the cluster body (a column's histogram in the
+//   shared memory of a thread-block cluster) and the one that counts
+//   straight into the output (hist_b.cu);
 // * dev_fold: the partials folded in split order (a rerun gives the same
 //   bits).
 //
@@ -43,6 +45,18 @@ constexpr int HIST_THREADS = 256;
 // the shared-memory histogram's bound: K4's, and K2's shared body's (K2
 // counts more bins in device memory)
 constexpr int HIST_MAX_BINS = 8192;
+// K2's cluster body: at most HIST_CLUSTER_MAX blocks a cluster (past
+// HIST_PORTABLE_CLUSTER the launch opts in to a non-portable size), each
+// holding a slice of at most HIST_SLICE_MAX_BINS int32 words in dynamic
+// shared memory: a block's opt-in shared memory on sm_90 (232,448 bytes)
+// less dev_store's tree.  tpuprof_torch/kernels/hist.py mirrors them
+// (checked when the library is bound) and plans every launch.
+constexpr int HIST_CLUSTER_MAX = 16;
+constexpr int HIST_PORTABLE_CLUSTER = 8;
+constexpr int HIST_SMEM_OPTIN = 232448;
+constexpr int HIST_SLICE_MAX_BINS = 57856;
+static_assert(HIST_SLICE_MAX_BINS * 4 + HIST_THREADS * 4 == HIST_SMEM_OPTIN,
+              "a slice and dev_store's tree fill a block's shared memory");
 
 // hist.py bin_scale: one IEEE subtraction, torch.clamp_min (which keeps a
 // NaN, where fmaxf would not), one IEEE division.
