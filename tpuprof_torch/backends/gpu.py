@@ -32,6 +32,15 @@ prepare keeps failing or whose pass-A fold raises is skipped and reported
 (``stats["_quarantine"]``), in pass B too, so it counts in neither pass.
 Each copy of a device state to the host runs under ``drain_timeout_s``.
 
+Spans (``obs/spans.py``): ``ingest_open``, ``scan_a``, ``merge``,
+``scan_b`` and ``assemble`` on the thread that runs the profile; inside
+the scans, quiet spans a batch or a staged group: ``wait_*`` (the next
+prepared batch), ``sampler_a``, ``hll_host_a``, ``hostagg_a`` and
+``recount_b`` (the host folds), ``stage_*`` (stacking, pinning, the
+copy's enqueue), ``launch_*`` (the kernels' launches, and pass A's state
+set-up) and ``drain_b``.  No name but the scans' starts with ``scan``:
+the report footer's rows/s sums those.
+
 With ``checkpoint_path`` set, pass A saves its fold state every
 ``checkpoint_every_batches`` batches (:class:`CollectCheckpoint`), and a
 rerun after a crash resumes from the newest good save.  Staged copies are
@@ -99,6 +108,23 @@ from tpuprof_torch.serve.cache import acquire_runner
 from tpuprof_torch.testing import faults
 
 logger = logging.getLogger("tpuprof_torch")
+
+
+_END = object()
+
+
+def _waited(stream, name: str):
+    """``stream``'s items, each wait for one under quiet span ``name``;
+    closing this closes ``stream``."""
+    try:
+        while True:
+            with span(name, quiet=True):
+                item = next(stream, _END)
+            if item is _END:
+                return
+            yield item
+    finally:
+        stream.close()
 
 
 def estimate_shift(hb: HostBatch) -> np.ndarray:
@@ -619,9 +645,10 @@ class GPUStatsBackend:
                     "elastic mode needs fleet_dir (--fleet-dir / "
                     "TPUPROF_FLEET_DIR) on storage shared by every member")
         multi = pshard[1] > 1
-        ingest = ArrowIngest(source, config.batch_rows,
-                             columns=config.columns, nested=config.nested,
-                             process_shard=pshard)
+        with span("ingest_open"):
+            ingest = ArrowIngest(source, config.batch_rows,
+                                 columns=config.columns,
+                                 nested=config.nested, process_shard=pshard)
         plan = ingest.plan
         if not plan.specs:
             return _empty_stats(config)
@@ -836,7 +863,7 @@ class GPUStatsBackend:
         # a checkpointed scan streams by (fragment, batch) positions, so a
         # resume opens no fragment the saved prefix covers; an elastic
         # member streams its claims
-        batches = prefetch_prepared(
+        batches = _waited(prefetch_prepared(
             ingest, pad, config.hll_precision, depth=depth, workers=workers,
             prep_workers=config.prep_workers, batch_guard=batch_guard,
             positions=resume is not None,
@@ -846,26 +873,30 @@ class GPUStatsBackend:
             raw_stream=_fleet_stream(fleet_member, "a", ingest,
                                      resume_frag=resume_frag,
                                      replay=fleet_replay)
-            if fleet_member is not None else None)
+            if fleet_member is not None else None), "wait_a")
         pending: List[HostBatch] = []
 
         def staged_a(group):
             nonlocal state, state_h
-            sb = runner.stage_batches(group, with_hll=with_hll)
-            if state_h is not None:
-                state, state_h = runner.scan_ab(state, state_h, sb,
-                                                *edges_d)
-            else:
-                state = runner.scan_a(state, sb)
+            with span("stage_a", quiet=True):
+                sb = runner.stage_batches(group, with_hll=with_hll)
+            with span("launch_a", quiet=True):
+                if state_h is not None:
+                    state, state_h = runner.scan_ab(state, state_h, sb,
+                                                    *edges_d)
+                else:
+                    state = runner.scan_a(state, sb)
 
         def one_a(hb):
             nonlocal state, state_h
-            db = runner.put_batch(hb, with_hll=with_hll)
-            if state_h is not None:
-                state, state_h = runner.step_ab(state, state_h, db,
-                                                *edges_d)
-            else:
-                state = runner.step_a(state, db)
+            with span("stage_a", quiet=True):
+                db = runner.put_batch(hb, with_hll=with_hll)
+            with span("launch_a", quiet=True):
+                if state_h is not None:
+                    state, state_h = runner.step_ab(state, state_h, db,
+                                                    *edges_d)
+                else:
+                    state = runner.step_a(state, db)
 
         def save():
             """A checkpoint after the device folded every pending batch:
@@ -917,7 +948,9 @@ class GPUStatsBackend:
             if first_hb is not None:
                 head.append(first_hb)
             if state is None and shift is not None:
-                state = runner.init_pass_a(shift)
+                # the state's allocation and fills: launches too
+                with span("launch_a", quiet=True):
+                    state = runner.init_pass_a(shift)
             if fused_scan and first_hb is not None and state_h is None:
                 sp_edges = singlepass.sketch_edges(first_hb.x,
                                                    first_hb.nrows,
@@ -943,10 +976,13 @@ class GPUStatsBackend:
                 # host folds run while the device works on earlier groups
                 try:
                     faults.hit("fold", key=key)
-                    sampler.update(hb.x, hb.nrows)
+                    with span("sampler_a", quiet=True):
+                        sampler.update(hb.x, hb.nrows)
                     if host_hll is not None:
-                        host_hll.update(hb.hll, hb.nrows)
-                    hostagg.update(hb)
+                        with span("hll_host_a", quiet=True):
+                            host_hll.update(hb.hll, hb.nrows)
+                    with span("hostagg_a", quiet=True):
+                        hostagg.update(hb)
                 except Exception as exc:
                     if not quarantine.enabled:
                         raise
@@ -1138,24 +1174,31 @@ class GPUStatsBackend:
                 nonlocal state_b, spear_state
                 if state_b is None and spear_state is None:
                     return
-                sb = runner.stage_batches([view(hb) for hb in group],
-                                          with_hll=False)
-                if state_b is not None:
-                    state_b = runner.scan_b(state_b, sb, lo_d, hi_d, mean_d,
-                                            None if subset else lanes_d)
-                if spear_state is not None:
-                    spear_state = spear_staged(spear_state, sb, *spear_in)
+                with span("stage_b", quiet=True):
+                    sb = runner.stage_batches([view(hb) for hb in group],
+                                              with_hll=False)
+                with span("launch_b", quiet=True):
+                    if state_b is not None:
+                        state_b = runner.scan_b(state_b, sb, lo_d, hi_d,
+                                                mean_d,
+                                                None if subset else lanes_d)
+                    if spear_state is not None:
+                        spear_state = spear_staged(spear_state, sb,
+                                                   *spear_in)
 
             def one_b(hb):
                 nonlocal state_b, spear_state
                 if state_b is None and spear_state is None:
                     return
-                db = runner.put_batch(view(hb), with_hll=False)
-                if state_b is not None:
-                    state_b = runner.step_b(state_b, db, lo_d, hi_d, mean_d,
-                                            None if subset else lanes_d)
-                if spear_state is not None:
-                    spear_state = spear_one(spear_state, db, *spear_in)
+                with span("stage_b", quiet=True):
+                    db = runner.put_batch(view(hb), with_hll=False)
+                with span("launch_b", quiet=True):
+                    if state_b is not None:
+                        state_b = runner.step_b(state_b, db, lo_d, hi_d,
+                                                mean_d,
+                                                None if subset else lanes_d)
+                    if spear_state is not None:
+                        spear_state = spear_one(spear_state, db, *spear_in)
 
             def steal_scan_b(frags):
                 """A fresh finalized pass-B part of stolen fragments (the
@@ -1179,14 +1222,16 @@ class GPUStatsBackend:
             pending_b: List[HostBatch] = []
             t0_b = time.perf_counter()
             with span("scan_b", spearman=config.spearman):
-                for hb in pass_b_batches():
-                    recounter.update(hb)
+                for hb in _waited(pass_b_batches(), "wait_b"):
+                    with span("recount_b", quiet=True):
+                        recounter.update(hb)
                     pending_b.append(hb)
                     if len(pending_b) >= scan_s:
                         flush_group(pending_b, staged_b, one_b)
                 flush_group(pending_b, staged_b, one_b)
-                res_b = drained(runner.finalize_b, state_b) \
-                    if state_b is not None else None
+                with span("drain_b", quiet=True):
+                    res_b = drained(runner.finalize_b, state_b) \
+                        if state_b is not None else None
                 if fleet_member is not None:
                     res_b, recounter.counts, rho_spear = _elastic_merge_b(
                         fleet_member,
@@ -1235,8 +1280,9 @@ class GPUStatsBackend:
                         "counts": rec.counts, "spear": None}
 
             with span("scan_b", recount_only=True):
-                for hb in pass_b_batches():
-                    recounter.update(hb)
+                for hb in _waited(pass_b_batches(), "wait_b"):
+                    with span("recount_b", quiet=True):
+                        recounter.update(hb)
                 if fleet_member is not None:
                     _, recounter.counts, _ = _elastic_merge_b(
                         fleet_member,
@@ -1254,38 +1300,39 @@ class GPUStatsBackend:
             spear_approx = True
             rho_spear = sampler.spearman()
 
-        stats = _assemble(plan, config, ingest.sample(config.sample_rows),
-                          hostagg, momf, rho_all, quants, sample_vals,
-                          sample_kept, hll_est, hists, mad, recounter,
-                          probes, rho_spear, spear_approx, exact_lanes)
-        if exact is not None:
-            # the pass-B bounds a later fused profile of this source seeds
-            # its edges from (artifacts seal them); private, never exported
-            stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
-        q_entries = list(quarantine.entries)
-        if fleet_member is not None:
-            # the fleet's pass-A skips rode the parts, in part order; this
-            # member's later (pass-B) entries follow
-            q_entries = list(fleet_q or []) + q_entries[fleet_q_mark:]
-        elif multi:
-            # every process gathers every stripe's skips (symmetric)
-            q_entries = [e for part in
-                         distributed.allgather_objects(q_entries)
-                         for e in part]
-        if q_entries:
-            # degraded runs only: a clean run's stats and HTML are as
-            # before the guard existed
-            stats["_quarantine"] = q_entries
-        if multi and config.unique_spill_dir:
-            # a shared spill dir: no process deletes runs another one may
-            # still be reading
-            distributed.allgather_objects("unique-cleanup-barrier")
-        # the spill runs go before the checkpoint: a crash between the two
-        # leaves a checkpoint whose missing runs demote on resume, never
-        # runs that no checkpoint references
-        hostagg.unique.cleanup()
-        if resume is not None:
-            resume.clear()          # the profile completed
+        with span("assemble"):
+            stats = _assemble(plan, config, ingest.sample(config.sample_rows),
+                              hostagg, momf, rho_all, quants, sample_vals,
+                              sample_kept, hll_est, hists, mad, recounter,
+                              probes, rho_spear, spear_approx, exact_lanes)
+            if exact is not None:
+                # the pass-B bounds a later fused profile of this source seeds
+                # its edges from (artifacts seal them); private, never exported
+                stats["_bin_seeds"] = singlepass.bin_seeds(plan, exact)
+            q_entries = list(quarantine.entries)
+            if fleet_member is not None:
+                # the fleet's pass-A skips rode the parts, in part order; this
+                # member's later (pass-B) entries follow
+                q_entries = list(fleet_q or []) + q_entries[fleet_q_mark:]
+            elif multi:
+                # every process gathers every stripe's skips (symmetric)
+                q_entries = [e for part in
+                             distributed.allgather_objects(q_entries)
+                             for e in part]
+            if q_entries:
+                # degraded runs only: a clean run's stats and HTML are as
+                # before the guard existed
+                stats["_quarantine"] = q_entries
+            if multi and config.unique_spill_dir:
+                # a shared spill dir: no process deletes runs another one may
+                # still be reading
+                distributed.allgather_objects("unique-cleanup-barrier")
+            # the spill runs go before the checkpoint: a crash between the two
+            # leaves a checkpoint whose missing runs demote on resume, never
+            # runs that no checkpoint references
+            hostagg.unique.cleanup()
+            if resume is not None:
+                resume.clear()          # the profile completed
         # private, never exported; the report footer reads it
         stats["_phases"] = get_phase_report(reset=True)
         # likewise the metrics snapshot for the footer's pipeline line,

@@ -32,7 +32,11 @@ by default only while one batch is prepared at a time:
 preallocated planes.  Across batches,
 :func:`prefetch_prepared` keeps up to ``workers`` prepares in flight and
 delivers them in stream order; every order-sensitive fold (sampler,
-Misra-Gries, HLL registers) happens in the consumer.  Each prepare runs
+Misra-Gries, HLL registers) happens in the consumer.  Each leaf task
+times its decode and its hashing apart; a prepare adds their sums to the
+profile's phase totals as thread-seconds (``decode_a`` and ``hash_a``
+with hashes, ``decode_b`` without: ``obs/spans.add``), never as ranges
+of a trace.  Each prepare runs
 under the ingest guard (``runtime/guard.py``): transient errors retry, and
 a batch that keeps failing arrives as a ``PoisonBatch`` when quarantine is
 on.  A dataset streams through its scanner; after the scanner's first
@@ -63,6 +67,7 @@ from tpuprof_torch.errors import InputError
 from tpuprof_torch.ingest import prep
 from tpuprof_torch.kernels import hll as khll
 from tpuprof_torch.obs import metrics as _obs_metrics
+from tpuprof_torch.obs import spans as _spans
 
 logger = logging.getLogger("tpuprof_torch")
 
@@ -236,13 +241,15 @@ def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
                    hll_packed: np.ndarray, hashes: bool,
                    hll_precision: int, lo: int,
                    nh: Optional[Tuple[np.ndarray, np.ndarray]] = None
-                   ) -> None:
+                   ) -> Tuple[float, float]:
     """Decode one numeric or boolean Arrow slice into plane rows
     [lo, lo + len(arr)) and, with ``hashes``, its packed HLL lane; with
     ``nh`` (a column's preallocated (hashes, valid) pair) also the rows'
     full 64-bit hashes and validity, the very hashes the lane packs.  Every
     operation is elementwise, so any row partition of a column gives
-    byte-identical planes.  Nulls are NaN."""
+    byte-identical planes.  Nulls are NaN.  Returns the seconds of the
+    decode and of the hashing."""
+    t0 = time.perf_counter()
     hi = lo + len(arr)
     t = arr.type
     lane = spec.num_lane
@@ -280,22 +287,24 @@ def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
             xf = np.where(valid, xf, np.nan)
         x[lo:hi, lane] = xf
         _NUM_PATHS.inc(path="slow")
+    t1 = time.perf_counter()
     if not hashes:
-        return
+        return t1 - t0, 0.0
     keys = _num_keys(vals)
     if nh is None:
         hll_packed[lo:hi, spec.hash_lane] = _packed_obs(keys, valid,
                                                         hll_precision)
-        return
-    # one native pass writes the full hashes into the pair's slice and
-    # returns the packed observations
-    packed = native.hash_pack_keep_u64(keys, valid, hll_precision,
-                                       nh[0][lo:hi])
-    if packed is None:
-        packed = _packed_obs(keys, valid, hll_precision)
-        nh[0][lo:hi] = _hash64(keys)
-    hll_packed[lo:hi, spec.hash_lane] = packed
-    nh[1][lo:hi] = valid
+    else:
+        # one native pass writes the full hashes into the pair's slice and
+        # returns the packed observations
+        packed = native.hash_pack_keep_u64(keys, valid, hll_precision,
+                                           nh[0][lo:hi])
+        if packed is None:
+            packed = _packed_obs(keys, valid, hll_precision)
+            nh[0][lo:hi] = _hash64(keys)
+        hll_packed[lo:hi, spec.hash_lane] = packed
+        nh[1][lo:hi] = valid
+    return t1 - t0, time.perf_counter() - t1
 
 
 def _stringified(name: str, arr: pa.Array) -> pa.Array:
@@ -417,17 +426,22 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
     col_nbytes: Dict[str, int] = {}
     col_dict_nbytes: Dict[str, int] = {}
 
-    def decode_column(i: int, spec: ColumnSpec) -> None:
+    def decode_column(i: int, spec: ColumnSpec) -> Tuple[float, float]:
+        """One column's leaf task; the seconds of its decode and of its
+        hashing (a dictionary's memoized values and hashes count as
+        decode)."""
         arr = batch.column(i)
         if spec.role == "num":
-            _fill_num_rows(arr, spec, x, hll_packed, hashes, hll_precision,
-                           0, num_hashes.get(spec.name))
-            return
+            return _fill_num_rows(arr, spec, x, hll_packed, hashes,
+                                  hll_precision, 0,
+                                  num_hashes.get(spec.name))
+        t0 = time.perf_counter()
         if spec.role == "date":
             valid = arr.is_valid().to_numpy(zero_copy_only=False)
             ints = arr.cast(pa.timestamp("ns"), safe=False) \
                       .cast(pa.int64(), safe=False) \
                       .fill_null(0).to_numpy(zero_copy_only=False)
+            t1 = time.perf_counter()
             if hashes:
                 keys = _num_keys(ints)
                 hll_packed[:n, spec.hash_lane] = _packed_obs(
@@ -435,22 +449,23 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                 if full_hashes:
                     num_hashes[spec.name] = (_hash64(keys), valid)
             date_ints[spec.name] = (ints, valid)
-            return
+            return t1 - t0, time.perf_counter() - t1
         if spec.opaque:
             # the null count is Arrow metadata; the values never decode
             opaque_nulls[spec.name] = int(arr.null_count)
-            return
+            return time.perf_counter() - t0, 0.0
         if pa.types.is_nested(arr.type):
             arr = _stringified(spec.name, arr)
         if hashes and col_stats is not None \
                 and col_stats.get(spec.name, 0) > ROWHASH_MIN_DISTINCT \
                 and not isinstance(arr.type, pa.DictionaryType):
             # pass B still dictionary-encodes: its recount keys on values
+            t1 = time.perf_counter()
             got = _row_hashed(arr, n, hll_precision)
             if got is not None:
                 hll_packed[:n, spec.hash_lane], cat_hashed[spec.name] = got
                 col_stats[spec.name] = len(got[1][0])
-                return
+                return t1 - t0, time.perf_counter() - t1
         if not isinstance(arr.type, pa.DictionaryType):
             arr = pc.dictionary_encode(arr)
         if col_stats is not None:
@@ -460,6 +475,8 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
             zero_copy_only=False).astype(np.int64)
         dvals, dh, hkind = dict_cache.views(spec.name, arr.dictionary,
                                             want_hashes=hashes)
+        cat_codes[spec.name] = (np.where(valid, codes, -1), dvals)
+        t1 = time.perf_counter()
         if hashes:
             if dvals.size:
                 packed = native.pack_gather(dh, codes, valid, hll_precision)
@@ -471,7 +488,7 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
             cat_hashes[spec.name] = dh
             cat_hash_kind[spec.name] = hkind
             hll_packed[:n, spec.hash_lane] = packed
-        cat_codes[spec.name] = (np.where(valid, codes, -1), dvals)
+        return t1 - t0, time.perf_counter() - t1
 
     workers = resolve_prep_workers(decode_threads)
     num_split = 1
@@ -480,6 +497,7 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
         num_split = min(-(-workers // len(plan.specs)) + 1,
                         n // ROW_CHUNK_ROWS)
     tasks = []
+    clock: List[Tuple[float, float]] = []   # each task's decode, hashing
     for i, spec in enumerate(plan.specs):
         arr = batch.column(i)
         # byte accounting is O(1) metadata: here, off the pool
@@ -496,12 +514,19 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
             step = -(-n // num_split)
             for lo in range(0, n, step):
                 tasks.append(
-                    lambda lo=lo, arr=arr, spec=spec: _fill_num_rows(
-                        arr.slice(lo, step), spec, x, hll_packed, hashes,
-                        hll_precision, lo, num_hashes.get(spec.name)))
+                    lambda lo=lo, arr=arr, spec=spec: clock.append(
+                        _fill_num_rows(arr.slice(lo, step), spec, x,
+                                       hll_packed, hashes, hll_precision,
+                                       lo, num_hashes.get(spec.name))))
         else:
-            tasks.append(lambda i=i, spec=spec: decode_column(i, spec))
+            tasks.append(
+                lambda i=i, spec=spec: clock.append(decode_column(i, spec)))
     prep.run_tasks(tasks, workers)
+    if hashes:
+        _spans.add("decode_a", sum(d for d, _ in clock))
+        _spans.add("hash_a", sum(h for _, h in clock))
+    else:
+        _spans.add("decode_b", sum(d for d, _ in clock))
     # compact to the valid rows here, on the prepare's thread, not on the
     # ordered fold thread: the tracker gets owned valid-only arrays, and an
     # all-valid lane passes its filled array as it is

@@ -18,6 +18,17 @@ times its body and records the wall seconds into
 Nesting is per thread (a ``threading.local`` stack): spans opened by pool
 threads neither see nor corrupt the main thread's stack.  Phase totals
 accumulate under the span's leaf name.
+
+``span(name, quiet=True)``, for stages that run once a batch, keeps the
+first and last of those (the phase total and the trace's range) and
+drops the rest, so a profile's hundreds of them flood neither the flight
+recorder's ring nor a JSONL sink; it is not on the nesting stack.
+:func:`add` adds thread-seconds measured elsewhere, from any thread, to
+the phase totals and never marks the trace: the benchmark names the
+card's idle time by the innermost range open on any thread, so only the
+thread that runs the profile marks the trace (``backends/gpu.py``), and
+the prepare pool's decode and hashing seconds arrive through :func:`add`
+(``ingest/arrow.py``).
 """
 
 from __future__ import annotations
@@ -58,13 +69,20 @@ def current_path() -> str:
     return ".".join(_stack())
 
 
+def add(name: str, seconds: float) -> None:
+    """Add ``seconds`` to phase ``name``'s total; safe from any thread."""
+    with _lock:
+        _phase_totals[name] = _phase_totals.get(name, 0.0) + seconds
+
+
 @contextlib.contextmanager
-def span(name: str, **meta: Any) -> Iterator[None]:
+def span(name: str, quiet: bool = False, **meta: Any) -> Iterator[None]:
     """Time a pipeline stage.  Exceptions propagate; the time is recorded
-    either way (a failed stage's cost is still cost)."""
-    stack = _stack()
-    stack.append(name)
-    depth = len(stack)
+    either way (a failed stage's cost is still cost).  ``quiet`` records
+    the phase total and the trace's range only (module docstring)."""
+    if not quiet:
+        stack = _stack()
+        stack.append(name)
     mark = annotate(name) if annotate is not None \
         else contextlib.nullcontext()
     t0 = time.perf_counter()
@@ -73,17 +91,19 @@ def span(name: str, **meta: Any) -> Iterator[None]:
             yield
     finally:
         dt = time.perf_counter() - t0
-        stack.pop()
-        with _lock:
-            _phase_totals[name] = _phase_totals.get(name, 0.0) + dt
-        _SPAN_SECONDS.observe(dt, name=name)
-        # into the flight recorder even with no sink: a postmortem of a
-        # metrics-off run still shows which stages closed
-        events.emit("span", name=name, seconds=round(dt, 6),
-                    path=".".join(stack + [name]), depth=depth, **meta)
-        logger.debug("%s", json.dumps(
-            {"event": "phase", "name": name, "seconds": round(dt, 4),
-             **meta}, default=str))
+        add(name, dt)
+        if not quiet:
+            depth = len(stack)
+            stack.pop()
+            _SPAN_SECONDS.observe(dt, name=name)
+            # into the flight recorder even with no sink: a postmortem of
+            # a metrics-off run still shows which stages closed
+            events.emit("span", name=name, seconds=round(dt, 6),
+                        path=".".join(stack + [name]), depth=depth, **meta)
+            if logger.isEnabledFor(logging.DEBUG):
+                logger.debug("%s", json.dumps(
+                    {"event": "phase", "name": name,
+                     "seconds": round(dt, 4), **meta}, default=str))
 
 
 def get_phase_report(reset: bool = False) -> Dict[str, float]:
