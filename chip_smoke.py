@@ -17,8 +17,10 @@ Run from the repository root:
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes, plain versions, CPU
 
 ``--only`` takes any of kernels, main, cli, ingest, limits, durable,
-exact, obs, fleet, serve, edge, surface (phases 3 to 14) and k2big (phase
-3's check of K2 past 8,192 bins alone); ``--kernels-only`` and
+exact, obs, fleet, serve, edge, surface (phases 3 to 14), k2big (phase
+3's check of K2 past 8,192 bins alone) and hll (phase 3's check of
+``hll_regs`` alone, then the headline table's registers through the host
+route and through ``hll_regs``, bit for bit); ``--kernels-only`` and
 ``--ingest-only`` are its short forms.
 
 Phases, each fatal on failure:
@@ -1159,6 +1161,123 @@ def k2_probe(torch, device) -> None:
         print(f"sass {fn}: {json.dumps(counts)}", flush=True)
 
 
+def host_hll_regs(x: np.ndarray, rv: np.ndarray, p: int, pairs,
+                  n_hash: int) -> np.ndarray:
+    """The host route's registers of the lanes ``pairs`` ((numeric lane
+    of ``x`` (C, R), hash lane) each): the ingest's packed observations
+    (``_num_keys``, ``_packed_obs``: native/hash.cpp), padding rows 0,
+    folded by ``HostRegisters``."""
+    from tpuprof_torch.ingest.arrow import _num_keys, _packed_obs
+    from tpuprof_torch.kernels.hll import HostRegisters
+    packed = np.zeros((x.shape[1], n_hash), dtype=np.uint16, order="F")
+    for num, h in pairs:
+        v = x[num]
+        packed[:, h] = _packed_obs(_num_keys(v), ~np.isnan(v) & rv, p)
+    regs = HostRegisters(n_hash, p)
+    regs.update(packed, x.shape[1])
+    return regs.regs
+
+
+def check_hll(torch, device, rehearsal: bool):
+    """``hll_regs`` against the host route (:func:`host_hll_regs`) and
+    its plain version, bit for bit: adversarial batches (NaN, +-inf, +-0,
+    denormals, a constant and an all-NaN lane, padding rows), every other
+    lane mapped to a hash lane in reverse (the rest stay 0), at p = 4, 8
+    and 11 and at the ``LAYOUTS``; a second fold of the same batch
+    changes nothing.  Then its time at the main path's shape, 200 float32
+    lanes x 65,536 rows at p = 11 (events over the wrapper's calls, and
+    device time from a CUDA graph), beside its bytes bound and the host
+    route's time for the same batch.  Returns the kernels line's row."""
+    from tpuprof_torch import native
+    from tpuprof_torch.kernels import fused, hll
+    require(native.available(), "hll_regs is checked against the native "
+            "hash library, which did not build")
+    if rehearsal:
+        C, R, layouts = 13, 700, REHEARSAL_LAYOUTS
+    else:
+        C, R, layouts = 200, 65536, LAYOUTS
+    cases = [(C, R, False, p) for p in (4, 8, 11)] + [
+        (C, r, offset, 11) for r, offset in layouts]
+    for k, (C_, R_, offset, p) in enumerate(cases):
+        x, rv = adversarial_batch(C_, R_, 60 + k)
+        pairs = [(c, C_ - 1 - c) for c in range(0, C_, 2)]
+        want = host_hll_regs(x, rv, p, pairs, C_)
+        xt = on_device(torch, device, x, offset)
+        rvt = on_device(torch, device, rv, offset)
+        lanes = torch.tensor(pairs, dtype=torch.int32, device=device)
+        regs = fused.hll_regs(hll.init(C_, p, device), xt, rvt, lanes)
+        plain = fused.hll_regs_plain(hll.init(C_, p, device), xt, rvt,
+                                     lanes)
+        at = f"hll_regs at {C_}x{R_} p={p}" + (" offset" if offset else "")
+        require(np.array_equal(regs.cpu().numpy(), want),
+                f"{at}: registers differ from the host route's")
+        require(torch.equal(regs, plain), f"{at}: registers differ from "
+                "the plain version's")
+        fused.hll_regs(regs, xt, rvt, lanes)
+        require(np.array_equal(regs.cpu().numpy(), want),
+                f"{at}: a second fold of the batch moved the registers")
+        print(f"{at}: the host route's registers bit for bit "
+              f"({int((want > 0).sum())} set)", flush=True)
+        del xt, rvt, regs, plain
+
+    rng = np.random.default_rng(5)
+    xb = rng.normal(50.0, 10.0, (C, R)).astype(np.float32)
+    rvb = np.ones(R, dtype=bool)
+    xt = torch.from_numpy(xb).to(device)
+    rvt = torch.ones(R, dtype=torch.bool, device=device)
+    pairs = [(c, c) for c in range(C)]
+    lanes = torch.tensor(pairs, dtype=torch.int32, device=device)
+    regs = hll.init(C, hll.MAX_PRECISION, device)
+    ms = time_ms(lambda: fused.hll_regs(regs, xt, rvt, lanes), torch,
+                 device)
+    dev_ms = graph_ms(lambda: fused.hll_regs(regs, xt, rvt, lanes),
+                      torch) if device.type == "cuda" else None
+    plain_ms = time_ms(lambda: fused.hll_regs_plain(regs, xt, rvt, lanes),
+                       torch, device, reps=3)
+    t0 = time.perf_counter()
+    host_hll_regs(xb, rvb, hll.MAX_PRECISION, pairs, C)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b, by = bound(C * R * 4 + R + 2 * C * (4 << hll.MAX_PRECISION), 0)
+    row = {"name": "hll_regs", "route": "cuda",
+           "source": "tpuprof_torch/kernels/csrc/hll.cuh",
+           "replaces": "none: the host's hashing (native/hash.cpp)",
+           "shape": f"{C}x{R} p={hll.MAX_PRECISION}", "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b,
+           "bound_by": by, "library_ms": None, "host_ms": host_ms}
+    print(f"hll_regs: device time from a CUDA graph of 20 calls "
+          f"{dev_ms} ms; host_ms: the host route (hash, pack, fold) of the "
+          "same batch on one thread", flush=True)
+    return row
+
+
+def check_hll_table(torch, device, rehearsal: bool):
+    """The headline table (200 float32 columns, 1,048,576 rows) through
+    the ingest's host route and through ``hll_regs`` batch by batch:
+    every register equal."""
+    from tpuprof_torch.ingest.arrow import ArrowIngest, prepare_batch
+    from tpuprof_torch.kernels import fused, hll
+    rows, batch = (4096, 512) if rehearsal else (1_048_576, 65536)
+    ingest = ArrowIngest(headline_frame(rows, 200), batch)
+    p = hll.MAX_PRECISION
+    host = hll.HostRegisters(ingest.plan.n_hash, p)
+    regs = hll.init(ingest.plan.n_hash, p, device)
+    pairs = [(s.num_lane, s.hash_lane) for s in ingest.plan.specs]
+    lanes = torch.tensor(pairs, dtype=torch.int32, device=device)
+    n = 0
+    for rb in ingest.raw_batches():
+        hb = prepare_batch(rb, ingest.plan, batch, p)
+        host.update(hb.hll, hb.nrows)
+        fused.hll_regs(regs, torch.from_numpy(np.ascontiguousarray(
+            hb.x.T)).to(device), torch.from_numpy(hb.row_valid).to(device),
+            lanes)
+        n += hb.nrows
+    require(np.array_equal(regs.cpu().numpy(), host.regs),
+            f"hll_regs over {n} x 200: registers differ from the host's")
+    print(f"hll_regs over the headline table, {n} rows x 200 lanes in "
+          f"{-(-n // batch)} batches: registers equal the host's bit for "
+          f"bit ({int((host.regs > 0).sum())} set)", flush=True)
+
+
 def phase_kernels(torch, device, rehearsal: bool):
     from tpuprof_torch.kernels import fused, hist
     if rehearsal:
@@ -1221,6 +1340,7 @@ def phase_kernels(torch, device, rehearsal: bool):
     b2, by2 = k2_bound(C, R, nbins)
     b2w = k2_bound(CW, R, nbins)[0]
     k2c = check_k2_global(torch, device, k2, rehearsal)
+    hll_row = check_hll(torch, device, rehearsal)
     rows = [
         {"name": "fused_a", "route": "cuda",
          "source": "tpuprof_torch/kernels/csrc/fused_a.cu",
@@ -1237,6 +1357,7 @@ def phase_kernels(torch, device, rehearsal: bool):
          "library_ms": k2t.pop("library_ms"), **k2t,
          f"bound_ms_{CW}_cols": b2w},
         k2c,
+        hll_row,
     ]
     for r in rows:
         print_row(r)
@@ -1869,7 +1990,8 @@ COUNTERS = {"fused_a": ("fused", "launches"), "hist_b": ("hist", "launches"),
             "fused_wide": ("fused", "launches_wide"),
             "spear": ("fused", "launches_spear"),
             "rank": ("fused", "launches_rank"),
-            "fused_ab": ("fused", "launches_ab")}
+            "fused_ab": ("fused", "launches_ab"),
+            "hll_regs": ("fused", "launches_hll")}
 
 
 def _kernel_module(name: str):
@@ -2009,8 +2131,11 @@ def phase_main_path(torch, rehearsal: bool, card: str):
     n_batches = -(-n_wide // batch)
     a_b = (("fused_a", 1), ("hist_b", 1))
     wide = headline_frame(n_wide, cols)     # phases 7 and 8 reuse it
+    # every lane of the headline is float32: its HLL observations hash on
+    # the card, one hll_regs launch a batch
+    hll_b = ("hll_regs", 0 if rehearsal else n_batches)
     two_ab, main_ab, t_two = run(wide, f"describe {cols} cols", need=a_b,
-                                 exactly=(("fused_ab", 0),),
+                                 exactly=(("fused_ab", 0), hll_b),
                                  scan_batches=8, **dev_kw)
     # single-pass profiles of the same table: cold (edges sketched from
     # the first batch; missed lanes re-bin with K2), then warm (edges
@@ -2018,7 +2143,7 @@ def phase_main_path(torch, rehearsal: bool, card: str):
     r0 = singlepass.rebins
     cold, c_cold, t_cold = run(
         wide, f"describe {cols} cols fused cold",
-        exactly=(("fused_ab", n_batches), ("fused_a", 0)),
+        exactly=(("fused_ab", n_batches), ("fused_a", 0), hll_b),
         profile_passes="fused", scan_batches=8, **dev_kw)
     rebinned = singlepass.rebins - r0
     require(rehearsal or c_cold["hist_b"] == n_batches * rebinned,
@@ -2029,7 +2154,8 @@ def phase_main_path(torch, rehearsal: bool, card: str):
     same(cold, two_ab, "fused cold")
     warm_st, main_fab, t_warm = warm(
         wide, two_ab, f"describe {cols} cols fused warm", cols,
-        exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0)),
+        exactly=(("fused_ab", n_batches), ("fused_a", 0), ("hist_b", 0),
+                 hll_b),
         scan_batches=8, **dev_kw)
     same(warm_st, two_ab, "fused warm")
     shown = ", ".join(f"{what} {t:.3f} s ({n_wide / t:.0f} rows/s)"
@@ -2090,7 +2216,8 @@ def phase_main_path(torch, rehearsal: bool, card: str):
                 batch_rows=n_w_cut)
     return {"fused_a": main_ab["fused_a"], "hist_b": main_ab["hist_b"],
             "spear": main_sp["spear"], "fused_wide": main_w["fused_wide"],
-            "rank": main_w["rank"], "fused_ab": main_fab["fused_ab"]}
+            "rank": main_w["rank"], "fused_ab": main_fab["fused_ab"],
+            "hll_regs": main_ab["hll_regs"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5272,8 +5399,9 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions")
     ap.add_argument("--only", metavar="PHASE[,PHASE]",
                     help="after the build run only these phases, of "
-                    + ", ".join(PHASES) + " (3 to 14), and k2big (phase "
-                    "3's check of K2 past 8,192 bins alone); the "
+                    + ", ".join(PHASES) + " (3 to 14), k2big (phase "
+                    "3's check of K2 past 8,192 bins alone) and hll "
+                    "(hll_regs alone, then over the headline table); the "
                     "kernels line is printed only when phase 3 runs")
     ap.add_argument("--kernels-only", action="store_true",
                     help="the same as --only kernels")
@@ -5303,7 +5431,7 @@ def main(argv=None) -> int:
     only = set(PHASES)
     if args.only:
         only = {p.strip() for p in args.only.split(",") if p.strip()}
-        unknown = only - set(PHASES) - {"k2big"}
+        unknown = only - set(PHASES) - {"k2big", "hll"}
         if unknown:
             ap.error(f"unknown phases {sorted(unknown)}; use {PHASES}")
     if args.kernels_only:
@@ -5355,6 +5483,9 @@ def main(argv=None) -> int:
 
     rehearsal = args.cpu_rehearsal
     rows = []
+    if "hll" in only:
+        print_row(timed(check_hll, torch, device, rehearsal))
+        timed(check_hll_table, torch, device, rehearsal)
     if "k2big" in only:
         from tpuprof_torch.kernels import hist
         k2 = hist.histogram_cuda if not rehearsal else \

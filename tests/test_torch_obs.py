@@ -140,6 +140,8 @@ EDGE_INSTRUMENTS = (
 )
 # the lint's (analysis/__init__.py)
 LINT_INSTRUMENTS = ("tpuprof_lint_findings_total",)
+# the port's own, which the reference has not (tpuprof_torch/OBSERVABILITY.md)
+PORT_INSTRUMENTS = {"tpuprof_hll_lanes_total": "counter"}
 
 
 def _reset_obs():
@@ -324,8 +326,10 @@ def test_the_49_instruments_with_the_reference_kinds():
     every = INSTRUMENTS + FLEET_INSTRUMENTS + SERVE_INSTRUMENTS \
         + EDGE_INSTRUMENTS + LINT_INSTRUMENTS
     assert len(every) == len(set(every)) == 49 + 4 + 22 + 18 + 1
-    assert set(mine) == set(every)
-    assert {n: ref[n] for n in every} == mine
+    assert set(mine) == set(every) | set(PORT_INSTRUMENTS)
+    assert {n: ref[n] for n in every} == {n: mine[n] for n in every}
+    assert not set(PORT_INSTRUMENTS) & set(ref)
+    assert {n: mine[n] for n in PORT_INSTRUMENTS} == PORT_INSTRUMENTS
     for name in every:
         a = metrics.registry()._instruments[name]
         b = ref_metrics.registry()._instruments[name]

@@ -1,15 +1,19 @@
 """Checker ``obs-contract`` — metric and event names synced to docs
 (counterpart of ``tpuprof/analysis/checkers/obs_contract.py``).  The
 port registers the reference's metric names and emits its event kinds,
-so the reference's OBSERVABILITY.md and EVENT_SCHEMA are its contract.
+so the reference's OBSERVABILITY.md and EVENT_SCHEMA are its contract;
+a series the port adds, which the reference has not, is catalogued in
+the package's own ``<package>/OBSERVABILITY.md`` (read when it exists),
+so neither package's doc names the other's dead series.
 
 Two registries, two docs, four drift directions:
 
 * every metric registered on the process registry
   (``metrics.counter/gauge/histogram("tpuprof_...")`` at module
-  import) must appear in OBSERVABILITY.md — an undocumented series is
-  invisible to the operators the telemetry exists for;
-* every ``tpuprof_*`` name OBSERVABILITY.md mentions must be a live
+  import) must appear in OBSERVABILITY.md or the package's own — an
+  undocumented series is invisible to the operators the telemetry
+  exists for;
+* every ``tpuprof_*`` name either doc mentions must be a live
   registration — docs describing dead metrics send people grepping
   for series that never fire;
 * every ``events.emit("<kind>", ...)`` call site must have an
@@ -77,9 +81,12 @@ def check_obs_contract(ctx: AnalysisContext) -> List[Finding]:
             ident="doc:missing",
             message="OBSERVABILITY.md not found — the metric catalogue "
                     "cannot be checked"))
-        documented = set()
-    else:
-        documented = set(_METRIC_TOKEN.findall(doc))
+    own_doc = f"{ctx.package}/{_OBS_DOC}"
+    named = {name: set(_METRIC_TOKEN.findall(text))
+             for name, text in ((_OBS_DOC, doc),
+                                (own_doc, ctx.doc_text(own_doc)))
+             if text is not None}
+    documented = set().union(*named.values())
 
     for name, (path, line) in sorted(registered.items()):
         if doc is not None and name not in documented:
@@ -89,14 +96,15 @@ def check_obs_contract(ctx: AnalysisContext) -> List[Finding]:
                 message=f"metric '{name}' is registered here but "
                         "OBSERVABILITY.md never names it — add a "
                         "catalogue row"))
-    for name in sorted(documented - set(registered)):
-        findings.append(Finding(
-            checker="obs-contract", path=_OBS_DOC,
-            line=ctx.doc_line(_OBS_DOC, name),
-            ident=f"metric:{name}:dead-doc",
-            message=f"OBSERVABILITY.md names '{name}' but no "
-                    "registration exists in the package — stale doc "
-                    "(or the registration lost its literal name)"))
+    for doc_name, names in named.items():
+        for name in sorted(names - set(registered)):
+            findings.append(Finding(
+                checker="obs-contract", path=doc_name,
+                line=ctx.doc_line(doc_name, name),
+                ident=f"metric:{name}:dead-doc",
+                message=f"{doc_name} names '{name}' but no "
+                        "registration exists in the package — stale doc "
+                        "(or the registration lost its literal name)"))
 
     emitted = _emits(ctx)
     schema = ctx.event_schema_keys()

@@ -24,6 +24,12 @@ Spearman — or not at all. The result equals the two-pass profile's exactly.
 
 Division of labour: the device folds every numeric statistic; the host
 decodes strings, hashes, keeps the frequent values, dates and first rows.
+Pass A's HyperLogLog observations of float32 lanes are made on the device
+instead (``fused.hll_regs``, from the batch K1 reads), lane by lane, when
+the runner is one CUDA device (``Runner.hashes_on_device``), ``exact_distinct``
+is off and the native hash library builds in every process
+(:func:`device_hash_lanes`); the registers are the host's bit for bit, so
+the two routes' registers combine by max wherever they meet.
 Numeric values are profiled in float32.
 
 The ingest guard (``runtime/guard.py``) wraps both passes: a transient
@@ -64,7 +70,7 @@ import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -88,6 +94,7 @@ from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
                                   resolve_watchdog_timeout)
 from tpuprof_torch.errors import HostDeathError, InputError
 from tpuprof_torch.ingest.arrow import (ArrowIngest, ColumnPlan, HostBatch,
+                                        float32_hash_lanes,
                                         prefetch_prepared)
 from tpuprof_torch.ingest.sample import RowSampler
 from tpuprof_torch.kernels import corr as kcorr
@@ -326,6 +333,38 @@ def stage_group(scan_batches: int, rows: int, n_num: int, n_hash: int,
     return max(1, min(int(scan_batches), STAGE_BYTES // max(per, 1)))
 
 
+def device_hash_lanes(plan: ColumnPlan, config: ProfilerConfig, runner,
+                      use_host_hll: bool) -> List[Tuple[int, int]]:
+    """The (numeric lane, hash lane) pairs whose pass-A HyperLogLog
+    observations the device makes (``fused.hll_regs``): every float32 lane
+    when the runner hashes on its device (one CUDA device), the host's
+    hashes are the native library's splitmix64 in every process
+    (``use_host_hll``; the pandas fallback is another hash family) and
+    ``exact_distinct`` is off (its tracker needs each full 64-bit hash on
+    the host).  Otherwise none."""
+    if not (use_host_hll and getattr(runner, "hashes_on_device", False)
+            and not config.exact_distinct):
+        return []
+    return [(s.num_lane, s.hash_lane) for s in float32_hash_lanes(plan)]
+
+
+class HllRoute(NamedTuple):
+    """Where one profile's pass-A lanes hash: ``lanes`` (a hash-lane
+    set) on the device through the map ``lanes_d``, the ``host_runs`` of
+    the rest on the host (``kernels.hll.lane_runs``)."""
+    lanes: frozenset
+    lanes_d: Optional[torch.Tensor]
+    host_runs: List[Tuple[int, int]]
+
+
+def hll_route(plan: ColumnPlan, config: ProfilerConfig, runner,
+              use_host_hll: bool) -> HllRoute:
+    pairs = device_hash_lanes(plan, config, runner, use_host_hll)
+    lanes = frozenset(h for _, h in pairs)
+    return HllRoute(lanes, runner.put_hll_lanes(pairs) if pairs else None,
+                    khll.lane_runs(plan.n_hash, lanes))
+
+
 class CollectCheckpoint:
     """Batch-granular resume of the pass-A scan (the reference's
     ``_CollectCheckpoint``).  Every ``checkpoint_every_batches``
@@ -495,7 +534,7 @@ def _read_fragments(ingest, frags):
 
 
 def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
-                           batch_guard, use_host_hll):
+                           batch_guard, use_host_hll, route: HllRoute):
     """A fresh finalized pass-A part of ``frags`` scanned from scratch (a
     stolen or fenced fragment set: the owner's partial folds died with it).
     Returns the contribution payload."""
@@ -511,7 +550,8 @@ def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
             workers=resolve_prepare_workers(config.prepare_workers),
             prep_workers=config.prep_workers, batch_guard=batch_guard,
             full_hashes=config.exact_distinct,
-            raw_stream=_read_fragments(ingest, frags)):
+            raw_stream=_read_fragments(ingest, frags),
+            device_lanes=route.lanes):
         if isinstance(hb, guard.PoisonBatch):
             # the skip rides the part to every member's report
             q_entries.append({"site": hb.site + "_stolen", "cursor": None,
@@ -523,10 +563,10 @@ def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
         if state is None:
             state = runner.init_pass_a(estimate_shift(hb))
         state = runner.step_a(state, runner.put_batch(
-            hb, with_hll=host_hll is None))
+            hb, with_hll=host_hll is None, hll_lanes=route.lanes_d))
         sampler.update(hb.x, hb.nrows)
-        if host_hll is not None:
-            host_hll.update(hb.hll, hb.nrows)
+        if host_hll is not None and route.host_runs:
+            host_hll.update(hb.hll, hb.nrows, route.host_runs)
         hostagg.update(hb)
     if state is None:
         state = runner.init_pass_a()
@@ -537,10 +577,13 @@ def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
 
 
 def _part_regs(part):
-    """A part's HLL registers: its host registers where the member folded
-    them on the host, else its device plane (the same format)."""
+    """A part's HLL registers: its device registers (the lanes hashed
+    there, or every lane where the packed plane shipped), raised by its
+    host registers where the member folded lanes on the host (the same
+    format, bit for bit the same per lane)."""
+    regs = part["res_a"]["hll"]
     hh = part.get("host_hll")
-    return hh.regs if hh is not None else part["res_a"]["hll"]
+    return regs if hh is None else np.maximum(regs, hh.regs)
 
 
 def _elastic_merge_a(member, res_a, hostagg, sampler, host_hll, quarantine,
@@ -709,6 +752,8 @@ class GPUStatsBackend:
             distributed.allgather_objects(native.available()))
         host_hll = khll.HostRegisters(plan.n_hash, config.hll_precision) \
             if use_host_hll else None
+        route = hll_route(plan, config, runner, use_host_hll)
+        khll.record_routes(len(route.lanes), plan.n_hash - len(route.lanes))
 
         fleet_member = None
         if elastic:
@@ -869,7 +914,7 @@ class GPUStatsBackend:
             positions=resume is not None,
             resume_pos=(last_frag[0], last_frag[1] + 1)
             if last_frag is not None else None,
-            full_hashes=config.exact_distinct,
+            full_hashes=config.exact_distinct, device_lanes=route.lanes,
             raw_stream=_fleet_stream(fleet_member, "a", ingest,
                                      resume_frag=resume_frag,
                                      replay=fleet_replay)
@@ -879,7 +924,8 @@ class GPUStatsBackend:
         def staged_a(group):
             nonlocal state, state_h
             with span("stage_a", quiet=True):
-                sb = runner.stage_batches(group, with_hll=with_hll)
+                sb = runner.stage_batches(group, with_hll=with_hll,
+                                          hll_lanes=route.lanes_d)
             with span("launch_a", quiet=True):
                 if state_h is not None:
                     state, state_h = runner.scan_ab(state, state_h, sb,
@@ -890,7 +936,8 @@ class GPUStatsBackend:
         def one_a(hb):
             nonlocal state, state_h
             with span("stage_a", quiet=True):
-                db = runner.put_batch(hb, with_hll=with_hll)
+                db = runner.put_batch(hb, with_hll=with_hll,
+                                      hll_lanes=route.lanes_d)
             with span("launch_a", quiet=True):
                 if state_h is not None:
                     state, state_h = runner.step_ab(state, state_h, db,
@@ -978,9 +1025,10 @@ class GPUStatsBackend:
                     faults.hit("fold", key=key)
                     with span("sampler_a", quiet=True):
                         sampler.update(hb.x, hb.nrows)
-                    if host_hll is not None:
+                    if host_hll is not None and route.host_runs:
                         with span("hll_host_a", quiet=True):
-                            host_hll.update(hb.hll, hb.nrows)
+                            host_hll.update(hb.hll, hb.nrows,
+                                            route.host_runs)
                     with span("hostagg_a", quiet=True):
                         hostagg.update(hb)
                 except Exception as exc:
@@ -1031,7 +1079,7 @@ class GPUStatsBackend:
                     def steal_scan_a(frags):
                         return _scan_fragments_pass_a(
                             frags, ingest, plan, pad, config, runner,
-                            batch_guard, use_host_hll)
+                            batch_guard, use_host_hll, route)
                     (res_a, hostagg, sampler, fleet_regs, fleet_q,
                      fleet_q_mark) = _elastic_merge_a(
                         fleet_member, res_a, hostagg, sampler, host_hll,
@@ -1052,11 +1100,14 @@ class GPUStatsBackend:
         probes = list(config.quantile_probes)
         quants = sampler.quantiles(probes)
         sample_vals, sample_kept = sampler.columns()
+        # the device registers (device-hashed lanes, or every lane where
+        # the packed plane shipped) raised by the host's: each lane's
+        # registers are the same bits whichever route made them
         if fleet_regs is not None:
             hll_est = khll.finalize(fleet_regs)
         elif host_hll is not None:
-            hll_est = khll.finalize(
-                distributed.merge_hll_registers(host_hll).regs)
+            hll_est = khll.finalize(np.maximum(
+                res_a["hll"], distributed.merge_hll_registers(host_hll).regs))
         else:
             hll_est = khll.finalize(res_a["hll"])
         run_pass_b = config.exact_passes and ingest.rescannable \

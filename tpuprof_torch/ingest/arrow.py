@@ -10,6 +10,7 @@ device step consumes:
 * ``row_valid`` (G,) bool — masks the padding rows;
 * ``hll``       (G, n_hash) uint16 — packed HLL observations for every
   column with a hash lane (``kernels.hll.pack``), 0 = null or padding;
+  a lane hashed on the device (``device_lanes``) stays 0 here;
 
 plus the host-only side channels: dictionary codes of categorical columns
 (Misra-Gries, recount), the row-hash aggregation of high-cardinality plain
@@ -17,7 +18,13 @@ strings, int64-nanosecond dates, Arrow buffer sizes, the null counts of
 opaque nested columns and, with ``full_hashes`` (``config.exact_distinct``),
 the unpacked 64-bit hashes of numeric and date columns.  The hashing is the
 reference's, bit for bit (native C++ when it builds, pandas otherwise), so
-distinct counts and top-k keys agree with it.
+distinct counts and top-k keys agree with it.  A caller may name float32
+lanes whose hashing moves to the device (``device_lanes``: the GPU backend
+on a CUDA runner without ``exact_distinct``, when the native library
+builds; :func:`float32_hash_lanes`): their key is a pure function of the
+value the ``x`` plane carries, so ``fused.hll_regs`` hashes it there with
+the same splitmix64 and pack, and the registers stay the reference's bit
+for bit.  Every other lane, and every other caller, hashes here.
 
 Nested (list, struct, map) columns follow ``config.nested``: "stringify"
 profiles the ``str()`` of each value as a categorical column (a Python
@@ -237,6 +244,15 @@ def _packed_obs(keys: np.ndarray, valid: np.ndarray,
     return khll.pack(_hash64(keys), valid, precision)
 
 
+def float32_hash_lanes(plan: ColumnPlan) -> List[ColumnSpec]:
+    """The numeric columns whose Arrow type is float32 (not dictionary
+    encoded): the lanes whose HLL observations the device can make from
+    the ``x`` plane alone, since that plane carries their values' bits
+    exactly."""
+    return [s for s in plan.by_role("num")
+            if s.arrow_type is not None and pa.types.is_float32(s.arrow_type)]
+
+
 def _fill_num_rows(arr: pa.Array, spec: ColumnSpec, x: np.ndarray,
                    hll_packed: np.ndarray, hashes: bool,
                    hll_precision: int, lo: int,
@@ -392,12 +408,17 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                   dict_cache: Optional[_DictionaryCache] = None,
                   col_stats: Optional[Dict[str, int]] = None,
                   decode_threads: Optional[int] = None,
-                  full_hashes: bool = False) -> HostBatch:
+                  full_hashes: bool = False,
+                  device_lanes: frozenset = frozenset()) -> HostBatch:
     """Decode one Arrow record batch into a fixed-shape HostBatch.
 
     ``hashes=False`` (pass B) skips hashing and leaves a zero-width packed
     plane.  ``full_hashes`` (with ``hashes``) also keeps each numeric and
     date column's 64-bit hashes of its valid rows (``num_hashes``).
+    ``device_lanes``, hash lanes of float32 columns
+    (:func:`float32_hash_lanes`), are not hashed here: their packed lanes
+    stay 0 and the device hashes them from ``x``.  It cannot go with
+    ``full_hashes``, which needs every hash on the host.
     ``col_stats`` (owned by the ingest, like ``dict_cache``) holds each
     column's last per-batch distinct count, which moves plain-string
     columns onto the row-hash path once they prove high-cardinality.
@@ -432,8 +453,9 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
         decode)."""
         arr = batch.column(i)
         if spec.role == "num":
-            return _fill_num_rows(arr, spec, x, hll_packed, hashes,
-                                  hll_precision, 0,
+            return _fill_num_rows(arr, spec, x, hll_packed,
+                                  hashes and spec.hash_lane
+                                  not in device_lanes, hll_precision, 0,
                                   num_hashes.get(spec.name))
         t0 = time.perf_counter()
         if spec.role == "date":
@@ -490,6 +512,15 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
             hll_packed[:n, spec.hash_lane] = packed
         return t1 - t0, time.perf_counter() - t1
 
+    if device_lanes and hashes:
+        if full_hashes:
+            raise ValueError("device_lanes cannot go with full_hashes: the "
+                             "exact tracker needs every hash on the host")
+        wrong = device_lanes - {s.hash_lane
+                                for s in float32_hash_lanes(plan)}
+        if wrong:
+            raise ValueError(f"hash lanes {sorted(wrong)} are not float32 "
+                             "lanes: only those hash on the device")
     workers = resolve_prep_workers(decode_threads)
     num_split = 1
     if workers > 1 and n >= 2 * ROW_CHUNK_ROWS and plan.specs:
@@ -512,12 +543,13 @@ def prepare_batch(batch: pa.RecordBatch, plan: ColumnPlan, pad_rows: int,
                                      np.empty(n, dtype=bool))
         if spec.role == "num" and num_split > 1:
             step = -(-n // num_split)
+            lane_hashes = hashes and spec.hash_lane not in device_lanes
             for lo in range(0, n, step):
                 tasks.append(
-                    lambda lo=lo, arr=arr, spec=spec: clock.append(
-                        _fill_num_rows(arr.slice(lo, step), spec, x,
-                                       hll_packed, hashes, hll_precision,
-                                       lo, num_hashes.get(spec.name))))
+                    lambda lo=lo, arr=arr, spec=spec, h=lane_hashes:
+                    clock.append(_fill_num_rows(
+                        arr.slice(lo, step), spec, x, hll_packed, h,
+                        hll_precision, lo, num_hashes.get(spec.name))))
         else:
             tasks.append(
                 lambda i=i, spec=spec: clock.append(decode_column(i, spec)))
@@ -557,7 +589,8 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
                       positions: bool = False,
                       resume_pos: Optional[Tuple[int, int]] = None,
                       full_hashes: bool = False,
-                      raw_stream=None) -> Iterator:
+                      raw_stream=None,
+                      device_lanes: frozenset = frozenset()) -> Iterator:
     """Prepared batches in stream order, ``workers`` prepares in flight.
 
     A reader thread enumerates the raw batches and queues prepare futures
@@ -587,7 +620,9 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
     ``full_hashes`` (``config.exact_distinct``) has every batch keep its
     numeric and date columns' 64-bit hashes, about 9 bytes a row a column
     more, so the queue holds no more than the ``workers`` prepares in
-    flight."""
+    flight.
+
+    ``device_lanes`` passes to every prepare (:func:`prepare_batch`)."""
     depth = workers if full_hashes else max(depth, workers)
     col_threads = resolve_prep_workers(prep_workers, batch_workers=workers)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -615,7 +650,8 @@ def prefetch_prepared(ingest: "ArrowIngest", pad: int, hll_precision: int,
             hb = prepare_batch(rb, ingest.plan, pad, hll_precision,
                                hashes, ingest.dict_cache,
                                ingest.col_stats, col_threads,
-                               full_hashes=full_hashes)
+                               full_hashes=full_hashes,
+                               device_lanes=device_lanes)
             hb.frag_pos = frag_pos
             return hb
         if batch_guard is None:

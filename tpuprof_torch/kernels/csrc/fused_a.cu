@@ -50,11 +50,16 @@
 // code lives in gram.cuh, shared with K3 (fused_wide.cu) and K4
 // (fused_ab.cu).
 //
+// The library also carries hll_regs (hll.cuh): pass A's HyperLogLog
+// registers of float32 lanes, hashed on the card from the same batch, one
+// launch a batch after K1's, so set-up loads no other module for it.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast math: the
 // statistics count NaN, +-inf and denormals exactly; no flush to zero, no
 // single-pass TF32).
 
 #include "gram.cuh"
+#include "hll.cuh"
 
 // One pass-A batch: four launches on ``stream``, returns cudaGetLastError().
 // Scratch: psums (C*stat_splits*8 f32), pcounts (C*stat_splits*4 i32),
@@ -73,3 +78,16 @@ extern "C" int tpt_fused_a(const float* xt, const uint8_t* row_valid,
                    partial, P, S1, S2, N, st);
   return (int)cudaGetLastError();
 }
+
+// One batch's HyperLogLog observations of K float32 lanes (lanes: K pairs
+// of numeric lane, hash lane) folded into regs (n_hash, 2^p) int32 in
+// place: one launch on ``stream``, returns cudaGetLastError().
+extern "C" int tpt_hll_regs(const float* xt, const uint8_t* row_valid,
+                            const int* lanes, int K, int64_t R, int p,
+                            int* regs, void* stream) {
+  tpt::launch_hll_regs(xt, row_valid, lanes, K, R, p, regs,
+                       static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpt_hll_max_precision() { return tpt::HLL_MAX_PRECISION; }

@@ -26,6 +26,12 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
   ``_fused_ab_tiles``), up to ``MAX_FUSED_AB_COLS`` columns, bit for bit
   K1 followed by K2.
 
+* :func:`hll_regs` folds one batch's HyperLogLog observations of some
+  float32 lanes into the pass-A registers, hashing each value of ``xt`` as
+  the host's ingest would (``native/hash.cpp``): kernel ``hll_regs``
+  (``csrc/hll.cuh``, built into K1's library; it replaces no TPU kernel,
+  the reference hashes on the host), bit for bit the host's registers.
+
 * :func:`update_xla`, the reference's XLA twin (``moments.update`` then
   ``corr.update``: PyTorch calls, no kernel), folds tables wider than
   ``MAX_FUSED_COLS_WIDE`` columns, and :func:`spearman_update_exact`
@@ -34,8 +40,8 @@ against the reference; on the card only ``chip_smoke.py`` runs them):
 
 All return the reference's state dicts, so merge and finalize never care
 which ran.  ``launches``, ``launches_wide``, ``launches_spear``,
-``launches_rank`` and ``launches_ab`` count the launches of K1, K3, K5, K6
-and K4.
+``launches_rank``, ``launches_ab`` and ``launches_hll`` count the launches
+of K1, K3, K5, K6, K4 and ``hll_regs``.
 
 :func:`observe_dispatch` wraps each device fold the runner makes
 (``runtime/runner.py``): it counts the dispatch and, for every Nth one
@@ -72,6 +78,7 @@ launches_wide = 0       # K3
 launches_spear = 0      # K5
 launches_rank = 0       # K6
 launches_ab = 0         # K4
+launches_hll = 0        # hll_regs
 # the counts are read-modify-writes: serve workers launch from two threads
 _count_lock = threading.Lock()
 
@@ -316,6 +323,56 @@ def spearman_update_wide_plain(co: Dict[str, torch.Tensor],
     return _fold_corr(co, *tiles[2:])
 
 
+
+_U64 = 1 << 64
+# native/hash.cpp::splitmix's constants as int64 bit patterns
+_SPLITMIX_ADD = 0x9E3779B97F4A7C15 - _U64
+_SPLITMIX_M1 = 0xBF58476D1CE4E5B9 - _U64
+_SPLITMIX_M2 = 0x94D049BB133111EB - _U64
+
+
+def _srl(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (``>>`` is arithmetic)."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def _splitmix(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64 of int64 bit patterns, wrapping as uint64 does."""
+    z = z + _SPLITMIX_ADD
+    z = (z ^ _srl(z, 30)) * _SPLITMIX_M1
+    z = (z ^ _srl(z, 27)) * _SPLITMIX_M2
+    return z ^ _srl(z, 31)
+
+
+def hll_regs_plain(regs: torch.Tensor, xt: torch.Tensor,
+                   row_valid: torch.Tensor, lanes: torch.Tensor
+                   ) -> torch.Tensor:
+    """What ``hll_regs`` does, in plain PyTorch: the float32 bits of each
+    valid, non-NaN value of the lanes ``lanes[:, 0]`` (-0.0 as +0.0),
+    widened to 64 bits, splitmix64-hashed and packed as
+    ``kernels.hll.pack`` packs, max-folded into rows ``lanes[:, 1]`` of
+    ``regs`` in place."""
+    n_hash, m = regs.shape
+    p = m.bit_length() - 1
+    if lanes.shape[0] == 0 or xt.shape[1] == 0:
+        return regs
+    bits = xt.index_select(0, lanes[:, 0].long()).view(torch.int32).to(
+        torch.int64) & 0xFFFFFFFF
+    mag = bits & 0x7FFFFFFF
+    ok = row_valid[None, :] & (mag <= 0x7F800000)
+    h = _splitmix(torch.where(mag == 0, 0, bits))
+    idx = _srl(h, 64 - p)
+    b = (_srl(h, 32 - p) & 0xFFFFFFFF) | 1
+    # clz32 through the exact float64 log2 of a uint32 (kernels.hll.pack)
+    rho = (32 - torch.floor(torch.log2(b.to(torch.float64))).to(torch.int64)
+           ).clamp(1, 31)
+    ids = torch.where(ok, lanes[:, 1:2].long() * m + idx, n_hash * m)
+    flat = torch.zeros((n_hash * m + 1,), dtype=_I32, device=regs.device)
+    flat.scatter_reduce_(0, ids.reshape(-1), rho.reshape(-1).to(_I32),
+                         reduce="amax")
+    return torch.maximum(regs, flat[:-1].view(n_hash, m), out=regs)
+
+
 # ---------------------------------------------------------------------------
 # kernels K1, K3, K5, K6, K4
 # ---------------------------------------------------------------------------
@@ -338,6 +395,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tpt_fused_a.argtypes = [p, p, p, i32, i64, i32, i64, i32, i64,
                                 p, p, p, p, p, p, p, p, p, p]
     lib.tpt_fused_a.restype = ctypes.c_int
+    lib.tpt_hll_regs.argtypes = [p, p, p, i32, i64, i32, p, p]
+    lib.tpt_hll_regs.restype = ctypes.c_int
+    lib.tpt_hll_max_precision.argtypes = []
+    lib.tpt_hll_max_precision.restype = ctypes.c_int
+    from tpuprof_torch.kernels.hll import MAX_PRECISION
+    if lib.tpt_hll_max_precision() != MAX_PRECISION:
+        raise RuntimeError("hll.cuh HLL_MAX_PRECISION disagrees with "
+                           "tpuprof_torch.kernels.hll.MAX_PRECISION")
 
 
 def _bind_wide(lib: ctypes.CDLL) -> None:
@@ -499,6 +564,52 @@ def tiles_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
         launches += 1
     _k.check(status, "fused_a (K1)", lib)
     return sums, counts, P, S1, S2, N
+
+
+def _check_hll(regs, xt, row_valid, lanes) -> None:
+    from tpuprof_torch.kernels.hll import MAX_PRECISION
+    if xt.dtype != _F32 or xt.dim() != 2 or not xt.is_contiguous():
+        raise ValueError("xt must be a contiguous (cols, rows) float32 "
+                         f"tensor, got {xt.dtype} {tuple(xt.shape)}")
+    R = xt.shape[1]
+    if row_valid.dtype != torch.bool or tuple(row_valid.shape) != (R,) \
+            or not row_valid.is_contiguous():
+        raise ValueError(f"row_valid must be a contiguous ({R},) bool "
+                         "tensor")
+    if lanes.dtype != _I32 or lanes.dim() != 2 or lanes.shape[1] != 2 \
+            or not lanes.is_contiguous():
+        raise ValueError("lanes must be a contiguous (K, 2) int32 tensor "
+                         "of (numeric lane, hash lane) pairs")
+    m = regs.shape[1] if regs.dim() == 2 else 0
+    if regs.dtype != _I32 or regs.dim() != 2 or not regs.is_contiguous() \
+            or m & (m - 1) or not 2 <= m <= 1 << MAX_PRECISION:
+        raise ValueError("regs must be contiguous (n_hash, 2^p) int32 "
+                         f"registers with 1 <= p <= {MAX_PRECISION}")
+    if len({t.device for t in (regs, xt, row_valid, lanes)}) != 1:
+        raise ValueError("regs, xt, row_valid and lanes must share a device")
+
+
+def hll_regs_cuda(regs: torch.Tensor, xt: torch.Tensor,
+                  row_valid: torch.Tensor, lanes: torch.Tensor
+                  ) -> torch.Tensor:
+    """Launch ``hll_regs`` on the current stream (K1's library); the
+    registers are raised in place, as :func:`hll_regs_plain` does."""
+    global launches_hll
+    _check_hll(regs, xt, row_valid, lanes)
+    _need_cuda(xt, "hll_regs_cuda")
+    K, R = lanes.shape[0], xt.shape[1]
+    if K == 0 or R == 0:
+        return regs
+    lib = _k.library("fused_a", _bind)
+    dev = xt.device
+    with torch.cuda.device(dev):
+        status = lib.tpt_hll_regs(
+            xt.data_ptr(), row_valid.data_ptr(), lanes.data_ptr(), K, R,
+            regs.shape[1].bit_length() - 1, regs.data_ptr(), _stream(dev))
+    with _count_lock:
+        launches_hll += 1
+    _k.check(status, "hll_regs", lib)
+    return regs
 
 
 def tiles_wide_cuda(xt: torch.Tensor, row_valid: torch.Tensor,
@@ -703,6 +814,21 @@ def update(mom: Dict[str, torch.Tensor], co: Dict[str, torch.Tensor],
         return _fold_mom(mom, tiles[0], tiles[1]), _fold_corr(co, *tiles[2:])
     _cpu_only(xt, "pass-A")
     return update_plain(mom, co, xt, row_valid)
+
+
+def hll_regs(regs: torch.Tensor, xt: torch.Tensor, row_valid: torch.Tensor,
+             lanes: torch.Tensor) -> torch.Tensor:
+    """Fold one batch's HyperLogLog observations of the float32 lanes
+    ``lanes`` ((K, 2) int32: numeric lane in ``xt``, hash lane in
+    ``regs``) into ``regs`` (n_hash, 2^p) int32, in place, and return
+    them: kernel ``hll_regs`` for a CUDA tensor, the plain version for a
+    CPU tensor.  The caller names float32 lanes only, in range: their
+    registers are then the host ingest's bit for bit."""
+    _check_hll(regs, xt, row_valid, lanes)
+    if xt.is_cuda:
+        return hll_regs_cuda(regs, xt, row_valid, lanes)
+    _cpu_only(xt, "hll_regs")
+    return hll_regs_plain(regs, xt, row_valid, lanes)
 
 
 @contextlib.contextmanager

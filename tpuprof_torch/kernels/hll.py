@@ -2,22 +2,72 @@
 
 Counterpart of ``tpuprof/kernels/hll.py``.  Hashes are computed on the host
 during ingest and packed one uint16 per cell, ``(register_index << 5) | rho``,
-0 meaning null or padding.  Registers are (cols, 2^p) int32 and merge by
-elementwise max.  ``pack``, ``HostRegisters`` and ``finalize`` are numpy
-copies of the reference (bit-identical registers and estimates); ``update``
-is the device scatter-max, used when the native host fold is unavailable.
+0 meaning null or padding; except that in pass A of a GPU profile on a CUDA
+runner without ``exact_distinct`` (and with the native hash library, so the
+host's hashes are splitmix64's), the float32 lanes are hashed and folded on
+the card from the batch kernel K1 reads (``fused.hll_regs``), with the same
+key, hash, pack and fold.  Registers are (cols, 2^p) int32 and merge by
+elementwise max; a lane's registers are the reference's bit for bit
+whichever route made them, so host and device registers (one profile's,
+or another process's) combine by max with no remapping.  ``pack``,
+``HostRegisters`` and ``finalize`` are numpy copies of the reference
+(bit-identical registers and estimates); ``update`` is the device
+scatter-max, used when the native host fold is unavailable.
+
+:func:`record_routes` counts the lanes each profile routes each way
+(``lanes_device``, ``lanes_host``, and ``tpuprof_hll_lanes_total{route}``
+with metrics on).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tpuprof_torch.obs import metrics as _obs_metrics
+
 RHO_BITS = 5
 RHO_MAX = 31          # 5-bit field; 0 is the invalid marker
 MAX_PRECISION = 11    # idx (11) + rho (5) = 16 bits
+
+_LANES = _obs_metrics.counter(
+    "tpuprof_hll_lanes_total",
+    "hash lanes whose pass-A HyperLogLog observations a profile made, by "
+    "route: device (float32 lanes hashed on the card, fused.hll_regs) or "
+    "host (the prepare pool)")
+lanes_device = 0        # lanes profiles in this process hashed on the card
+lanes_host = 0          # ... and on the host
+_count_lock = threading.Lock()
+
+
+def record_routes(device: int, host: int) -> None:
+    """Count one profile's lanes by route (once a profile)."""
+    global lanes_device, lanes_host
+    with _count_lock:
+        lanes_device += device
+        lanes_host += host
+    for route, n in (("device", device), ("host", host)):
+        if n:
+            _LANES.inc(n, route=route)
+
+
+def lane_runs(n_hash: int, skip: Sequence[int]) -> List[Tuple[int, int]]:
+    """The ``[lo, hi)`` runs of hash lanes ``0..n_hash`` not in
+    ``skip``: the lanes a host fold covers when ``skip`` hash on the
+    device."""
+    skip = set(skip)
+    runs: List[Tuple[int, int]] = []
+    for lane in range(n_hash):
+        if lane in skip:
+            continue
+        if runs and runs[-1][1] == lane:
+            runs[-1] = (runs[-1][0], lane + 1)
+        else:
+            runs.append((lane, lane + 1))
+    return runs
 
 
 def init(n_cols: int, precision: int, device="cpu") -> torch.Tensor:
@@ -82,19 +132,27 @@ class HostRegisters:
     def __init__(self, n_cols: int, precision: int):
         self.regs = np.zeros((n_cols, 1 << precision), dtype=np.int32)
 
-    def update(self, packed: np.ndarray, nrows: int) -> None:
+    def update(self, packed: np.ndarray, nrows: int,
+               runs: Optional[Sequence[Tuple[int, int]]] = None) -> None:
+        """Fold the first ``nrows`` rows of a (rows, n_hash) packed plane;
+        ``runs`` (:func:`lane_runs`) limits the fold to those lanes (the
+        others hash on the device and stay 0 in the plane)."""
         from tpuprof_torch import native
-        obs = packed[:nrows]
-        if obs.size == 0:
-            return
-        if not native.hll_update(self.regs, obs):
-            p32 = obs.astype(np.int32)
-            idx = p32 >> RHO_BITS
-            rho = p32 & RHO_MAX
-            m = self.regs.shape[1]
-            for c in range(self.regs.shape[0]):
-                ok = (p32[:, c] != 0) & (idx[:, c] < m)
-                np.maximum.at(self.regs[c], idx[ok, c], rho[ok, c])
+        if runs is None:
+            runs = [(0, self.regs.shape[0])]
+        for lo, hi in runs:
+            obs = packed[:nrows, lo:hi]
+            if obs.size == 0:
+                continue
+            regs = self.regs[lo:hi]
+            if not native.hll_update(regs, obs):
+                p32 = obs.astype(np.int32)
+                idx = p32 >> RHO_BITS
+                rho = p32 & RHO_MAX
+                m = regs.shape[1]
+                for c in range(regs.shape[0]):
+                    ok = (p32[:, c] != 0) & (idx[:, c] < m)
+                    np.maximum.at(regs[c], idx[ok, c], rho[ok, c])
 
     def merge(self, other: "HostRegisters") -> "HostRegisters":
         np.maximum(self.regs, other.regs, out=self.regs)

@@ -52,6 +52,10 @@ class Replicated(list):
 class MeshRunner:
     """The per-pass folds of one profile, row-sharded over ``devices``."""
 
+    # a mesh profile hashes every lane on the host: its batches carry no
+    # lane map for ``fused.hll_regs``
+    hashes_on_device = False
+
     def __init__(self, config, n_num: int, n_hash: int,
                  devices: Sequence[Any]):
         devs = [torch.device(d) for d in devices]
@@ -82,14 +86,23 @@ class MeshRunner:
         r = self.shard_rows
         return [arr[..., d * r:(d + 1) * r] for d in range(self.n_dev)]
 
-    def put_batch(self, hb, with_hll: bool = True) -> List[DeviceBatch]:
+    @staticmethod
+    def _no_lanes(hll_lanes) -> None:
+        if hll_lanes is not None:
+            raise ValueError("a mesh profile hashes every lane on the host "
+                             "(hashes_on_device is False)")
+
+    def put_batch(self, hb, with_hll: bool = True,
+                  hll_lanes=None) -> List[DeviceBatch]:
+        self._no_lanes(hll_lanes)
         xt, rv, ht = self.runners[0]._host_views(hb, with_hll)
         return [DeviceBatch(r._ship(x), r._ship(v), r._ship(h))
                 for r, x, v, h in zip(self.runners, self._blocks(xt),
                                       self._blocks(rv), self._blocks(ht))]
 
-    def stage_batches(self, hbs: List, with_hll: bool = True
-                      ) -> List[StackedBatch]:
+    def stage_batches(self, hbs: List, with_hll: bool = True,
+                      hll_lanes=None) -> List[StackedBatch]:
+        self._no_lanes(hll_lanes)
         views = [self.runners[0]._host_views(hb, with_hll) for hb in hbs]
         planes = [np.stack([v[i] for v in views]) for i in range(3)]
         blocks = [self._blocks(p) for p in planes]

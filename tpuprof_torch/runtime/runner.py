@@ -11,7 +11,11 @@ columns), past that on the reference's exact tier (``searchsorted`` ranks in
 the sorted row sample, then ``corr.update``).  A single-pass profile folds
 the pass-A and pass-B states from one shipped batch (``step_ab`` /
 ``scan_ab``): kernel K4 up to 512 columns and 8,192 bins, else pass A's
-route then K2 on the same batch (the reference's paired dispatch).  The
+route then K2 on the same batch (the reference's paired dispatch).  A
+batch shipped with a lane map (``hll_lanes``) also has those float32
+lanes' HyperLogLog observations hashed into the pass-A registers on the
+device, after the pass-A kernel (``fused.hll_regs``, in place): the lanes
+the host ingest left unhashed (``ingest/arrow.py``).  The
 tiers are the reference's (``mesh.py``: ``use_fused``, ``spear_grid``,
 ``_ab_combined_kernel``).  States are dicts of tensors with the
 reference's keys, so the merge laws and finalizers carry over.
@@ -65,6 +69,9 @@ class DeviceBatch(NamedTuple):
     xt: torch.Tensor          # (n_num, rows) float32, contiguous
     row_valid: torch.Tensor   # (rows,) bool
     hllt: torch.Tensor        # (n_hash, rows) int16 bits of the uint16 plane
+    # (K, 2) int32 (numeric lane, hash lane) on the device: the float32
+    # lanes whose observations hash on the device (None: none)
+    hll_lanes: Optional[torch.Tensor] = None
 
 
 class StackedBatch(NamedTuple):
@@ -72,6 +79,7 @@ class StackedBatch(NamedTuple):
     row_valids: torch.Tensor  # (S, rows)
     hllts: torch.Tensor       # (S, n_hash, rows)
     n_batches: int
+    hll_lanes: Optional[torch.Tensor] = None    # as DeviceBatch's
 
 
 class Runner:
@@ -95,6 +103,12 @@ class Runner:
             and self.bins <= hist.SHARED_MAX_BINS
         self._pin = self.device.type == "cuda"
 
+    @property
+    def hashes_on_device(self) -> bool:
+        """Whether a profile hashes its float32 lanes into the registers
+        on this runner's device (``fused.hll_regs``): on a CUDA device."""
+        return self.device.type == "cuda"
+
     # -- host -> device ------------------------------------------------------
 
     def _host_views(self, hb, with_hll: bool):
@@ -116,13 +130,18 @@ class Runner:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def put_batch(self, hb, with_hll: bool = True) -> DeviceBatch:
+    def put_batch(self, hb, with_hll: bool = True,
+                  hll_lanes: Optional[torch.Tensor] = None) -> DeviceBatch:
         """Ship one HostBatch (``with_hll=False`` skips the packed plane:
-        pass B and host-side register folds never read it)."""
+        pass B and host-side register folds never read it).  ``hll_lanes``
+        (:meth:`put_hll_lanes`) names the float32 lanes the pass-A fold
+        hashes on the device."""
         xt, rv, ht = self._host_views(hb, with_hll)
-        return DeviceBatch(self._ship(xt), self._ship(rv), self._ship(ht))
+        return DeviceBatch(self._ship(xt), self._ship(rv), self._ship(ht),
+                           hll_lanes)
 
-    def stage_batches(self, hbs: List, with_hll: bool = True
+    def stage_batches(self, hbs: List, with_hll: bool = True,
+                      hll_lanes: Optional[torch.Tensor] = None
                       ) -> StackedBatch:
         """Ship several HostBatches as one stacked copy per plane."""
         views = [self._host_views(hb, with_hll) for hb in hbs]
@@ -130,7 +149,17 @@ class Runner:
             self._ship(np.stack([v[0] for v in views])),
             self._ship(np.stack([v[1] for v in views])),
             self._ship(np.stack([v[2] for v in views])),
-            len(hbs))
+            len(hbs), hll_lanes)
+
+    def put_hll_lanes(self, pairs) -> torch.Tensor:
+        """The (K, 2) int32 map of (numeric lane, hash lane) pairs on the
+        device, once a profile, after checking each lane is in range."""
+        arr = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+        if ((arr < 0) | (arr >= np.array([self.n_num, self.n_hash]))).any():
+            raise ValueError(f"hll lane pairs {arr.tolist()} out of range "
+                             f"for {self.n_num} numeric and {self.n_hash} "
+                             "hash lanes")
+        return self.put_replicated(arr, dtype=np.int32)
 
     def put_replicated(self, arr, dtype=np.float32) -> torch.Tensor:
         """A small per-column constant (shift, bounds, the exact rank
@@ -179,6 +208,15 @@ class Runner:
         return {"mom": mom, "corr": co,
                 "hll": hll.update(state["hll"], hllt.T)}
 
+    @staticmethod
+    def _hash_a(state: State, xt, row_valid, hll_lanes) -> State:
+        """After a batch's pass-A fold: the lanes ``hll_lanes`` hashed
+        into the state's registers on the device (``fused.hll_regs``, in
+        place); no launch without a lane map."""
+        if hll_lanes is not None:
+            fused.hll_regs(state["hll"], xt, row_valid, hll_lanes)
+        return state
+
     def _fold_b(self, state: State, xt, row_valid, lo, hi, mean,
                 lanes=None) -> State:
         """K2 over ``xt``, or over its rows ``lanes`` (a device index
@@ -209,7 +247,8 @@ class Runner:
 
     def step_a(self, state: State, db: DeviceBatch) -> State:
         with fused.observe_dispatch("step_a", self.device):
-            return self._fold_a(state, db.xt, db.row_valid, db.hllt)
+            state = self._fold_a(state, db.xt, db.row_valid, db.hllt)
+            return self._hash_a(state, db.xt, db.row_valid, db.hll_lanes)
 
     def scan_a(self, state: State, sb: StackedBatch) -> State:
         with fused.observe_dispatch("scan_a", self.device,
@@ -217,6 +256,8 @@ class Runner:
             for i in range(sb.n_batches):
                 state = self._fold_a(state, sb.xts[i], sb.row_valids[i],
                                      sb.hllts[i])
+                state = self._hash_a(state, sb.xts[i], sb.row_valids[i],
+                                     sb.hll_lanes)
         return state
 
     def step_b(self, state: State, db: DeviceBatch, lo, hi, mean,
@@ -243,8 +284,11 @@ class Runner:
         profile).  Returns ``(state, state_h)``."""
         with fused.observe_dispatch("step_ab", self.device,
                                     kernel=self.pass_b_kernel):
-            return self._fold_ab(state, state_h, db.xt, db.row_valid,
-                                 db.hllt, lo, hi, mean)
+            state, state_h = self._fold_ab(state, state_h, db.xt,
+                                           db.row_valid, db.hllt, lo, hi,
+                                           mean)
+            return (self._hash_a(state, db.xt, db.row_valid, db.hll_lanes),
+                    state_h)
 
     def scan_ab(self, state: State, state_h: State, sb: StackedBatch, lo,
                 hi, mean):
@@ -256,6 +300,8 @@ class Runner:
                 state, state_h = self._fold_ab(
                     state, state_h, sb.xts[i], sb.row_valids[i],
                     sb.hllts[i], lo, hi, mean)
+                state = self._hash_a(state, sb.xts[i], sb.row_valids[i],
+                                     sb.hll_lanes)
         return state, state_h
 
     def _fold_spearman(self, state: State, xt, row_valid, grid) -> State:
