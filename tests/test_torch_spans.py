@@ -142,6 +142,9 @@ def test_only_the_profiling_thread_marks_the_trace(tmp_path):
 
 def test_quiet_span_times_and_marks_but_is_off_the_stack():
     spans.get_phase_report(reset=True)
+    # the flight recorder is process-wide: an earlier test's loud "inner"
+    # span would read as this quiet one's event
+    obs.blackbox.box().clear()
     marked = []
 
     class Mark:

@@ -44,8 +44,11 @@ the scans, quiet spans a batch or a staged group: ``wait_*`` (the next
 prepared batch), ``sampler_a``, ``hll_host_a``, ``hostagg_a`` and
 ``recount_b`` (the host folds), ``stage_*`` (stacking, pinning, the
 copy's enqueue), ``launch_*`` (the kernels' launches, and pass A's state
-set-up) and ``drain_b``.  No name but the scans' starts with ``scan``:
-the report footer's rows/s sums those.
+set-up) and ``drain_b``; after ``merge`` and inside ``assemble``, the
+quiet span ``corr_host`` (the Pearson matrix's host work, which grows with
+the square of the numeric columns: ``kcorr.finalize`` of pass A's Gram,
+the (C, C) frame and ``schema.reject_by_correlation``).  No name but the
+scans' starts with ``scan``: the report footer's rows/s sums those.
 
 With ``checkpoint_path`` set, pass A saves its fold state every
 ``checkpoint_every_batches`` batches (:class:`CollectCheckpoint`), and a
@@ -1096,7 +1099,8 @@ class GPUStatsBackend:
             if bounds_d is not None:
                 exact = singlepass.exact_triple(bounds_d)
         momf = kmoments.finalize(res_a["mom"])
-        rho_all = kcorr.finalize(res_a["corr"])
+        with span("corr_host", quiet=True):
+            rho_all = kcorr.finalize(res_a["corr"])
         probes = list(config.quantile_probes)
         quants = sampler.quantiles(probes)
         sample_vals, sample_kept = sampler.columns()
@@ -1528,11 +1532,12 @@ def _assemble(plan, config, sample_df, hostagg, momf, rho_all, quants,
                  if s.role == "num" and kinds[s.name] == schema.NUM]
     num_names = [s.name for s in num_specs]
     lanes = [s.num_lane for s in num_specs]
-    corr_df = pd.DataFrame(rho_all[np.ix_(lanes, lanes)],
-                           index=num_names, columns=num_names) \
-        if len(lanes) >= 2 else pd.DataFrame()
-    rejected = schema.reject_by_correlation(corr_df, num_names, config) \
-        if len(lanes) >= 2 else {}
+    with span("corr_host", quiet=True):
+        corr_df = pd.DataFrame(rho_all[np.ix_(lanes, lanes)],
+                               index=num_names, columns=num_names) \
+            if len(lanes) >= 2 else pd.DataFrame()
+        rejected = schema.reject_by_correlation(corr_df, num_names, config) \
+            if len(lanes) >= 2 else {}
     for name in rejected:
         kinds[name] = schema.CORR
 

@@ -22,7 +22,12 @@ accumulate under the span's leaf name.
 ``span(name, quiet=True)``, for stages that run once a batch, keeps the
 first and last of those (the phase total and the trace's range) and
 drops the rest, so a profile's hundreds of them flood neither the flight
-recorder's ring nor a JSONL sink; it is not on the nesting stack.
+recorder's ring nor a JSONL sink; it is not on the nesting stack.  A
+profile's quiet spans (``backends/gpu.py``) are ``wait_a``/``wait_b``,
+``sampler_a``, ``hll_host_a``, ``hostagg_a``, ``recount_b``,
+``stage_a``/``stage_b``, ``launch_a``/``launch_b``, ``drain_b`` and
+``corr_host`` (the Pearson matrix's host work after pass A's merge and in
+the assembly).
 :func:`add` adds thread-seconds measured elsewhere, from any thread, to
 the phase totals and never marks the trace: the benchmark names the
 card's idle time by the innermost range open on any thread, so only the
