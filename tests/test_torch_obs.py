@@ -141,7 +141,8 @@ EDGE_INSTRUMENTS = (
 # the lint's (analysis/__init__.py)
 LINT_INSTRUMENTS = ("tpuprof_lint_findings_total",)
 # the port's own, which the reference has not (tpuprof_torch/OBSERVABILITY.md)
-PORT_INSTRUMENTS = {"tpuprof_hll_lanes_total": "counter"}
+PORT_INSTRUMENTS = {"tpuprof_hll_lanes_total": "counter",
+                    "tpuprof_sample_rows_total": "counter"}
 
 
 def _reset_obs():

@@ -1,17 +1,46 @@
 """Host-side mergeable uniform row sample (bottom-k priority sampling).
 
-Copy of ``tpuprof/ingest/sample.py``. Keeping the global top-K of i.i.d.
-uniform row priorities over any partition of the stream is a uniform sample
-without replacement, so the merge is exact in distribution and sample
+Counterpart of ``tpuprof/ingest/sample.py``. Keeping the global top-K of
+i.i.d. uniform row priorities over any partition of the stream is a uniform
+sample without replacement, so the merge is exact in distribution and sample
 quantiles have rank error O(1/sqrt(K)). The RNG stream (seed, process,
-batch) matches the reference, so the same batches give the same sample.
+batch) matches the reference, so the same batches give the same sample,
+byte for byte and in the same row order.
+
+Unlike the reference, a fold decides the survivors from the priorities
+alone and then copies only their rows out of the batch: the first batch of
+a 65,536 x 2,000 F-ordered plane copies 4,096 rows, not the whole plane.
+:func:`record_rows` counts the rows offered and copied (``rows_offered``,
+``rows_copied``, and ``tpuprof_sample_rows_total{kind}`` with metrics on).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from tpuprof_torch.obs import metrics as _obs_metrics
+
+_ROWS = _obs_metrics.counter(
+    "tpuprof_sample_rows_total",
+    "batch rows offered to the row sampler (kind=offered) and copied out "
+    "of the batch into the sample (kind=copied)")
+rows_offered = 0        # batch rows samplers in this process were offered
+rows_copied = 0         # ... and copied out of their batches
+_count_lock = threading.Lock()
+
+
+def record_rows(offered: int, copied: int) -> None:
+    """Count one fold's rows (once an ``update``)."""
+    global rows_offered, rows_copied
+    with _count_lock:
+        rows_offered += offered
+        rows_copied += copied
+    for kind, n in (("offered", offered), ("copied", copied)):
+        if n:
+            _ROWS.inc(n, kind=kind)
 
 
 class RowSampler:
@@ -36,35 +65,44 @@ class RowSampler:
             (self.seed, self.process_index, self.step))
         self.step += 1
         prio = rng.random(nrows)
+        rows = None                          # every row is a candidate
         if self.prio.size >= self.k:
             # only candidates that beat the current kth priority can enter
-            tau = self.prio.min()
-            cand = prio > tau
-            if not cand.any():
+            rows = np.flatnonzero(prio > self.prio.min())
+            if not rows.size:
+                record_rows(nrows, 0)
                 return
-            rows = np.ascontiguousarray(x[:nrows][cand])
-            prio = prio[cand]
-        else:
-            rows = np.ascontiguousarray(x[:nrows])
-        self.values = np.concatenate([self.values, rows], axis=0)
-        self.prio = np.concatenate([self.prio, prio])
-        if self.prio.size > self.k:
-            self._compact()
+            prio = prio[rows]
+        record_rows(nrows, self._fold(x[:nrows], rows, prio))
 
-    def _compact(self) -> None:
-        idx = np.argpartition(self.prio, -self.k)[-self.k:]
-        self.values = np.ascontiguousarray(self.values[idx])
-        self.prio = self.prio[idx]
+    def _fold(self, x: np.ndarray, rows: Optional[np.ndarray],
+              prio: np.ndarray) -> int:
+        """Keep the top-k of the sample's priorities and ``prio``, the
+        priorities of ``x``'s rows ``rows`` (all of them for None), in the
+        order concatenating both and running ``argpartition`` gives.  Only
+        the kept rows are copied out of ``x``; returns how many."""
+        n_old = self.prio.size
+        p = np.concatenate([self.prio, prio])
+        keep = np.argpartition(p, -self.k)[-self.k:] if p.size > self.k \
+            else np.arange(p.size)
+        new = keep >= n_old
+        src = keep[new] - n_old
+        if rows is not None:
+            src = rows[src]
+        values = np.empty((keep.size, self.n_num),
+                          np.result_type(self.values.dtype, x.dtype))
+        values[~new] = self.values[keep[~new]]
+        values[new] = x[src]
+        self.values = values
+        self.prio = p[keep]
+        return src.size
 
     # -- merge (the commutative-monoid law; tests/test_sample.py) ----------
 
     def merge(self, other: "RowSampler") -> "RowSampler":
         if other.n_num != self.n_num:
             raise ValueError("cannot merge samplers over different schemas")
-        self.values = np.concatenate([self.values, other.values], axis=0)
-        self.prio = np.concatenate([self.prio, other.prio])
-        if self.prio.size > self.k:
-            self._compact()
+        self._fold(other.values, None, other.prio)
         return self
 
     # -- finalize ----------------------------------------------------------
