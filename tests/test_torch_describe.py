@@ -178,6 +178,38 @@ def test_adversarial_numeric_table_matches_reference():
                                                 abs=1e-6), (name, fld)
 
 
+def test_table_without_numeric_lanes_recounts_like_reference():
+    """String and boolean columns only: the second scan is the top-k
+    recount alone (no histogram, no rank state ships), and its top counts
+    and distinct counts equal the reference's."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    words = np.array([f"w{i:03d}" for i in range(400)])
+    df = pd.DataFrame({
+        "word": words[np.minimum(rng.zipf(1.3, n), 400) - 1],
+        "vendor": rng.choice(["CMT", "VTS", "DDS"], n, p=[0.5, 0.4, 0.1]),
+        "flag": rng.random(n) < 0.3,
+    })
+    df.loc[rng.choice(n, 150, replace=False), "vendor"] = None
+    # a Misra-Gries summary smaller than the distinct words: only the
+    # recount makes the top counts exact
+    ref = TPUStatsBackend().collect(
+        df, RefConfig(backend="tpu", batch_rows=256, topk_capacity=64))
+    port = tpuprof_torch.describe(df, device="cpu", batch_rows=256,
+                                  scan_batches=4, topk_capacity=64)
+    assert "scan_b" in port["_phases"]
+    assert list(port["variables"]) == list(ref["variables"])
+    for name, rv in ref["variables"].items():
+        pv = port["variables"][name]
+        assert pv["type"] == rv["type"], name
+        for fld in ("count", "n_missing", "distinct_count", "is_unique"):
+            assert pv[fld] == rv[fld], (name, fld)
+    assert set(port["freq"]) == set(ref["freq"]) and ref["freq"]
+    for name, rf in ref["freq"].items():
+        pd.testing.assert_series_equal(port["freq"][name].sort_index(),
+                                       rf.sort_index(), check_names=False)
+
+
 def test_staged_scan_bit_equal_to_per_batch(fixture_df):
     """scan_batches=3 (one staged group of 3 + a per-batch tail of 1) gives
     the same bits as per-batch folding."""

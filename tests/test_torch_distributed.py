@@ -63,17 +63,17 @@ def _fold(kind, x, rv, shift):
     if kind == "a":
         st = runner._fold_a(runner.init_pass_a(shift), xt, rvt,
                             torch.zeros((0, x.shape[1]), dtype=torch.int16))
-        return runner.finalize_a(st)
+        return runner.finalize(st)
     if kind == "b":
         lo = torch.full((C,), 0.0)
         hi = torch.full((C,), 20.0)
         mean = torch.full((C,), 10.0)
-        return runner.finalize_b(runner._fold_b(runner.init_pass_b(), xt,
-                                                rvt, lo, hi, mean))
+        return runner.finalize(runner._fold_b(runner.init_pass_b(), xt,
+                                              rvt, lo, hi, mean))
     grid = torch.from_numpy(np.sort(
         np.random.default_rng(1).normal(10, 3, (C, 64)).astype(np.float32),
         axis=1))
-    return runner.finalize_spearman(runner._fold_spearman(
+    return runner.finalize(runner._fold_spearman(
         runner.init_spearman(), xt, rvt, grid))
 
 

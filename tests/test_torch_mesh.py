@@ -88,16 +88,22 @@ def test_batches_split_into_the_data_blocks(df):
                       plan.n_hash, ["cpu", "cpu"])
     rb = next(ingest.raw_batches())
     hb = prepare_batch(rb, plan, mesh.rows, 11)
-    shards = mesh.put_batch(hb)
+    shards = mesh.ship([hb])
     xt = np.ascontiguousarray(hb.x.T)
-    for d, db in enumerate(shards):
+    for d, g in enumerate(shards):
         block = slice(d * 128, (d + 1) * 128)
-        np.testing.assert_array_equal(db.xt.numpy(), xt[:, block])
-        np.testing.assert_array_equal(db.row_valid.numpy(),
+        assert g.n_batches == 1
+        np.testing.assert_array_equal(g.xts[0].numpy(), xt[:, block])
+        np.testing.assert_array_equal(g.row_valids[0].numpy(),
                                       hb.row_valid[block])
-    staged = mesh.stage_batches([hb, hb])
-    assert [tuple(s.xts.shape) for s in staged] == \
+    staged = mesh.ship([hb, hb])
+    assert [tuple(g.xts.shape) for g in staged] == \
         [(2, plan.n_num, 128)] * 2
+    for d, g in enumerate(staged):
+        block = slice(d * 128, (d + 1) * 128)
+        assert g.n_batches == 2
+        for i in range(2):
+            np.testing.assert_array_equal(g.xts[i].numpy(), xt[:, block])
 
 
 def test_mesh_devices_cuts_the_list():

@@ -24,10 +24,10 @@ from tpuprof.backends.tpu import TPUStatsBackend
 from tpuprof.ingest.sample import RowSampler as RefSampler
 from tpuprof.kernels import corr as ref_corr
 from tpuprof.kernels import fused as ref_fused
-from tpuprof_torch.backends.gpu import spearman_grid
 from tpuprof_torch.config import MAX_SPEAR_GRID, ProfilerConfig
 from tpuprof_torch.ingest.sample import RowSampler
 from tpuprof_torch.kernels import corr, fused
+from tpuprof_torch.runtime.runner import spearman_grid
 from torch_route import same_hash_route  # noqa: F401  (autouse)
 
 RHO_ATOL = 5e-4

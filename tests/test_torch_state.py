@@ -293,22 +293,42 @@ def test_runner_staged_and_per_batch_folds_give_same_bits():
             hll=np.zeros((256, 1), np.uint16, order="F"), cat_codes={},
             date_ints={}))
     shift = np.full(cols, 50.0, np.float32)
-    a = runner.scan_a(runner.init_pass_a(shift), runner.stage_batches(hbs))
+    a = runner.fold_a(runner.init_pass_a(shift), runner.ship(hbs))
     b = runner.init_pass_a(shift)
     for hb in hbs:
-        b = runner.step_a(b, runner.put_batch(hb))
+        b = runner.fold_a(b, runner.ship([hb]))
     for part in ("mom", "corr"):
         for k in a[part]:
             assert torch.equal(a[part][k], b[part][k]), (part, k)
     lo, hi, mean = runner.bounds_b_device(a)
-    sa = runner.scan_b(runner.init_pass_b(), runner.stage_batches(
+    sa = runner.fold_b(runner.init_pass_b(), runner.ship(
         hbs, with_hll=False), lo, hi, mean)
     sb = runner.init_pass_b()
     for hb in hbs:
-        sb = runner.step_b(sb, runner.put_batch(hb, with_hll=False),
+        sb = runner.fold_b(sb, runner.ship([hb], with_hll=False),
                            lo, hi, mean)
     assert torch.equal(sa["counts"], sb["counts"])
     assert torch.equal(sa["abs_dev"], sb["abs_dev"])
+
+
+def test_a_group_of_one_ships_views_and_a_group_of_two_stacks():
+    """A group of one adds no host copy: on the CPU its plane is the
+    batch's F-ordered ``x`` itself, transposed.  Two batches stack once."""
+    cols, rows = 4, 256
+    runner = Runner(ProfilerConfig(batch_rows=rows), cols, 1, "cpu")
+    x, rv = _batch(rows, cols, 45)
+    hb = port_arrow.HostBatch(
+        nrows=int(rv.sum()), x=np.asfortranarray(x), row_valid=rv,
+        hll=np.zeros((rows, 1), np.uint16, order="F"), cat_codes={},
+        date_ints={})
+    one = runner.ship([hb])
+    assert one.n_batches == 1 and tuple(one.xts.shape) == (1, cols, rows)
+    assert np.shares_memory(one.xts.numpy(), hb.x)
+    assert np.shares_memory(one.row_valids.numpy(), hb.row_valid)
+    two = runner.ship([hb, hb])
+    assert two.n_batches == 2 and tuple(two.xts.shape) == (2, cols, rows)
+    assert not np.shares_memory(two.xts.numpy(), hb.x)
+    np.testing.assert_array_equal(two.xts[1].numpy(), x.T)
 
 
 # ---------------------------------------------------------------------------
@@ -378,10 +398,10 @@ def test_spearman_fold_half_in_reference_half_in_port():
     st = state_from_numpy(stacked, "cpu")
     grid_d = runner.put_replicated(grid)
     for x, rv in batches[2:]:
-        st = runner.step_spearman_grid(
-            st, runner.put_batch(_host_batch(port_arrow, x, rv)), grid_d)
+        st = runner.fold_spearman(
+            st, runner.ship([_host_batch(port_arrow, x, rv)]), (grid_d,))
     np.testing.assert_array_equal(st["N"].numpy(), np.asarray(full["N"]))
-    _assert_rho(corr.finalize(runner.finalize_spearman(st)),
+    _assert_rho(corr.finalize(runner.finalize(st)),
                 ref_corr.finalize(jax.device_get(full)))
     again = state_from_numpy(state_to_numpy(st), "cpu")
     for k in st:
@@ -399,22 +419,25 @@ def test_runner_spearman_routes_by_width_and_stages_like_per_batch():
         sampler = RowSampler(4096, cols)
         for hb in hbs:
             sampler.update(hb.x[hb.row_valid], hb.nrows)
-        grid = runner.put_replicated(sampler.cdf_grid(32))
+        inputs = runner.spearman_inputs(sampler, 32, 3 * 128)
+        grid = inputs[0]
+        np.testing.assert_array_equal(grid.numpy(), sampler.cdf_grid(32))
         init = runner.init_spearman()
         assert torch.equal(init["shift"], torch.full((cols,), 0.5))
         assert int(init["set"]) == 1
-        a = runner.scan_spearman_grid(init, runner.stage_batches(
-            hbs, with_hll=False), grid)
+        a = runner.fold_spearman(init, runner.ship(hbs, with_hll=False),
+                                 inputs)
         b = runner.init_spearman()
         for hb in hbs:
-            b = runner.step_spearman_grid(b, runner.put_batch(
-                hb, with_hll=False), grid)
+            b = runner.fold_spearman(b, runner.ship([hb], with_hll=False),
+                                     inputs)
         for k in a:
             assert torch.equal(a[k], b[k]), (cols, k)
-        xt = torch.cat([runner.put_batch(hb).xt for hb in hbs], dim=1)
-        rv = torch.cat([runner.put_batch(hb).row_valid for hb in hbs])
+        g = runner.ship(hbs)
+        xt = torch.cat(list(g.xts), dim=1)
+        rv = torch.cat(list(g.row_valids))
         one = fused.spearman_update_plain(runner.init_spearman(), xt, rv,
                                           grid)
         np.testing.assert_array_equal(a["N"].numpy(), one["N"].numpy())
-        _assert_rho(corr.finalize(runner.finalize_spearman(a)),
+        _assert_rho(corr.finalize(runner.finalize(a)),
                     corr.finalize(one))

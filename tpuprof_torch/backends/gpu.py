@@ -81,8 +81,8 @@ import pyarrow as pa
 import torch
 
 from tpuprof_torch import _build, native, obs, schema
-from tpuprof_torch.config import (MAX_SPEAR_GRID, ProfilerConfig,
-                                  resolve_checkpoint_keep, resolve_elastic,
+from tpuprof_torch.config import (ProfilerConfig, resolve_checkpoint_keep,
+                                  resolve_elastic,
                                   resolve_fleet_dir, resolve_fleet_host_id,
                                   resolve_ingest_retries,
                                   resolve_liveness_timeout,
@@ -105,7 +105,6 @@ from tpuprof_torch.kernels import histogram as khistogram
 from tpuprof_torch.kernels import hll as khll
 from tpuprof_torch.kernels import moments as kmoments
 from tpuprof_torch.kernels import unique as kunique
-from tpuprof_torch.kernels.fused import MAX_FUSED_COLS_WIDE
 from tpuprof_torch.kernels.topk import MisraGries
 from tpuprof_torch.kernels.unique import UniqueTracker
 from tpuprof_torch.obs.spans import get_phase_report, span
@@ -148,22 +147,6 @@ def estimate_shift(hb: HostBatch) -> np.ndarray:
     cnt = finite.sum(axis=0)
     sums = np.where(finite, prefix, 0.0).sum(axis=0)
     return (sums / np.maximum(cnt, 1)).astype(np.float32)
-
-
-def spearman_grid(sampler: RowSampler, n_grid: int) -> np.ndarray:
-    """The (n_num, G) CDF grid of the Spearman rank pass, G clamped to
-    ``MAX_SPEAR_GRID`` with a warning.  Raises ``ValueError`` unless every
-    row is nondecreasing and free of NaN: the kernels rank by binary search,
-    which equals the reference's dense compare only on such a grid."""
-    g = min(n_grid, MAX_SPEAR_GRID)
-    if g < n_grid:
-        logger.warning("spearman_grid=%d clamped to %d: the rank kernels "
-                       "hold each column's grid in shared memory",
-                       n_grid, g)
-    grid = sampler.cdf_grid(g)
-    if np.isnan(grid).any() or (grid[:, 1:] < grid[:, :-1]).any():
-        raise ValueError("the Spearman CDF grid is not sorted or holds NaN")
-    return grid
 
 
 class HostAgg:
@@ -451,11 +434,11 @@ class CollectCheckpoint:
         meta = self._meta()
         meta["has_state"] = state is not None
         if state is not None:
-            state = self.runner.host_state(state)
+            state = self.runner.finalize(state)
         if hist_state is not None:
             # the histogram fold rides the same archive; a resume bins the
             # rest of the stream on the same edges
-            state = {"a": state, "hist": self.runner.host_state(hist_state)}
+            state = {"a": state, "hist": self.runner.finalize(hist_state)}
             blob["singlepass_edges"] = edges.as_blob()
         with span("checkpoint"):
             ckpt.save(self.path, state, blob, cursor, meta=meta,
@@ -565,8 +548,8 @@ def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
             continue
         if state is None:
             state = runner.init_pass_a(estimate_shift(hb))
-        state = runner.step_a(state, runner.put_batch(
-            hb, with_hll=host_hll is None, hll_lanes=route.lanes_d))
+        state = runner.fold_a(state, runner.ship(
+            [hb], with_hll=host_hll is None, hll_lanes=route.lanes_d))
         sampler.update(hb.x, hb.nrows)
         if host_hll is not None and route.host_runs:
             host_hll.update(hb.hll, hb.nrows, route.host_runs)
@@ -574,7 +557,7 @@ def _scan_fragments_pass_a(frags, ingest, plan, pad, config, runner,
     if state is None:
         state = runner.init_pass_a()
     hostagg.unique.persistent = True     # the part references the runs
-    return {"kind": "pass_a", "res_a": runner.finalize_a(state),
+    return {"kind": "pass_a", "res_a": runner.finalize(state),
             "hostagg": hostagg, "sampler": sampler, "host_hll": host_hll,
             "quarantine": q_entries, "rows": int(hostagg.n_rows)}
 
@@ -735,12 +718,12 @@ class GPUStatsBackend:
 
         hostagg = HostAgg(plan, config)
 
-        def drained(finalize, st):
-            """``finalize(st)``, the copy of a device state to the host,
-            which waits on the card, under the drain watchdog."""
+        def drained(st):
+            """``runner.finalize(st)``, the copy of a device state to the
+            host, which waits on the card, under the drain watchdog."""
             def wait():
                 faults.hit("device_wait")
-                return finalize(st)
+                return runner.finalize(st)
             return guard.watched(wait, drain_timeout, site="device_wait",
                                  heartbeat=lambda: {
                                      "rows": int(hostagg.n_rows),
@@ -895,16 +878,17 @@ class GPUStatsBackend:
                 "partial group, which folds batch by batch", resume.every,
                 scan_s)
 
-        def flush_group(pending, fold_staged, fold_one):
+        def flush_group(pending, fold):
             """The staged-vs-tail flush policy of both passes: a FULL group
-            ships as one stacked copy folded by one scan; a partial group
-            (the tail, a checkpoint) folds batch by batch.  Both run the
-            same per-batch kernel calls in the same order."""
-            if len(pending) == scan_s and scan_s > 1:
-                fold_staged(pending)
+            ships as one stacked copy and folds as one group; a partial
+            group (the tail, a checkpoint) ships and folds batch by batch,
+            as groups of one.  Both run the same per-batch kernel calls in
+            the same order."""
+            if len(pending) == scan_s:
+                fold(pending)
             else:
                 for p in pending:
-                    fold_one(p)
+                    fold([p])
             pending.clear()
 
         # ---- pass A (with the provisional histograms when fused) ---------
@@ -924,34 +908,22 @@ class GPUStatsBackend:
             if fleet_member is not None else None), "wait_a")
         pending: List[HostBatch] = []
 
-        def staged_a(group):
+        def fold_group_a(group):
             nonlocal state, state_h
             with span("stage_a", quiet=True):
-                sb = runner.stage_batches(group, with_hll=with_hll,
-                                          hll_lanes=route.lanes_d)
+                g = runner.ship(group, with_hll=with_hll,
+                                hll_lanes=route.lanes_d)
             with span("launch_a", quiet=True):
                 if state_h is not None:
-                    state, state_h = runner.scan_ab(state, state_h, sb,
+                    state, state_h = runner.fold_ab(state, state_h, g,
                                                     *edges_d)
                 else:
-                    state = runner.scan_a(state, sb)
-
-        def one_a(hb):
-            nonlocal state, state_h
-            with span("stage_a", quiet=True):
-                db = runner.put_batch(hb, with_hll=with_hll,
-                                      hll_lanes=route.lanes_d)
-            with span("launch_a", quiet=True):
-                if state_h is not None:
-                    state, state_h = runner.step_ab(state, state_h, db,
-                                                    *edges_d)
-                else:
-                    state = runner.step_a(state, db)
+                    state = runner.fold_a(state, g)
 
         def save():
             """A checkpoint after the device folded every pending batch:
             the saved cursor is the folded count."""
-            flush_group(pending, staged_a, one_a)
+            flush_group(pending, fold_group_a)
             resume.save(state, sampler, hostagg, host_hll, cursor,
                         last_frag, quarantine, skipped, state_h, sp_edges,
                         fleet_done=fleet_member.done("a")
@@ -1049,8 +1021,8 @@ class GPUStatsBackend:
                 if resume is not None and resume.due(cursor):
                     save()
                 elif len(pending) >= scan_s:
-                    flush_group(pending, staged_a, one_a)
-            flush_group(pending, staged_a, one_a)
+                    flush_group(pending, fold_group_a)
+            flush_group(pending, fold_group_a)
             if fleet_member is not None and cur_frag[0] is not None:
                 # the stream drained: the last fragment read is folded
                 fleet_member.mark_done("a", cur_frag[0])
@@ -1075,9 +1047,9 @@ class GPUStatsBackend:
             if not (multi or elastic):
                 bounds_d = runner.bounds_b_device(state) \
                     if plan.n_num > 0 else None
-                res_a = drained(runner.finalize_a, state)
+                res_a = drained(state)
             else:
-                res_a = drained(runner.finalize_a, state)
+                res_a = drained(state)
                 if fleet_member is not None:
                     def steal_scan_a(frags):
                         return _scan_fragments_pass_a(
@@ -1114,8 +1086,9 @@ class GPUStatsBackend:
                 res_a["hll"], distributed.merge_hll_registers(host_hll).regs))
         else:
             hll_est = khll.finalize(res_a["hll"])
+        # with no numeric lane the second scan is the top-k recount alone
         run_pass_b = config.exact_passes and ingest.rescannable \
-            and plan.n_num > 0 and hostagg.n_rows > 0
+            and hostagg.n_rows > 0
 
         # ---- fused: which lanes the provisional edges got right ----------
         res_h = None            # the fused histograms, finalized
@@ -1123,7 +1096,7 @@ class GPUStatsBackend:
         adopted = None          # fused histograms taken as they are
         exact_lanes = None      # lanes whose histogram/MAD are exact
         if state_h is not None and hostagg.n_rows > 0:
-            res_h = drained(runner.finalize_b, state_h)
+            res_h = drained(state_h)
             hits = singlepass.hit_lanes(sp_edges, exact)
             singlepass.record_outcome(hits)
             if run_pass_b:
@@ -1169,10 +1142,12 @@ class GPUStatsBackend:
         spear_approx = False
         if run_pass_b:
             recounter = Recounter(hostagg)
-            lanes_d = None
+            state_b = spear_state = spear_in = None
+            lo_d = hi_d = mean_d = lanes_d = None
             if rebin is None:
-                state_b = runner.init_pass_b()
-                lo_d, hi_d, mean_d = bounds_d
+                if bounds_d is not None:    # else no numeric lane
+                    state_b = runner.init_pass_b()
+                    lo_d, hi_d, mean_d = bounds_d
             elif len(rebin):
                 # the missed lanes only, on the exact triple the hit check
                 # held them to
@@ -1181,124 +1156,85 @@ class GPUStatsBackend:
                 lo_d, hi_d, mean_d = (runner.put_replicated(a[rebin])
                                       for a in exact)
                 lanes_d = torch.as_tensor(rebin, device=runner.device)
-            else:
-                state_b = None  # all hit: the second scan is for others
-            spear_state = None
-            if config.spearman:
+            # else all hit: the second scan is for others
+            if config.spearman and plan.n_num > 0:
+                # ranks on the runner's tier: the sample's CDF grid, or
+                # past the rank kernels' columns the sorted sample
                 spear_state = runner.init_spearman()
-                if runner.spear_grid:
-                    # the grid tier: ranks on the sample's CDF grid (K5,
-                    # or K6 then K3)
-                    spear_in = (runner.put_replicated(
-                        spearman_grid(sampler, config.spearman_grid)),)
-                    spear_one = runner.step_spearman_grid
-                    spear_staged = runner.scan_spearman_grid
-                else:
-                    # past the rank kernels' columns, the reference's
-                    # exact tier: each value's rank in its column's
-                    # sorted sample (+inf pads the unkept slots).  The
-                    # reference warns past 1,000,000 rows; the card's
-                    # time is chip_smoke.py phase 7's (PERF.md)
-                    if hostagg.n_rows > 1_000_000:
-                        logger.warning(
-                            "spearman: %d numeric columns exceed the rank "
-                            "kernels' %d, so %d rows rank on the exact "
-                            "tier (searchsorted, then a float32 Gram): "
-                            "198 ms a 65,536-row batch of 4,096 columns "
-                            "on an NVIDIA H100 80GB HBM3 at 700 W",
-                            plan.n_num, MAX_FUSED_COLS_WIDE,
-                            hostagg.n_rows)
-                    srt, kept = sampler.sorted_padded()
-                    spear_in = (runner.put_replicated(srt),
-                                runner.put_replicated(kept, np.int32))
-                    spear_one = runner.step_spearman
-                    spear_staged = runner.scan_spearman
+                spear_in = runner.spearman_inputs(
+                    sampler, config.spearman_grid, hostagg.n_rows)
             # ship only the missed columns when nothing else reads the
             # batch; with Spearman on the whole plane ships for the rank
             # kernels and the re-bin takes its columns from it on the
             # device (lanes_d)
             subset = rebin is not None and spear_state is None
 
-            def view(hb):
-                return dataclasses.replace(hb, x=hb.x[:, rebin]) \
-                    if subset else hb
-
-            # the Spearman state folds from the batches pass B ships: one
-            # transfer feeds K2 and the rank kernels
-            def staged_b(group):
-                nonlocal state_b, spear_state
-                if state_b is None and spear_state is None:
-                    return
+            def fold_b(group, st_b, sp_st):
+                """Ship ``group`` and fold it into the histogram and
+                Spearman states, either of which may be None; nothing
+                ships when neither exists.  One transfer feeds K2 and the
+                rank kernels."""
+                if st_b is None and sp_st is None:
+                    return st_b, sp_st
                 with span("stage_b", quiet=True):
-                    sb = runner.stage_batches([view(hb) for hb in group],
-                                              with_hll=False)
+                    g = runner.ship([dataclasses.replace(hb, x=hb.x[:, rebin])
+                                     if subset else hb for hb in group],
+                                    with_hll=False)
                 with span("launch_b", quiet=True):
-                    if state_b is not None:
-                        state_b = runner.scan_b(state_b, sb, lo_d, hi_d,
-                                                mean_d,
-                                                None if subset else lanes_d)
-                    if spear_state is not None:
-                        spear_state = spear_staged(spear_state, sb,
-                                                   *spear_in)
+                    if st_b is not None:
+                        st_b = runner.fold_b(st_b, g, lo_d, hi_d, mean_d,
+                                             None if subset else lanes_d)
+                    if sp_st is not None:
+                        sp_st = runner.fold_spearman(sp_st, g, spear_in)
+                return st_b, sp_st
 
-            def one_b(hb):
+            def fold_group_b(group):
                 nonlocal state_b, spear_state
-                if state_b is None and spear_state is None:
-                    return
-                with span("stage_b", quiet=True):
-                    db = runner.put_batch(view(hb), with_hll=False)
-                with span("launch_b", quiet=True):
-                    if state_b is not None:
-                        state_b = runner.step_b(state_b, db, lo_d, hi_d,
-                                                mean_d,
-                                                None if subset else lanes_d)
-                    if spear_state is not None:
-                        spear_state = spear_one(spear_state, db, *spear_in)
+                state_b, spear_state = fold_b(group, state_b, spear_state)
 
             def steal_scan_b(frags):
                 """A fresh finalized pass-B part of stolen fragments (the
                 bounds and candidates are the fleet's, so any member can
-                recount any fragment)."""
-                st_b = runner.init_pass_b()
+                recount any fragment), folded batch by batch."""
+                st_b = runner.init_pass_b() if state_b is not None else None
                 sp_st = runner.init_spearman() \
                     if spear_state is not None else None
                 rec = Recounter(hostagg)
                 for shb in pass_b_batches(_read_fragments(ingest, frags)):
                     rec.update(shb)
-                    sdb = runner.put_batch(shb, with_hll=False)
-                    st_b = runner.step_b(st_b, sdb, lo_d, hi_d, mean_d)
-                    if sp_st is not None:
-                        sp_st = spear_one(sp_st, sdb, *spear_in)
-                return {"kind": "pass_b", "res_b": runner.finalize_b(st_b),
-                        "counts": rec.counts,
-                        "spear": runner.finalize_spearman(sp_st)
-                        if sp_st is not None else None}
+                    st_b, sp_st = fold_b([shb], st_b, sp_st)
+                return {"kind": "pass_b", "counts": rec.counts,
+                        "res_b": None if st_b is None
+                        else runner.finalize(st_b),
+                        "spear": None if sp_st is None
+                        else runner.finalize(sp_st)}
 
             pending_b: List[HostBatch] = []
             t0_b = time.perf_counter()
-            with span("scan_b", spearman=config.spearman):
+            with span("scan_b", **({"spearman": config.spearman}
+                                   if plan.n_num else {"recount_only": True})):
                 for hb in _waited(pass_b_batches(), "wait_b"):
                     with span("recount_b", quiet=True):
                         recounter.update(hb)
                     pending_b.append(hb)
                     if len(pending_b) >= scan_s:
-                        flush_group(pending_b, staged_b, one_b)
-                flush_group(pending_b, staged_b, one_b)
+                        flush_group(pending_b, fold_group_b)
+                flush_group(pending_b, fold_group_b)
                 with span("drain_b", quiet=True):
-                    res_b = drained(runner.finalize_b, state_b) \
-                        if state_b is not None else None
+                    res_b = drained(state_b) if state_b is not None else None
                 if fleet_member is not None:
                     res_b, recounter.counts, rho_spear = _elastic_merge_b(
                         fleet_member,
                         {"kind": "pass_b", "res_b": res_b,
                          "counts": recounter.counts,
-                         "spear": drained(runner.finalize_spearman,
-                                          spear_state)
+                         "spear": drained(spear_state)
                          if spear_state is not None else None},
                         steal_scan_b, barrier_timeout)
                     spear_state = None  # finalized and merged above
                 elif multi:
-                    res_b = distributed.merge_pass_b_states(res_b)
+                    if res_b is not None:
+                        res_b = distributed.merge_pass_b_states(res_b)
+                    # each process recounted its own stripe
                     recounter.counts = distributed.merge_recount_arrays(
                         recounter.counts)
             if rebin is not None:
@@ -1314,40 +1250,16 @@ class GPUStatsBackend:
                         sp_edges.origin)
                 else:
                     res_b = res_h
-            hists, mad = khistogram.finalize(
-                res_b, momf["fmin"], momf["fmax"], momf["n"], config.bins)
+            if res_b is not None:
+                hists, mad = khistogram.finalize(
+                    res_b, momf["fmin"], momf["fmax"], momf["n"],
+                    config.bins)
             if spear_state is not None:
                 rho_spear = kcorr.finalize(distributed.merge_corr_states(
-                    drained(runner.finalize_spearman, spear_state)))
+                    drained(spear_state)))
         elif adopted is not None:
             hists, mad = khistogram.finalize(
                 adopted, momf["fmin"], momf["fmax"], momf["n"], config.bins)
-        elif config.exact_passes and ingest.rescannable \
-                and hostagg.n_rows > 0:
-            # no numeric columns: only the top-k recount needs a rescan
-            recounter = Recounter(hostagg)
-
-            def steal_recount(frags):
-                rec = Recounter(hostagg)
-                for shb in pass_b_batches(_read_fragments(ingest, frags)):
-                    rec.update(shb)
-                return {"kind": "pass_b", "res_b": None,
-                        "counts": rec.counts, "spear": None}
-
-            with span("scan_b", recount_only=True):
-                for hb in _waited(pass_b_batches(), "wait_b"):
-                    with span("recount_b", quiet=True):
-                        recounter.update(hb)
-                if fleet_member is not None:
-                    _, recounter.counts, _ = _elastic_merge_b(
-                        fleet_member,
-                        {"kind": "pass_b", "res_b": None,
-                         "counts": recounter.counts, "spear": None},
-                        steal_recount, barrier_timeout)
-                elif multi:
-                    # each process recounted its own stripe
-                    recounter.counts = distributed.merge_recount_arrays(
-                        recounter.counts)
         if config.spearman and not run_pass_b and hostagg.n_rows > 0 \
                 and plan.n_num > 1:
             # no rank pass (exact_passes=False): estimate from the K-row

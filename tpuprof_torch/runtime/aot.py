@@ -586,27 +586,27 @@ def warm(runner, key: Tuple, spearman_grid: int) -> List[str]:
     import torch
 
     from tpuprof_torch.config import MAX_SPEAR_GRID
-    from tpuprof_torch.runtime.runner import DeviceBatch
+    from tpuprof_torch.runtime.runner import DeviceGroup
     names = libraries_for(key)
     if not names:
         return []
     for r in getattr(runner, "runners", [runner]):
         dev, C = r.device, r.n_num
-        db = DeviceBatch(
-            torch.zeros((C, r.rows), dtype=torch.float32, device=dev),
-            torch.zeros((r.rows,), dtype=torch.bool, device=dev),
-            torch.zeros((r.n_hash, r.rows), dtype=torch.int16,
-                        device=dev))
+        g = DeviceGroup(
+            torch.zeros((1, C, r.rows), dtype=torch.float32, device=dev),
+            torch.zeros((1, r.rows), dtype=torch.bool, device=dev),
+            torch.zeros((1, r.n_hash, r.rows), dtype=torch.int16,
+                        device=dev), 1)
         zero = r.put_replicated(np.zeros(C))
-        r.step_a(r.init_pass_a(np.zeros(C)), db)
-        r.step_b(r.init_pass_b(), db, zero, zero, zero)
+        r.fold_a(r.init_pass_a(np.zeros(C)), g)
+        r.fold_b(r.init_pass_b(), g, zero, zero, zero)
         if "fused_ab" in names:
-            r.step_ab(r.init_pass_a(np.zeros(C)), r.init_pass_b(), db,
+            r.fold_ab(r.init_pass_a(np.zeros(C)), r.init_pass_b(), g,
                       zero, zero, zero)
         if "rank" in names:
             grid = torch.zeros((C, min(spearman_grid, MAX_SPEAR_GRID)),
                                dtype=torch.float32, device=dev)
-            r.step_spearman_grid(r.init_spearman(), db, grid)
+            r.fold_spearman(r.init_spearman(), g, (grid,))
         torch.cuda.synchronize(dev)
     return names
 

@@ -31,10 +31,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tpuprof_torch.kernels import fused
-from tpuprof_torch.runtime.runner import (DeviceBatch, Runner, StackedBatch,
-                                          bounds_from_state,
-                                          state_from_numpy, state_to_numpy)
+from tpuprof_torch.runtime.runner import (DeviceGroup, Runner,
+                                          bounds_from_state, host_planes,
+                                          observe_fold, state_from_numpy,
+                                          state_to_numpy)
 
 
 def local_devices(mesh_devices: Optional[int] = None) -> List[torch.device]:
@@ -74,6 +74,7 @@ class MeshRunner:
             r.rows = self.shard_rows
         first = self.runners[0]
         self.n_num, self.n_hash = n_num, n_hash
+        self.precision = first.precision
         self.pass_b_kernel = first.pass_b_kernel
         self.use_fused = first.use_fused
         self.spear_grid = first.spear_grid
@@ -81,34 +82,17 @@ class MeshRunner:
 
     # -- host -> device ------------------------------------------------------
 
-    def _blocks(self, arr: np.ndarray) -> List[np.ndarray]:
-        """The row blocks of a (..., rows) plane, one a device."""
-        r = self.shard_rows
-        return [arr[..., d * r:(d + 1) * r] for d in range(self.n_dev)]
-
-    @staticmethod
-    def _no_lanes(hll_lanes) -> None:
+    def ship(self, hbs: List, with_hll: bool = True,
+             hll_lanes=None) -> List[DeviceGroup]:
+        """One group a device: the row blocks ``P("data")`` of the group's
+        planes (:func:`host_planes`), each copied to its shard."""
         if hll_lanes is not None:
             raise ValueError("a mesh profile hashes every lane on the host "
                              "(hashes_on_device is False)")
-
-    def put_batch(self, hb, with_hll: bool = True,
-                  hll_lanes=None) -> List[DeviceBatch]:
-        self._no_lanes(hll_lanes)
-        xt, rv, ht = self.runners[0]._host_views(hb, with_hll)
-        return [DeviceBatch(r._ship(x), r._ship(v), r._ship(h))
-                for r, x, v, h in zip(self.runners, self._blocks(xt),
-                                      self._blocks(rv), self._blocks(ht))]
-
-    def stage_batches(self, hbs: List, with_hll: bool = True,
-                      hll_lanes=None) -> List[StackedBatch]:
-        self._no_lanes(hll_lanes)
-        views = [self.runners[0]._host_views(hb, with_hll) for hb in hbs]
-        planes = [np.stack([v[i] for v in views]) for i in range(3)]
-        blocks = [self._blocks(p) for p in planes]
-        return [StackedBatch(r._ship(blocks[0][d]), r._ship(blocks[1][d]),
-                             r._ship(blocks[2][d]), len(hbs))
-                for d, r in enumerate(self.runners)]
+        planes = host_planes(hbs, with_hll, self.precision)
+        r = self.shard_rows
+        return [run.put_planes([p[..., d * r:(d + 1) * r] for p in planes])
+                for d, run in enumerate(self.runners)]
 
     def put_replicated(self, arr, dtype=np.float32) -> Replicated:
         return Replicated(r.put_replicated(arr, dtype)
@@ -149,120 +133,75 @@ class MeshRunner:
             rest = self.init_pass_a(shift)[1:]
         return [first] + rest
 
-    def host_state(self, state: List) -> Dict[str, Any]:
-        """The merged state as numpy arrays (what a checkpoint saves)."""
-        return self._merge(state)
-
     # -- folds ---------------------------------------------------------------
 
-    def step_a(self, state, db):
-        with fused.observe_dispatch("step_a", self.device):
-            return [r._fold_a(s, b.xt, b.row_valid, b.hllt)
-                    for r, s, b in zip(self.runners, state, db)]
+    def _shards(self, state, groups, *consts):
+        """Each shard's runner, state, group and ``consts`` on its device."""
+        for d, (r, s, g) in enumerate(zip(self.runners, state, groups)):
+            yield r, s, g, [self._on(c, d) for c in consts]
 
-    def scan_a(self, state, sb):
-        with fused.observe_dispatch("scan_a", self.device,
-                                    batches=sb[0].n_batches):
+    def fold_a(self, state, groups):
+        with observe_fold("a", groups[0].n_batches, self.device):
             out = []
-            for r, s, b in zip(self.runners, state, sb):
-                for i in range(b.n_batches):
-                    s = r._fold_a(s, b.xts[i], b.row_valids[i], b.hllts[i])
+            for r, s, g, _ in self._shards(state, groups):
+                for xt, rv, ht in g.batches():
+                    s = r._fold_a(s, xt, rv, ht)
                 out.append(s)
         return out
 
-    def _fold_b_all(self, state, planes, lo, hi, mean, lanes):
-        out = []
-        for d, (r, s) in enumerate(zip(self.runners, state)):
-            for xt, rv in planes[d]:
-                s = r._fold_b(s, xt, rv, self._on(lo, d), self._on(hi, d),
-                              self._on(mean, d), self._on(lanes, d))
-            out.append(s)
+    def fold_b(self, state, groups, lo, hi, mean, lanes=None):
+        with observe_fold("b", groups[0].n_batches, self.device,
+                          kernel=self.pass_b_kernel):
+            out = []
+            for r, s, g, c in self._shards(state, groups, lo, hi, mean,
+                                           lanes):
+                for xt, rv, _ in g.batches():
+                    s = r._fold_b(s, xt, rv, *c)
+                out.append(s)
         return out
 
-    def step_b(self, state, db, lo, hi, mean, lanes=None):
-        with fused.observe_dispatch("step_b", self.device,
-                                    kernel=self.pass_b_kernel):
-            return self._fold_b_all(state, [[(b.xt, b.row_valid)]
-                                            for b in db],
-                                    lo, hi, mean, lanes)
-
-    def scan_b(self, state, sb, lo, hi, mean, lanes=None):
-        with fused.observe_dispatch("scan_b", self.device,
-                                    batches=sb[0].n_batches,
-                                    kernel=self.pass_b_kernel):
-            return self._fold_b_all(
-                state, [[(b.xts[i], b.row_valids[i])
-                         for i in range(b.n_batches)] for b in sb],
-                lo, hi, mean, lanes)
-
-    def _fold_ab_all(self, state, state_h, planes, lo, hi, mean):
-        out_a, out_h = [], []
-        for d, (r, s, h) in enumerate(zip(self.runners, state, state_h)):
-            for xt, rv, ht in planes[d]:
-                s, h = r._fold_ab(s, h, xt, rv, ht, self._on(lo, d),
-                                  self._on(hi, d), self._on(mean, d))
-            out_a.append(s)
-            out_h.append(h)
+    def fold_ab(self, state, state_h, groups, lo, hi, mean):
+        with observe_fold("ab", groups[0].n_batches, self.device,
+                          kernel=self.pass_b_kernel):
+            out_a, out_h = [], []
+            for (r, s, g, c), h in zip(
+                    self._shards(state, groups, lo, hi, mean), state_h):
+                for xt, rv, ht in g.batches():
+                    s, h = r._fold_ab(s, h, xt, rv, ht, *c)
+                out_a.append(s)
+                out_h.append(h)
         return out_a, out_h
 
-    def step_ab(self, state, state_h, db, lo, hi, mean):
-        with fused.observe_dispatch("step_ab", self.device,
-                                    kernel=self.pass_b_kernel):
-            return self._fold_ab_all(
-                state, state_h, [[(b.xt, b.row_valid, b.hllt)] for b in db],
-                lo, hi, mean)
-
-    def scan_ab(self, state, state_h, sb, lo, hi, mean):
-        with fused.observe_dispatch("scan_ab", self.device,
-                                    batches=sb[0].n_batches,
-                                    kernel=self.pass_b_kernel):
-            return self._fold_ab_all(
-                state, state_h,
-                [[(b.xts[i], b.row_valids[i], b.hllts[i])
-                  for i in range(b.n_batches)] for b in sb],
-                lo, hi, mean)
-
-    def _spear_all(self, state, planes, fold, consts):
+    def fold_spearman(self, state, groups, inputs):
         out = []
-        for d, (r, s) in enumerate(zip(self.runners, state)):
-            for xt, rv in planes[d]:
-                s = fold(r, s, xt, rv, *(self._on(c, d) for c in consts))
+        for r, s, g, c in self._shards(state, groups, *inputs):
+            for xt, rv, _ in g.batches():
+                s = r._fold_spearman(s, xt, rv, *c)
             out.append(s)
         return out
 
-    @staticmethod
-    def _grid_fold(r, s, xt, rv, grid):
-        return r._fold_spearman(s, xt, rv, grid)
-
-    @staticmethod
-    def _exact_fold(r, s, xt, rv, sorted_sample, kept):
-        return fused.spearman_update_exact(s, xt, rv, sorted_sample, kept)
-
-    def step_spearman(self, state, db, sorted_sample, kept):
-        return self._spear_all(state, [[(b.xt, b.row_valid)] for b in db],
-                               self._exact_fold, (sorted_sample, kept))
-
-    def scan_spearman(self, state, sb, sorted_sample, kept):
-        return self._spear_all(
-            state, [[(b.xts[i], b.row_valids[i])
-                     for i in range(b.n_batches)] for b in sb],
-            self._exact_fold, (sorted_sample, kept))
-
-    def step_spearman_grid(self, state, db, grid):
-        return self._spear_all(state, [[(b.xt, b.row_valid)] for b in db],
-                               self._grid_fold, (grid,))
-
-    def scan_spearman_grid(self, state, sb, grid):
-        return self._spear_all(
-            state, [[(b.xts[i], b.row_valids[i])
-                     for i in range(b.n_batches)] for b in sb],
-            self._grid_fold, (grid,))
+    # the runner's tier choice; put_replicated copies to every shard
+    spearman_inputs = Runner.spearman_inputs
 
     # -- finalize ------------------------------------------------------------
 
-    def _merge(self, state: List) -> Dict[str, Any]:
+    def bounds_b_device(self, state):
+        """(lo, hi, mean) on the first device from the merged pass-A
+        state (:func:`bounds_from_state`); a merged state passes
+        through."""
+        merged = self.finalize(state) if isinstance(state, list) \
+            else state
+        return bounds_from_state(state_from_numpy(merged, self.device))
+
+    def wait_ready(self, state, timeout_s=None, heartbeat=None):
+        for r, s in zip(self.runners, state):
+            r.wait_ready(s, timeout_s, heartbeat)
+        return state
+
+    def finalize(self, state: List) -> Dict[str, Any]:
         """The per-device states folded into one (numpy), by the
-        reference's merge law on their stack."""
+        reference's merge law on their stack (what a checkpoint saves and
+        the finalizers read)."""
         parts = [state_to_numpy(s) for s in state]
 
         def stack(*leaves):
@@ -271,24 +210,3 @@ class MeshRunner:
                         for k in leaves[0]}
             return np.stack(leaves)
         return state_to_numpy(state_from_numpy(stack(*parts), "cpu"))
-
-    def bounds_b_device(self, state):
-        """(lo, hi, mean) on the first device from the merged pass-A
-        state (:func:`bounds_from_state`); a merged state passes
-        through."""
-        merged = self._merge(state) if isinstance(state, list) else state
-        return bounds_from_state(state_from_numpy(merged, self.device))
-
-    def wait_ready(self, state, timeout_s=None, heartbeat=None):
-        for r, s in zip(self.runners, state):
-            r.wait_ready(s, timeout_s, heartbeat)
-        return state
-
-    def finalize_a(self, state) -> Dict[str, Any]:
-        return self._merge(state)
-
-    def finalize_b(self, state) -> Dict[str, Any]:
-        return self._merge(state)
-
-    def finalize_spearman(self, state) -> Dict[str, Any]:
-        return self._merge(state)

@@ -8,24 +8,27 @@ the pass-B state ``{"counts", "abs_dev"}`` (kernel K2, any bin count) and,
 with Spearman on, the rank-correlation state: on the grid tier up to 2,048
 columns (a corr state about 0.5: kernel K5, or K6 then K3 past 512
 columns), past that on the reference's exact tier (``searchsorted`` ranks in
-the sorted row sample, then ``corr.update``).  A single-pass profile folds
-the pass-A and pass-B states from one shipped batch (``step_ab`` /
-``scan_ab``): kernel K4 up to 512 columns and 8,192 bins, else pass A's
-route then K2 on the same batch (the reference's paired dispatch).  A
-batch shipped with a lane map (``hll_lanes``) also has those float32
-lanes' HyperLogLog observations hashed into the pass-A registers on the
-device, after the pass-A kernel (``fused.hll_regs``, in place): the lanes
-the host ingest left unhashed (``ingest/arrow.py``).  The
-tiers are the reference's (``mesh.py``: ``use_fused``, ``spear_grid``,
-``_ab_combined_kernel``).  States are dicts of tensors with the
-reference's keys, so the merge laws and finalizers carry over.
+the sorted row sample, then ``corr.update``); :meth:`Runner.spearman_inputs`
+gives the device inputs of the runner's tier.  A single-pass profile folds
+the pass-A and pass-B states from one shipped batch (:meth:`fold_ab`):
+kernel K4 up to 512 columns and 8,192 bins, else pass A's route then K2 on
+the same batch (the reference's paired dispatch).  A batch shipped with a
+lane map (``hll_lanes``) also has those float32 lanes' HyperLogLog
+observations hashed into the pass-A registers on the device, after the
+pass-A kernel (``fused.hll_regs``, in place): the lanes the host ingest
+left unhashed (``ingest/arrow.py``).  The tiers are the reference's
+(``mesh.py``: ``use_fused``, ``spear_grid``, ``_ab_combined_kernel``).
+States are dicts of tensors with the reference's keys, so the merge laws
+and finalizers carry over.
 
-Shipping: :meth:`Runner.put_batch` copies one batch; :meth:`stage_batches`
-copies S batches as ONE host-to-device transfer from pinned memory, and the
-``scan_*`` forms fold the staged slices in order with the same per-batch
-calls, so a staged run gives the same bits as a per-batch run.  Each
-``step_*``/``scan_*`` of the two passes is one dispatch to the telemetry
-(``kernels/fused.observe_dispatch``), under the reference's program names.
+Shipping: :meth:`Runner.ship` copies a group of S host batches as ONE
+host-to-device transfer a plane (:func:`host_planes`): a group of one from
+views of the batch's planes, several stacked once.  Each ``fold_*`` folds
+the group's batches in order with the same per-batch calls, so a group of
+S gives the same bits as S groups of one.  Each pass-A or pass-B fold is
+one dispatch to the telemetry (``kernels/fused.observe_dispatch``), under
+the reference's program names: ``step_*`` for a group of one, ``scan_*``
+for a staged group.
 
 :func:`state_from_numpy` / :func:`state_to_numpy` carry states in and out of
 the port, including the reference's per-device stacked states, which are
@@ -35,14 +38,18 @@ Spearman state, ``merge_corr_local``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Union
+import logging
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from tpuprof_torch.config import MAX_SPEAR_GRID
 from tpuprof_torch.kernels import corr, fused, hist, histogram, hll, moments
 
 State = Dict[str, Any]
+
+logger = logging.getLogger("tpuprof_torch")
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -65,21 +72,66 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return dev
 
 
-class DeviceBatch(NamedTuple):
-    xt: torch.Tensor          # (n_num, rows) float32, contiguous
-    row_valid: torch.Tensor   # (rows,) bool
-    hllt: torch.Tensor        # (n_hash, rows) int16 bits of the uint16 plane
+class DeviceGroup(NamedTuple):
+    """S shipped batches, each plane with a leading batch axis."""
+    xts: torch.Tensor         # (S, n_num, rows) float32
+    row_valids: torch.Tensor  # (S, rows) bool
+    hllts: torch.Tensor       # (S, n_hash, rows) int16 bits of uint16
+    n_batches: int
     # (K, 2) int32 (numeric lane, hash lane) on the device: the float32
     # lanes whose observations hash on the device (None: none)
     hll_lanes: Optional[torch.Tensor] = None
 
+    def batches(self):
+        """Each batch's ``(xt, row_valid, hllt)``, in order."""
+        for i in range(self.n_batches):
+            yield self.xts[i], self.row_valids[i], self.hllts[i]
 
-class StackedBatch(NamedTuple):
-    xts: torch.Tensor         # (S, n_num, rows)
-    row_valids: torch.Tensor  # (S, rows)
-    hllts: torch.Tensor       # (S, n_hash, rows)
-    n_batches: int
-    hll_lanes: Optional[torch.Tensor] = None    # as DeviceBatch's
+
+def host_planes(hbs: Sequence, with_hll: bool, precision: int):
+    """The ``(xts, row_valids, hllts)`` host planes of HostBatches ``hbs``,
+    each with a leading batch axis: of one batch, views of its planes (an
+    F-ordered ``x`` transposes without a copy); of several, one stacked
+    copy a plane.  ``with_hll=False`` leaves the packed plane out (pass B
+    and host-side register folds never read it)."""
+    views = []
+    for hb in hbs:
+        h = hb.hll if with_hll else hb.hll[:, :0]
+        if h.shape[1] and hb.hll_precision != precision:
+            raise ValueError(
+                f"batch packed with hll_precision={hb.hll_precision} but "
+                f"the registers use precision={precision}")
+        x = hb.x
+        xt = x.T if x.flags.f_contiguous else np.ascontiguousarray(x.T)
+        ht = h.T if h.flags.f_contiguous else np.ascontiguousarray(h.T)
+        views.append((xt, hb.row_valid, ht.view(np.int16)))
+    if len(views) == 1:
+        return tuple(v[None] for v in views[0])
+    return tuple(np.stack(plane) for plane in zip(*views))
+
+
+def observe_fold(pass_name: str, n_batches: int, device, kernel=None):
+    """A fold's dispatch telemetry: ``step_<pass>`` for a group of one,
+    ``scan_<pass>`` (with ``{program}_batches``) for a staged group."""
+    program = ("step_" if n_batches == 1 else "scan_") + pass_name
+    return fused.observe_dispatch(program, device, batches=n_batches,
+                                  kernel=kernel)
+
+
+def spearman_grid(sampler, n_grid: int) -> np.ndarray:
+    """The (n_num, G) CDF grid of the Spearman rank pass, G clamped to
+    ``MAX_SPEAR_GRID`` with a warning.  Raises ``ValueError`` unless every
+    row is nondecreasing and free of NaN: the kernels rank by binary search,
+    which equals the reference's dense compare only on such a grid."""
+    g = min(n_grid, MAX_SPEAR_GRID)
+    if g < n_grid:
+        logger.warning("spearman_grid=%d clamped to %d: the rank kernels "
+                       "hold each column's grid in shared memory",
+                       n_grid, g)
+    grid = sampler.cdf_grid(g)
+    if np.isnan(grid).any() or (grid[:, 1:] < grid[:, :-1]).any():
+        raise ValueError("the Spearman CDF grid is not sorted or holds NaN")
+    return grid
 
 
 class Runner:
@@ -111,45 +163,28 @@ class Runner:
 
     # -- host -> device ------------------------------------------------------
 
-    def _host_views(self, hb, with_hll: bool):
-        if with_hll and self.n_hash and hb.hll_precision != self.precision:
-            raise ValueError(
-                f"batch packed with hll_precision={hb.hll_precision} but "
-                f"the registers use precision={self.precision}")
-        x = hb.x
-        xt = x.T if x.flags.f_contiguous else np.ascontiguousarray(x.T)
-        h = hb.hll if with_hll else hb.hll[:, :0]
-        ht = h.T if h.flags.f_contiguous else np.ascontiguousarray(h.T)
-        return xt, hb.row_valid, ht.view(np.int16)
+    def put_planes(self, planes, hll_lanes: Optional[torch.Tensor] = None
+                   ) -> DeviceGroup:
+        """Copy host planes (:func:`host_planes`, or row blocks of them) to
+        this runner's device: from pinned memory on a CUDA device, as they
+        are on the CPU."""
+        out = []
+        for arr in planes:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type != "cpu":
+                if self._pin:
+                    t = t.pin_memory()
+                t = t.to(self.device, non_blocking=True)
+            out.append(t)
+        return DeviceGroup(*out, out[0].shape[0], hll_lanes)
 
-    def _ship(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cpu":
-            return t
-        if self._pin:
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
-    def put_batch(self, hb, with_hll: bool = True,
-                  hll_lanes: Optional[torch.Tensor] = None) -> DeviceBatch:
-        """Ship one HostBatch (``with_hll=False`` skips the packed plane:
-        pass B and host-side register folds never read it).  ``hll_lanes``
-        (:meth:`put_hll_lanes`) names the float32 lanes the pass-A fold
-        hashes on the device."""
-        xt, rv, ht = self._host_views(hb, with_hll)
-        return DeviceBatch(self._ship(xt), self._ship(rv), self._ship(ht),
-                           hll_lanes)
-
-    def stage_batches(self, hbs: List, with_hll: bool = True,
-                      hll_lanes: Optional[torch.Tensor] = None
-                      ) -> StackedBatch:
-        """Ship several HostBatches as one stacked copy per plane."""
-        views = [self._host_views(hb, with_hll) for hb in hbs]
-        return StackedBatch(
-            self._ship(np.stack([v[0] for v in views])),
-            self._ship(np.stack([v[1] for v in views])),
-            self._ship(np.stack([v[2] for v in views])),
-            len(hbs), hll_lanes)
+    def ship(self, hbs: Sequence, with_hll: bool = True,
+             hll_lanes: Optional[torch.Tensor] = None) -> DeviceGroup:
+        """Ship HostBatches ``hbs`` as one group (``with_hll=False`` skips
+        the packed plane).  ``hll_lanes`` (:meth:`put_hll_lanes`) names
+        the float32 lanes the pass-A folds hash on the device."""
+        return self.put_planes(host_planes(hbs, with_hll, self.precision),
+                               hll_lanes)
 
     def put_hll_lanes(self, pairs) -> torch.Tensor:
         """The (K, 2) int32 map of (numeric lane, hash lane) pairs on the
@@ -245,104 +280,76 @@ class Runner:
         return (self._fold_a(state, xt, row_valid, hllt),
                 self._fold_b(state_h, xt, row_valid, lo, hi, mean))
 
-    def step_a(self, state: State, db: DeviceBatch) -> State:
-        with fused.observe_dispatch("step_a", self.device):
-            state = self._fold_a(state, db.xt, db.row_valid, db.hllt)
-            return self._hash_a(state, db.xt, db.row_valid, db.hll_lanes)
-
-    def scan_a(self, state: State, sb: StackedBatch) -> State:
-        with fused.observe_dispatch("scan_a", self.device,
-                                    batches=sb.n_batches):
-            for i in range(sb.n_batches):
-                state = self._fold_a(state, sb.xts[i], sb.row_valids[i],
-                                     sb.hllts[i])
-                state = self._hash_a(state, sb.xts[i], sb.row_valids[i],
-                                     sb.hll_lanes)
-        return state
-
-    def step_b(self, state: State, db: DeviceBatch, lo, hi, mean,
-               lanes=None) -> State:
-        with fused.observe_dispatch("step_b", self.device,
-                                    kernel=self.pass_b_kernel):
-            return self._fold_b(state, db.xt, db.row_valid, lo, hi, mean,
-                                lanes)
-
-    def scan_b(self, state: State, sb: StackedBatch, lo, hi, mean,
-               lanes=None) -> State:
-        with fused.observe_dispatch("scan_b", self.device,
-                                    batches=sb.n_batches,
-                                    kernel=self.pass_b_kernel):
-            for i in range(sb.n_batches):
-                state = self._fold_b(state, sb.xts[i], sb.row_valids[i],
-                                     lo, hi, mean, lanes)
-        return state
-
-    def step_ab(self, state: State, state_h: State, db: DeviceBatch, lo, hi,
-                mean):
-        """Fold one shipped batch into the pass-A state AND the histogram
-        state on the provisional ``lo``/``hi``/``mean`` (a single-pass
-        profile).  Returns ``(state, state_h)``."""
-        with fused.observe_dispatch("step_ab", self.device,
-                                    kernel=self.pass_b_kernel):
-            state, state_h = self._fold_ab(state, state_h, db.xt,
-                                           db.row_valid, db.hllt, lo, hi,
-                                           mean)
-            return (self._hash_a(state, db.xt, db.row_valid, db.hll_lanes),
-                    state_h)
-
-    def scan_ab(self, state: State, state_h: State, sb: StackedBatch, lo,
-                hi, mean):
-        """:meth:`step_ab` over the staged batches, in order."""
-        with fused.observe_dispatch("scan_ab", self.device,
-                                    batches=sb.n_batches,
-                                    kernel=self.pass_b_kernel):
-            for i in range(sb.n_batches):
-                state, state_h = self._fold_ab(
-                    state, state_h, sb.xts[i], sb.row_valids[i],
-                    sb.hllts[i], lo, hi, mean)
-                state = self._hash_a(state, sb.xts[i], sb.row_valids[i],
-                                     sb.hll_lanes)
-        return state, state_h
-
-    def _fold_spearman(self, state: State, xt, row_valid, grid) -> State:
+    def _fold_spearman(self, state: State, xt, row_valid, *inputs) -> State:
+        """One batch into the Spearman state on the runner's tier
+        (``inputs``: :meth:`spearman_inputs`).  The grid tier: K5 (its
+        ranks, then their Gram) up to 512 columns, else ranks (K6) then
+        their Gram (K3).  The exact tier: ranks in the sorted padded row
+        sample."""
+        if not self.spear_grid:
+            return fused.spearman_update_exact(state, xt, row_valid, *inputs)
         if self.n_num <= fused.MAX_FUSED_COLS:
-            return fused.spearman_update(state, xt, row_valid, grid)
-        ranks = fused.rank_transform(xt, row_valid, grid)
+            return fused.spearman_update(state, xt, row_valid, *inputs)
+        ranks = fused.rank_transform(xt, row_valid, *inputs)
         return fused.spearman_update_wide(state, ranks, row_valid)
 
-    def step_spearman(self, state: State, db: DeviceBatch,
-                      sorted_sample: torch.Tensor, kept: torch.Tensor
-                      ) -> State:
-        """The exact tier (past the rank kernels' columns): fold one
-        batch's ranks in the sorted padded row sample (``sorted_sample``
-        (n_num, K) float32, ``kept`` (n_num,) int32 on the device)."""
-        return fused.spearman_update_exact(state, db.xt, db.row_valid,
-                                           sorted_sample, kept)
-
-    def scan_spearman(self, state: State, sb: StackedBatch,
-                      sorted_sample: torch.Tensor, kept: torch.Tensor
-                      ) -> State:
-        """:meth:`step_spearman` over the staged slices, in order."""
-        for i in range(sb.n_batches):
-            state = fused.spearman_update_exact(
-                state, sb.xts[i], sb.row_valids[i], sorted_sample, kept)
+    def fold_a(self, state: State, g: DeviceGroup) -> State:
+        """Fold the group's batches into the pass-A state, in order."""
+        with observe_fold("a", g.n_batches, self.device):
+            for xt, rv, ht in g.batches():
+                state = self._fold_a(state, xt, rv, ht)
+                state = self._hash_a(state, xt, rv, g.hll_lanes)
         return state
 
-    def step_spearman_grid(self, state: State, db: DeviceBatch,
-                           grid: torch.Tensor) -> State:
-        """Fold one batch into the Spearman state against ``grid``, the
-        (n_num, G) CDF grid on the device: K5 (its ranks, then their
-        Gram) up to 512 columns, else ranks (K6) then their Gram (K3)."""
-        return self._fold_spearman(state, db.xt, db.row_valid, grid)
-
-    def scan_spearman_grid(self, state: State, sb: StackedBatch,
-                           grid: torch.Tensor) -> State:
-        """Fold the staged batches in order, re-reading the slices pass B
-        already shipped."""
-        for i in range(sb.n_batches):
-            state = self._fold_spearman(state, sb.xts[i], sb.row_valids[i],
-                                        grid)
+    def fold_b(self, state: State, g: DeviceGroup, lo, hi, mean,
+               lanes=None) -> State:
+        """Fold the group's batches into the pass-B state, in order (see
+        :meth:`_fold_b` for ``lanes``)."""
+        with observe_fold("b", g.n_batches, self.device,
+                          kernel=self.pass_b_kernel):
+            for xt, rv, _ in g.batches():
+                state = self._fold_b(state, xt, rv, lo, hi, mean, lanes)
         return state
+
+    def fold_ab(self, state: State, state_h: State, g: DeviceGroup, lo, hi,
+                mean):
+        """Fold the group's batches into the pass-A state AND the
+        histogram state on the provisional ``lo``/``hi``/``mean`` (a
+        single-pass profile).  Returns ``(state, state_h)``."""
+        with observe_fold("ab", g.n_batches, self.device,
+                          kernel=self.pass_b_kernel):
+            for xt, rv, ht in g.batches():
+                state, state_h = self._fold_ab(state, state_h, xt, rv, ht,
+                                               lo, hi, mean)
+                state = self._hash_a(state, xt, rv, g.hll_lanes)
+        return state, state_h
+
+    def fold_spearman(self, state: State, g: DeviceGroup, inputs) -> State:
+        """Fold the group's batches into the Spearman state, in order,
+        re-reading the planes pass B shipped."""
+        for xt, rv, _ in g.batches():
+            state = self._fold_spearman(state, xt, rv, *inputs)
+        return state
+
+    def spearman_inputs(self, sampler, n_grid: int, n_rows: int):
+        """The device inputs of the runner's Spearman tier from the row
+        sample: the CDF grid (:func:`spearman_grid`) of ``n_grid`` points,
+        or past the rank kernels' columns the sorted padded sample and its
+        kept counts (+inf pads the unkept slots), with the reference's
+        warning past 1,000,000 rows (``n_rows``)."""
+        if self.spear_grid:
+            return (self.put_replicated(spearman_grid(sampler, n_grid)),)
+        if n_rows > 1_000_000:
+            # the card's time is chip_smoke.py phase 7's (PERF.md)
+            logger.warning(
+                "spearman: %d numeric columns exceed the rank kernels' %d, "
+                "so %d rows rank on the exact tier (searchsorted, then a "
+                "float32 Gram): 198 ms a 65,536-row batch of 4,096 columns "
+                "on an NVIDIA H100 80GB HBM3 at 700 W", self.n_num,
+                fused.MAX_FUSED_COLS_WIDE, n_rows)
+        srt, kept = sampler.sorted_padded()
+        return (self.put_replicated(srt),
+                self.put_replicated(kept, np.int32))
 
     # -- finalize ------------------------------------------------------------
 
@@ -355,10 +362,6 @@ class Runner:
         """A state (numpy or tensors, e.g. a merged or restored one) on
         this runner's device."""
         return state_from_numpy(state_to_numpy(state), self.device)
-
-    def host_state(self, state: State) -> Dict[str, Any]:
-        """The state as numpy arrays (what a checkpoint saves)."""
-        return state_to_numpy(state)
 
     def wait_ready(self, state: State, timeout_s=None, heartbeat=None):
         """Wait for the device work that ``state`` depends on, under the
@@ -375,13 +378,9 @@ class Runner:
         return guard.watched(wait, timeout_s, site="device_drain",
                              heartbeat=heartbeat)
 
-    def finalize_a(self, state: State) -> Dict[str, Any]:
-        return state_to_numpy(state)
-
-    def finalize_b(self, state: State) -> Dict[str, Any]:
-        return state_to_numpy(state)
-
-    def finalize_spearman(self, state: State) -> Dict[str, Any]:
+    def finalize(self, state: State) -> Dict[str, Any]:
+        """The state as numpy arrays (what a checkpoint saves and the
+        finalizers read); the copy waits on the device."""
         return state_to_numpy(state)
 
 

@@ -4,8 +4,8 @@ Counterpart of ``tpuprof/runtime/stream.py``.  :class:`StreamingProfiler`
 takes pandas frames, Arrow tables or record batches as they arrive,
 coalesces them into device batches of ``batch_rows`` rows (or
 ``stream_flush_rows``), folds each into the pass-A state (kernel K1 through
-``Runner.step_a``; with ``profile_passes="fused"`` K4 through
-``Runner.step_ab``, which also folds the histograms on provisional edges),
+``Runner.fold_a``; with ``profile_passes="fused"`` K4 through
+``Runner.fold_ab``, which also folds the histograms on provisional edges),
 and snapshots the stats dict at any moment: a snapshot folds the buffered
 rows first, so it covers every row ever passed to :meth:`update`.
 
@@ -263,7 +263,7 @@ class StreamingProfiler:
         from tpuprof_torch.backends.gpu import estimate_shift
         if self.state is None:
             self.state = self.runner.init_pass_a(estimate_shift(hb))
-        db = self.runner.put_batch(hb, with_hll=self.host_hll is None)
+        g = self.runner.ship([hb], with_hll=self.host_hll is None)
         if self._fused:
             if self._hist_state is None:
                 self._sp_edges = singlepass.sketch_edges(
@@ -274,10 +274,10 @@ class StreamingProfiler:
                     self.runner.put_replicated(a) for a in (
                         self._sp_edges.lo, self._sp_edges.hi,
                         self._sp_edges.mean))
-            self.state, self._hist_state = self.runner.step_ab(
-                self.state, self._hist_state, db, *self._sp_eds_d)
+            self.state, self._hist_state = self.runner.fold_ab(
+                self.state, self._hist_state, g, *self._sp_eds_d)
         else:
-            self.state = self.runner.step_a(self.state, db)
+            self.state = self.runner.fold_a(self.state, g)
         self.sampler.update(hb.x, hb.nrows)
         if self.host_hll is not None:
             self.host_hll.update(hb.hll, hb.nrows)
@@ -402,7 +402,7 @@ class StreamingProfiler:
             self._drain(force=True)
         state = self.state if self.state is not None \
             else self.runner.init_pass_a()
-        res = self.runner.finalize_a(state)
+        res = self.runner.finalize(state)
         momf = kmoments.finalize(res["mom"])
         probes = list(self.config.quantile_probes)
         sample_vals, sample_kept = self.sampler.columns()
@@ -424,7 +424,7 @@ class StreamingProfiler:
             hits = singlepass.hit_lanes(self._sp_edges, exact)
             if hits.any():
                 hists, mad = khistogram.finalize(
-                    self.runner.finalize_b(self._hist_state), momf["fmin"],
+                    self.runner.finalize(self._hist_state), momf["fmin"],
                     momf["fmax"], momf["n"], self.config.bins)
                 exact_lanes = None if hits.all() else hits
         stats = _assemble(
